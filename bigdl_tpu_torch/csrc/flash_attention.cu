@@ -16,6 +16,9 @@
 //    registers.  Causal tiles past the diagonal are never loaded; the
 //    ragged last tile is masked by global position.  Tensor-core MMA and
 //    a TMA/mbarrier pipeline are the work of a later, speed-minded change.
+//    For training the kernel also writes each query row's logsumexp
+//    lse = m + log(l) (B, H, T) fp32, which the backward
+//    (flash_attention_bwd.cu) uses to rebuild P; serving passes no lse.
 //
 // K2 decode_kernel<PAGED=false> replaces flash_decode_attention /
 //    _decode_kernel: one query row per (b, h) against a contiguous
@@ -40,28 +43,9 @@
 // return cudaGetLastError() after the launch (or -1 for a head_dim or
 // dtype that has no instantiation).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // four consecutive elements starting at a 4-element-aligned address
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -74,28 +58,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   float2 a = __bfloat1622float2(lo);
   float2 b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// -inf-safe online-softmax rescaling, exactly as the TPU kernels do it:
-// safe_m = new_m if finite else 0; corr = exp(m - safe_m) if m finite else 0
-// (a running max is either finite or -inf: scores are finite or masked)
-__device__ __forceinline__ float safe_max(float new_m) {
-  return new_m == -INFINITY ? 0.f : new_m;
-}
-__device__ __forceinline__ float rescale(float m, float safe_m) {
-  return m == -INFINITY ? 0.f : expf(m - safe_m);
 }
 
 // ------------------------------------------------------------------------
@@ -118,7 +80,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   int heads, int64_t sqb, int64_t sqt, int64_t sqh,
                   int64_t skb, int64_t skt, int64_t skh, int64_t svb,
                   int64_t svt, int64_t svh, int64_t sob, int64_t sot,
-                  int64_t soh, int causal, float scale) {
+                  int64_t soh, int causal, float scale,
+                  float* __restrict__ lse) {
   constexpr int LD = D + 1;
   constexpr int DPL = (D + 31) / 32;  // output columns per lane
   extern __shared__ float smem[];
@@ -220,13 +183,18 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = lane + 32 * j;
       if (d < D) ob[qt * sot + d] = from_f32<T>(acc[r][j] / denom);
     }
+    // a row that sees no key gets lse = +inf, so the backward's
+    // exp(s - lse) is 0 there (its output is 0 too)
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<int64_t>(blockIdx.x) * t_len + qt] =
+          m[r] == -INFINITY ? INFINITY : m[r] + logf(denom);
   }
 }
 
 template <typename T, int D>
 int launch_attn(const void* q, const void* k, const void* v, void* o, int b,
                 int t, int h, const int64_t* s, int causal, float scale,
-                cudaStream_t stream) {
+                float* lse, cudaStream_t stream) {
   constexpr int smem = attn_smem_bytes<D>();
   cudaFuncSetAttribute(flash_attn_kernel<T, D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -234,7 +202,8 @@ int launch_attn(const void* q, const void* k, const void* v, void* o, int b,
   flash_attn_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), t, h, s[0], s[1], s[2],
-      s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], causal, scale);
+      s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], causal, scale,
+      lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -401,12 +370,12 @@ int decode_entry(int dtype, int d, const void* q, const void* k,
 template <typename T>
 int dispatch_attn(int d, const void* q, const void* k, const void* v, void* o,
                   int b, int t, int h, const int64_t* s, int causal,
-                  float scale, cudaStream_t stream) {
+                  float scale, float* lse, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_attn<T, 16>(q, k, v, o, b, t, h, s, causal, scale, stream);
-    case 32: return launch_attn<T, 32>(q, k, v, o, b, t, h, s, causal, scale, stream);
-    case 64: return launch_attn<T, 64>(q, k, v, o, b, t, h, s, causal, scale, stream);
-    case 128: return launch_attn<T, 128>(q, k, v, o, b, t, h, s, causal, scale, stream);
+    case 16: return launch_attn<T, 16>(q, k, v, o, b, t, h, s, causal, scale, lse, stream);
+    case 32: return launch_attn<T, 32>(q, k, v, o, b, t, h, s, causal, scale, lse, stream);
+    case 64: return launch_attn<T, 64>(q, k, v, o, b, t, h, s, causal, scale, lse, stream);
+    case 128: return launch_attn<T, 128>(q, k, v, o, b, t, h, s, causal, scale, lse, stream);
     default: return -1;
   }
 }
@@ -416,18 +385,19 @@ int dispatch_attn(int d, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q, k, v, o: (B, T, H, D); strides[12] = (b, t, h) element strides of
-// q, k, v, o in that order.  dtype 0 = float32, 1 = bfloat16.
+// q, k, v, o in that order.  dtype 0 = float32, 1 = bfloat16.  lse: NULL,
+// or (B, H, T) fp32 contiguous, written with each row's logsumexp.
 int bigdl_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int dtype, int b, int t, int h, int d,
                           const int64_t* strides, int causal, float scale,
-                          void* stream) {
+                          float* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_attn<float>(d, q, k, v, o, b, t, h, strides, causal,
-                                scale, st);
+                                scale, lse, st);
   if (dtype == 1)
     return dispatch_attn<__nv_bfloat16>(d, q, k, v, o, b, t, h, strides,
-                                        causal, scale, st);
+                                        causal, scale, lse, st);
   return -1;
 }
 

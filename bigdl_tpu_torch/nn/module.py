@@ -72,3 +72,30 @@ class Container(Module):
     def add(self, key: str, module: torch.nn.Module):
         self.add_module(key, module)
         return module
+
+
+class Criterion:
+    """Loss base (counterpart of ``bigdl_tpu/nn/module.py:738``).
+
+    Core: ``apply(input, target) -> scalar loss`` on tensors, differentiable
+    by autograd.  Facade ``forward`` / ``backward`` / ``__call__`` mirror
+    the reference; ``backward`` is the gradient with respect to the
+    input."""
+
+    size_average: bool = True
+
+    def apply(self, input, target):
+        raise NotImplementedError(type(self).__name__)
+
+    def forward(self, input, target):
+        self.output = self.apply(input, target)
+        return self.output
+
+    def backward(self, input, target):
+        with torch.enable_grad():
+            x = input.detach().requires_grad_(True)
+            self.grad_input, = torch.autograd.grad(self.apply(x, target), x)
+        return self.grad_input
+
+    def __call__(self, input, target):
+        return self.forward(input, target)

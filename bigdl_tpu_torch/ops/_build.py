@@ -1,12 +1,13 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, loaded with ``ctypes``.  The
-build runs at first use, never at import, into
-``build/bigdl_tpu_torch_kernels/`` beside the package (override with
-``BIGDL_TPU_TORCH_BUILD_DIR``); the library's name carries a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-loaded as it is.
+Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
+shared library of its own with a plain C interface, loaded with
+``ctypes``; the compilers for all sources run at once.  The build runs
+at first use, never at import, into ``build/bigdl_tpu_torch_kernels/``
+beside the package (override with ``BIGDL_TPU_TORCH_BUILD_DIR``); each
+library's name carries a hash of its source, the shared headers and the
+flags, so an edited source rebuilds and an unchanged one is loaded as
+it is.
 """
 
 import ctypes
@@ -15,11 +16,16 @@ import os
 import subprocess
 import tempfile
 import threading
+import types
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "flash_attention.cu",)
+SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_bwd.cu",
+           CSRC / "cross_entropy.cu")
+HEADERS = (CSRC / "common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -45,42 +51,40 @@ def find_nvcc() -> str:
         "bigdl_tpu_torch CUDA kernels are built from csrc/ at first use")
 
 
-def nvcc_command(nvcc: str, out: Path):
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, SOURCES)]
+def nvcc_command(nvcc: str, out: Path, source: Path):
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(source)]
 
 
-def _digest() -> str:
+def _digest(source: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in (source, *HEADERS):
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return build_dir() / f"libbigdl_tpu_torch_kernels_{_digest()}.so"
+def library_path(source: Path) -> Path:
+    return build_dir() / f"lib{source.stem}_{_digest(source)}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless the library for their hash exists.
-    The compiler's report (registers, shared memory, spills from
-    ``-Xptxas=-v``) is kept in ``build.log`` beside the library."""
-    out = library_path()
+def _compile(nvcc: str, source: Path) -> Path:
+    """Compile one source unless the library for its hash exists.  The
+    compiler's report (registers, shared memory, spills from
+    ``-Xptxas=-v``) is kept in ``<stem>.build.log`` beside the library."""
+    out = library_path(source)
     if out.exists():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    nvcc = find_nvcc()
     # compile to a private name, then rename: a concurrent builder never
     # loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        proc = subprocess.run(nvcc_command(nvcc, Path(tmp)),
+        proc = subprocess.run(nvcc_command(nvcc, Path(tmp), source),
                               capture_output=True, text=True)
-        (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
+        (out.parent / f"{source.stem}.build.log").write_text(proc.stdout +
+                                                             proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building "
-                f"{[s.name for s in SOURCES]}:\n{proc.stderr[-4000:]}")
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
+                               f"{source.name}:\n{proc.stderr[-4000:]}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -88,30 +92,61 @@ def build() -> Path:
     return out
 
 
-def _declare(lib):
+def build():
+    """Compile every source whose library does not exist yet, one
+    ``nvcc`` per source, all started together (``tools/torch_build_time.py``
+    times this against one ``nvcc`` over all sources).  Returns the
+    library paths, in the order of ``SOURCES``."""
+    outs = [library_path(src) for src in SOURCES]
+    if all(out.exists() for out in outs):
+        return outs
+    build_dir().mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return list(pool.map(partial(_compile, nvcc), SOURCES))
+
+
+def build_logs():
+    """The compilers' reports of the last build, by source stem."""
+    return {src.stem: (build_dir() / f"{src.stem}.build.log").read_text()
+            for src in SOURCES
+            if (build_dir() / f"{src.stem}.build.log").exists()}
+
+
+def _declare(libs):
+    """One namespace holding every entry point of the libraries, each
+    with its argument and return types."""
     p, i, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
-    lib.bigdl_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, p, i,
-                                          f, p]
-    lib.bigdl_flash_attention.restype = i
-    lib.bigdl_flash_decode_attention.argtypes = [p, p, p, p, p, i, i, i, i,
-                                                 i, p, f, p]
-    lib.bigdl_flash_decode_attention.restype = i
-    lib.bigdl_flash_paged_decode_attention.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, i, i64, p, f, p]
-    lib.bigdl_flash_paged_decode_attention.restype = i
-    return lib
+    signatures = {
+        "bigdl_flash_attention": [p, p, p, p, i, i, i, i, i, p, i, f, p, p],
+        "bigdl_flash_decode_attention": [p, p, p, p, p, i, i, i, i, i, p, f,
+                                         p],
+        "bigdl_flash_paged_decode_attention": [
+            p, p, p, p, p, p, i, i, i, i, i, i, i, i64, p, f, p],
+        "bigdl_flash_attention_bwd": [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                      i, i, p, i, f, p],
+        "bigdl_ce_fwd": [p, p, p, p, i, i, i, i64, p],
+        "bigdl_ce_bwd": [p, p, p, p, p, i, i, i, i64, i64, p],
+    }
+    ns = types.SimpleNamespace()
+    for name, argtypes in signatures.items():
+        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
+        fn.argtypes = argtypes
+        fn.restype = i
+        setattr(ns, name, fn)
+    return ns
 
 
 def load():
-    """The loaded kernel library, building it first if needed.  Every
-    launch calls this: once loaded, the handle is returned without the
-    lock."""
+    """The loaded kernel entry points, building the libraries first if
+    needed.  Every launch calls this: once loaded, the namespace is
+    returned without the lock."""
     global _lib
     lib = _lib
     if lib is not None:
         return lib
     with _lock:
         if _lib is None:
-            _lib = _declare(ctypes.CDLL(str(build())))
+            _lib = _declare([ctypes.CDLL(str(path)) for path in build()])
         return _lib

@@ -1,10 +1,14 @@
-"""Flash attention for the serving path: three hand-written CUDA kernels
-(``csrc/flash_attention.cu``) and their plain PyTorch versions.
+"""Flash attention: four hand-written CUDA kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) and their
+plain PyTorch versions.
 
 Counterpart of ``bigdl_tpu/ops/flash_attention.py``, with the same
 ``(B, T, H, D)`` layout at every public function:
 
-- ``flash_attention(q, k, v, causal)``: full or causal attention (K1);
+- ``flash_attention(q, k, v, causal)``: full or causal attention (K1),
+  differentiable: with grad enabled it runs through ``FlashAttention``,
+  whose forward also writes each row's logsumexp and whose backward is
+  the K1-bwd kernel (``flash_attention_bwd``);
 - ``flash_decode_attention(q, k, v, pos)``: one query row per batch row
   against a contiguous cache, masked at ``kpos <= pos[b]`` (K2);
 - ``flash_paged_decode_attention(q, k_pool, v_pool, tables, pos)``: the
@@ -27,8 +31,8 @@ import torch
 from bigdl_tpu_torch.ops import _build
 
 #: kernel launches per wrapper since the last ``reset_launch_counts()``
-LAUNCHES = {"flash_attention": 0, "flash_decode_attention": 0,
-            "flash_paged_decode_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "flash_decode_attention": 0, "flash_paged_decode_attention": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -46,12 +50,14 @@ def reset_launch_counts():
 def masked_attention(q, k, v, mask=None, scale=None):
     """The one plain attention body of the port (``nn.attention``'s
     ``dot_product_attention`` and the ``*_reference`` versions below):
-    fp32 softmax with the kernels' -inf-safe normalisation, so a row that
-    sees no key gives zeros, not NaN.  q ``(..., Tq, H, D)``, k/v
+    fp32 softmax (fp64 for fp64 inputs, which finite-difference checks
+    use) with the kernels' -inf-safe normalisation, so a row that sees no
+    key gives zeros, not NaN.  q ``(..., Tq, H, D)``, k/v
     ``(..., Tk, H, D)``, ``mask`` (True = visible) broadcastable to
     ``(..., H, Tq, Tk)``."""
     scale = scale or (1.0 / math.sqrt(q.shape[-1]))
-    s = torch.einsum("...qhd,...khd->...hqk", q.float() * scale, k.float())
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = torch.einsum("...qhd,...khd->...hqk", q.to(ct) * scale, k.to(ct))
     if mask is not None:
         s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
@@ -59,7 +65,7 @@ def masked_attention(q, k, v, mask=None, scale=None):
     p = torch.exp(s - m)
     if mask is not None:
         p = p * mask
-    out = torch.einsum("...hqk,...khd->...qhd", p, v.float())
+    out = torch.einsum("...hqk,...khd->...qhd", p, v.to(ct))
     l = p.sum(dim=-1).transpose(-1, -2).unsqueeze(-1)
     return (out / l.clamp_min(1e-30)).to(q.dtype)
 
@@ -73,6 +79,14 @@ def causal_mask(tq, tk, device):
 def flash_attention_reference(q, k, v, causal=True):
     mask = causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
     return masked_attention(q, k, v, mask)
+
+
+def flash_attention_bwd_reference(q, k, v, dout, causal=True):
+    """``(dq, dk, dv)``: autograd of the plain version."""
+    with torch.enable_grad():
+        qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = flash_attention_reference(*qkv, causal)
+        return torch.autograd.grad(out, qkv, dout)
 
 
 def flash_decode_attention_reference(q, k, v, pos):
@@ -150,27 +164,109 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} kernel launch failed (cudaError {rc})")
 
 
-def flash_attention(q, k, v, causal=True):
-    """q, k, v ``(B, T, H, D)`` -> ``(B, T, H, D)``."""
-    if _on_cpu(q, k, v):
-        return flash_attention_reference(q, k, v, causal)
-    _check_float("flash_attention", q, k, v)
+def _check_attention(name, q, k, v):
+    _check_float(name, q, k, v)
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
-        raise ValueError(f"flash_attention: q, k, v must share one "
-                         f"(B, T, H, D) shape, got {q.shape}, {k.shape}, "
-                         f"{v.shape}")
+        raise ValueError(f"{name}: q, k, v must share one (B, T, H, D) "
+                         f"shape, got {q.shape}, {k.shape}, {v.shape}")
+
+
+def _flash_forward(q, k, v, causal, with_lse):
+    """Launch K1; ``with_lse`` also returns the rows' logsumexp
+    ``(B, H, T)`` fp32 for the backward."""
+    _check_attention("flash_attention", q, k, v)
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if t == 0 or b * h == 0:
-        return out
+        return out, lse
     s = [x.stride()[i] for x in (q, k, v, out) for i in (0, 1, 2)]
     rc = _build.load().bigdl_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], b, t, h, d, _strides(*s), int(bool(causal)),
-        1.0 / math.sqrt(d), _stream())
+        1.0 / math.sqrt(d), None if lse is None else lse.data_ptr(),
+        _stream())
     _raise_on(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=True):
+    """Gradient of ``flash_attention``: q, k, v, its output ``out``, the
+    rows' logsumexp ``lse (B, H, T)`` fp32 from the forward and ``dout``
+    -> ``(dq, dk, dv)``, each ``(B, T, H, D)`` in the inputs' dtype.
+    CPU tensors take autograd of the plain version (``out`` and ``lse``
+    are not needed there)."""
+    if _on_cpu(q, k, v, dout):
+        return flash_attention_bwd_reference(q, k, v, dout, causal)
+    name = "flash_attention_bwd"
+    _check_attention(name, q, k, v)
+    _check_float(name, q, out, dout)
+    b, t, h, d = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or \
+            lse.shape != (b, h, t) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous():
+        raise ValueError(f"{name}: need out and dout {tuple(q.shape)} and "
+                         f"a contiguous fp32 lse {(b, h, t)}, got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}, "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    grads = [torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+             for _ in range(3)]
+    if t == 0 or b * h == 0:
+        return tuple(grads)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    s = [x.stride()[i] for x in (q, k, v, out, dout, *grads)
+         for i in (0, 1, 2)]
+    rc = _build.load().bigdl_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *(g.data_ptr() for g in grads), _DTYPES[q.dtype], b, t, h, d,
+        _strides(*s), int(bool(causal)), 1.0 / math.sqrt(d), _stream())
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return tuple(grads)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with its gradient.  On CUDA tensors the forward launches K1 and
+    keeps its output and row logsumexp, and the backward launches K1-bwd;
+    on CPU tensors the forward is the plain version and the backward is
+    autograd of it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
+            return flash_attention_reference(q, k, v, causal)
+        out, lse = _flash_forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        if len(ctx.saved_tensors) == 3:
+            q, k, v = ctx.saved_tensors
+            grads = flash_attention_bwd_reference(q, k, v, dout, ctx.causal)
+        else:
+            q, k, v, out, lse = ctx.saved_tensors
+            grads = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal)
+        return (*grads, None)
+
+
+def flash_attention(q, k, v, causal=True):
+    """q, k, v ``(B, T, H, D)`` -> ``(B, T, H, D)``; differentiable in
+    q, k and v when grad is enabled (``FlashAttention``)."""
+    on_cpu = _on_cpu(q, k, v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
+    if on_cpu:
+        return flash_attention_reference(q, k, v, causal)
+    return _flash_forward(q, k, v, causal, with_lse=False)[0]
 
 
 def flash_decode_attention(q, k, v, pos):

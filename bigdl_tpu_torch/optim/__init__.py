@@ -1,0 +1,16 @@
+"""Training of the PyTorch port: optim methods, triggers, the train step
+and the single-device optimizer."""
+
+from bigdl_tpu_torch.optim.local_optimizer import (BaseOptimizer,
+                                                   LocalOptimizer, Optimizer)
+from bigdl_tpu_torch.optim.optim_method import (SGD, Adam, Default,
+                                                OptimMethod,
+                                                clip_by_global_norm,
+                                                clip_by_value)
+from bigdl_tpu_torch.optim.train_step import make_eval_step, make_train_step
+from bigdl_tpu_torch.optim.trigger import Trigger
+
+__all__ = ["Adam", "BaseOptimizer", "Default", "LocalOptimizer",
+           "OptimMethod", "Optimizer", "SGD", "Trigger",
+           "clip_by_global_norm", "clip_by_value", "make_eval_step",
+           "make_train_step"]

@@ -23,7 +23,24 @@ Phases, each printing JSON lines:
    which every step the model serves is also run by the plain model on a
    copy of the cache taken before it, logits held to 1e-4.  With random
    weights the greedy streams repeat a few tokens, so equal streams
-   alone show little; these logits carry the evidence.
+   alone show little; these logits carry the evidence;
+6. training kernels: K4 ``fused_softmax_cross_entropy`` and K5 (its
+   backward) at the training step's (8192, 32000) fp32 logits, and
+   K1-bwd ``flash_attention_bwd`` at B8 H12 D64 causal, T 1024 and a
+   ragged T 200, each held to its plain version (1e-4; K5 elementwise
+   relative, at an upstream gradient of order 1) and timed beside
+   its bound, its plain version and the library call;
+7. training end to end: TransformerLM "small" (vocab 32000, max_len
+   1024, random weights from seed 0) on ``synthetic_corpus(64, 1024,
+   32000)``: (a) one batch's loss and the gradient of every parameter
+   through the kernels against a second model on the same weights with
+   plain attention and the plain cross-entropy (loss 1e-4, relative L2
+   1e-4 per parameter, no zero gradient); (b) 8 iterations of
+   ``Optimizer(...).optimize()`` with ``Adam(1e-4)`` on both, per-step
+   losses within 1e-5 relative, the last below the first, and the first
+   batch's loss lower after the 8 steps than before; (c) the training path's
+   launches: K1 and K1-bwd 12 a step, K4 and K5 one a step, none on the
+   plain model.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -45,6 +62,14 @@ FP32_FLOPS_PER_S = 67e12
 ATOL = RTOL = 1e-4
 
 HEADS, HEAD_DIM = 12, 64
+#: the kernels the serving path (phase 4) launches
+SERVING_KERNELS = ("flash_attention", "flash_decode_attention",
+                   "flash_paged_decode_attention")
+#: the training step of phase 7: TransformerLM "small", batch 8 x 1024
+VOCAB, SEQ, BATCH, TRAIN_ITERS = 32000, 1024, 8, 8
+#: per-step losses of the kernel and plain paths, relative: a hundredth of
+#: a step's fall at lr 1e-4, so a drift of the kernel path shows
+STEP_LOSS_RTOL = 1e-5
 
 
 def emit(obj):
@@ -88,15 +113,39 @@ def device_ms(fn, iters=20, reps=7):
     return times[len(times) // 2], times[0], times[-1]
 
 
+def backward_ms(out, inputs, grad, iters=20, reps=7):
+    """Device time of one backward of ``out`` alone (autograd, graph
+    retained), timed by CUDA events around ``iters`` calls: a backward
+    through autograd is not captured in a CUDA graph here.  The kernels
+    timed this way take over 0.3 ms a call, so the host stays ahead."""
+    def run():
+        torch.autograd.grad(out, inputs, grad, retain_graph=True)
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def bound(n_bytes, flops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name, got, want):
+def check_close(name, got, want, atol=ATOL):
     err = (got.float() - want.float()).abs()
-    bad = err > ATOL + RTOL * want.float().abs()
+    bad = err > atol + RTOL * want.float().abs()
     if not bool(torch.isfinite(got).all()) or bool(bad.any()):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {err.max().item()})")
@@ -340,7 +389,7 @@ def e2e_phase(fa, card):
         logits512 = eng.predict(seq512[0], timeout=600)
         logits200 = eng.predict(seq200[0], timeout=600)
         torch.cuda.synchronize()
-        launches = dict(fa.LAUNCHES)
+        launches = {k: fa.LAUNCHES[k] for k in SERVING_KERNELS}
         # -----------------------------------------------------------------
         peak = torch.cuda.max_memory_allocated()
         step_errs, streams5 = served_step_errors(engines, model, plain_model,
@@ -386,12 +435,239 @@ def e2e_phase(fa, card):
     return launches
 
 
+def training_kernel_phase(fa, ce, card):
+    """Phase 6: K4, K5 and K1-bwd at the training step's shapes against
+    their plain versions, timed."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dev = "cuda"
+    rows = {}
+    n, v = BATCH * SEQ, VOCAB
+    x = torch.randn(n, v, generator=g, device=dev)
+    y = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    yl = y.long()
+
+    loss, lse = ce.fused_softmax_cross_entropy_fwd(x, y)
+    want_loss, want_lse = ce.fused_softmax_cross_entropy_reference(x, y)
+    err = max(check_close("fused_softmax_cross_entropy loss", loss,
+                          want_loss),
+              check_close("fused_softmax_cross_entropy lse", lse, want_lse))
+    ms, lo, hi = device_ms(lambda: ce.fused_softmax_cross_entropy_fwd(x, y))
+    plain = device_ms(lambda: ce.fused_softmax_cross_entropy_reference(
+        x, y))[0]
+    lib = device_ms(lambda: F.cross_entropy(x, yl, reduction="none"))[0]
+    bms, by = bound(n * v * 4 + n * 4 + 2 * n * 4, 4 * n * v)
+    rows["fused_softmax_cross_entropy"] = dict(
+        name="fused_softmax_cross_entropy", case=f"N{n}_V{v}",
+        max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=lib, card=card)
+    emit({"phase": "kernel", **rows["fused_softmax_cross_entropy"]})
+
+    # K5 held at an upstream gradient of order 1 that differs per row, so
+    # dx is of the order of the softmax; every element to 1e-4 of its own
+    # size (no absolute floor: the softmax terms are 1e-7 to 1e-3)
+    gr = torch.rand(n, generator=g, device=dev) + 0.5
+    dx = ce.fused_softmax_cross_entropy_bwd(x, y, lse, gr)
+    err = check_close("fused_softmax_cross_entropy_bwd", dx,
+                      ce.fused_softmax_cross_entropy_grad_reference(
+                          x, y, lse, gr), atol=0.0)
+    del dx
+    # timed with a mean's upstream gradient, 1/N per row
+    gr = torch.full((n,), 1.0 / n, device=dev)
+    ms, lo, hi = device_ms(lambda: ce.fused_softmax_cross_entropy_bwd(
+        x, y, lse, gr))
+    plain = device_ms(lambda: ce.fused_softmax_cross_entropy_grad_reference(
+        x, y, lse, gr))[0]
+    xg = x.detach().requires_grad_(True)
+    lib = backward_ms(F.cross_entropy(xg, yl, reduction="none"), xg, gr)
+    del xg
+    bms, by = bound(2 * n * v * 4 + 3 * n * 4, 4 * n * v)
+    rows["fused_softmax_cross_entropy_bwd"] = dict(
+        name="fused_softmax_cross_entropy_bwd", case=f"N{n}_V{v}",
+        max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=lib, card=card)
+    emit({"phase": "kernel", **rows["fused_softmax_cross_entropy_bwd"]})
+    del x
+
+    # K1-bwd on q/k/v views of one fused buffer, as the model gives them
+    for t, label in ((SEQ, f"causal_B{BATCH}_T{SEQ}"),
+                     (200, f"ragged_B{BATCH}_T200")):
+        qkv = torch.randn(BATCH, t, 3 * HEADS * HEAD_DIM, generator=g,
+                          device=dev)
+        q, k, v_ = (z.unflatten(-1, (HEADS, HEAD_DIM))
+                    for z in qkv.split(HEADS * HEAD_DIM, dim=-1))
+        do = torch.randn(BATCH, t, HEADS, HEAD_DIM, generator=g, device=dev)
+        out, lse = fa._flash_forward(q, k, v_, True, with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v_, out, lse, do, True)
+        want = fa.flash_attention_bwd_reference(q, k, v_, do, True)
+        err = max(check_close(f"flash_attention_bwd {label} d{w}", a, b)
+                  for w, a, b in zip("qkv", got, want))
+        del got, want
+        ms, lo, hi = device_ms(lambda: fa.flash_attention_bwd(
+            q, k, v_, out, lse, do, True))
+        leaves = [z.detach().requires_grad_(True) for z in (q, k, v_)]
+        plain = backward_ms(fa.flash_attention_reference(*leaves, True),
+                            leaves, do)
+        tr = [z.detach().transpose(1, 2).requires_grad_(True)
+              for z in (q, k, v_)]
+        lib = backward_ms(F.scaled_dot_product_attention(*tr,
+                                                         is_causal=True),
+                          tr, do.transpose(1, 2))
+        del leaves, tr
+        elems = BATCH * t * HEADS * HEAD_DIM
+        bms, by = bound(8 * elems * 4 + BATCH * HEADS * t * 4,
+                        10 * BATCH * HEADS * HEAD_DIM * t * (t + 1) / 2)
+        row = dict(name="flash_attention_bwd", case=label, max_abs_err=err,
+                   ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain,
+                   bound_ms=bms, bound_by=by, library_ms=lib, card=card)
+        emit({"phase": "kernel", **row})
+        rows.setdefault("flash_attention_bwd", row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+class _Losses:
+    """Train summary that keeps each step's loss and throughput."""
+
+    def __init__(self):
+        self.scalars = {"Loss": [], "Throughput": []}
+
+    def add_scalar(self, tag, value, step):
+        self.scalars[tag].append(value)
+
+
+def training_phase(fa, ce, card):
+    """Phase 7: TransformerLM "small" trained through the kernels and
+    through the plain path on the same weights and batches."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.models import synthetic_corpus, transformer_lm
+
+    t0 = time.perf_counter()
+    x, y = synthetic_corpus(64, SEQ, VOCAB)
+    models = {
+        "kernels": (transformer_lm("small", VOCAB, max_len=SEQ,
+                                   device="cuda", seed=0),
+                    nn.TimeDistributedCriterion(
+                        nn.FusedSoftmaxCrossEntropyCriterion())),
+        "plain": (transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                                 seed=0, use_flash="never"),
+                  nn.TimeDistributedCriterion(nn.CrossEntropyCriterion())),
+    }
+    emit({"phase": "train_setup", "model": "small", "vocab": VOCAB,
+          "seq_len": SEQ, "batch": BATCH, "init_s": time.perf_counter() - t0})
+
+    # (a) one batch: the loss and every parameter's gradient
+    xb = torch.as_tensor(x[:BATCH], device="cuda")
+    yb = torch.as_tensor(y[:BATCH], device="cuda")
+    losses, grads = {}, {}
+    for label, (model, crit) in models.items():
+        model.zero_grad(set_to_none=True)
+        loss = crit.apply(model(xb), yb)
+        loss.backward()
+        losses[label] = loss.item()
+        grads[label] = {k: p.grad for k, p in model.named_parameters()}
+    if abs(losses["kernels"] - losses["plain"]) > ATOL:
+        raise AssertionError(f"training loss: kernels {losses['kernels']} vs "
+                             f"plain {losses['plain']}")
+    rel = {}
+    for name, gk in grads["kernels"].items():
+        gp = grads["plain"][name]
+        if gk is None or gp is None:
+            raise AssertionError(f"no gradient reached {name}")
+        nk, np_ = gk.norm().item(), gp.norm().item()
+        if nk == 0.0 or np_ == 0.0:
+            raise AssertionError(f"zero gradient for {name} (kernels "
+                                 f"{nk}, plain {np_})")
+        rel[name] = ((gk - gp).norm() / gp.norm()).item()
+    worst = max(rel, key=rel.get)
+    if rel[worst] > RTOL:
+        raise AssertionError(f"gradient of {worst}: relative L2 error "
+                             f"{rel[worst]} > {RTOL}")
+    emit({"phase": "train_grads", "params": len(rel),
+          "loss_kernels": losses["kernels"], "loss_plain": losses["plain"],
+          "worst_param": worst, "worst_rel_l2": rel[worst],
+          "median_rel_l2": sorted(rel.values())[len(rel) // 2],
+          "card": card})
+    for model, _ in models.values():
+        model.zero_grad(set_to_none=True)
+    del grads
+
+    # (b) Optimizer.optimize() on both; (c) the kernel path's launches
+    runs = {}
+    for label, (model, crit) in models.items():
+        ds = array_dataset(x, y) >> SampleToMiniBatch(BATCH)
+        opt = optim.Optimizer(model, ds, crit,
+                              optim.Adam(learning_rate=1e-4))
+        opt.set_end_when(optim.Trigger.max_iteration(TRAIN_ITERS))
+        summary = _Losses()
+        opt.set_train_summary(summary)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        ce.reset_launch_counts()
+        # ---- the training main path: counts read right after it --------
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**fa.LAUNCHES, **ce.LAUNCHES}
+        # -----------------------------------------------------------------
+        with torch.no_grad():   # the first batch again, after training
+            after = crit.apply(model(xb), yb).item()
+        tok_s = sorted(r * SEQ for r in summary.scalars["Throughput"][1:])
+        runs[label] = dict(losses=summary.scalars["Loss"],
+                           first_batch_loss_before=losses[label],
+                           first_batch_loss_after=after, launches=launches,
+                           wall_s=wall,
+                           tokens_per_s=TRAIN_ITERS * BATCH * SEQ / wall,
+                           step_tokens_per_s_median=tok_s[len(tok_s) // 2],
+                           peak_memory_bytes=torch.cuda.max_memory_allocated())
+        emit({"phase": "train_run", "path": label, **runs[label],
+              "card": card})
+
+    lk, lp = runs["kernels"]["losses"], runs["plain"]["losses"]
+    if len(lk) != TRAIN_ITERS or len(lp) != TRAIN_ITERS:
+        raise AssertionError(f"steps run: {len(lk)}, {len(lp)}")
+    step_rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    if max(step_rel) > STEP_LOSS_RTOL:
+        raise AssertionError(f"per-step losses differ: {lk} vs {lp}")
+    # each step sees another batch, so the per-step losses carry the
+    # batches' spread; the first batch's loss before and after the 8 steps
+    # shows the fall without it
+    falls = {label: (r["first_batch_loss_before"],
+                     r["first_batch_loss_after"]) for label, r in runs.items()}
+    if not all(after < before for before, after in falls.values()) or \
+            not lk[-1] < lk[0]:
+        raise AssertionError(f"the loss did not fall: {falls}, {lk}")
+    ak, ap = falls["kernels"][1], falls["plain"][1]
+    if abs(ak - ap) > STEP_LOSS_RTOL * abs(ap):
+        raise AssertionError(f"losses after training differ: {ak} vs {ap}")
+    want = {"flash_attention": 12 * TRAIN_ITERS,
+            "flash_attention_bwd": 12 * TRAIN_ITERS,
+            "fused_softmax_cross_entropy": TRAIN_ITERS,
+            "fused_softmax_cross_entropy_bwd": TRAIN_ITERS}
+    got = runs["kernels"]["launches"]
+    if any(got[k] != n for k, n in want.items()):
+        raise AssertionError(f"training launches {got}, want {want}")
+    if any(runs["plain"]["launches"].values()):
+        raise AssertionError(f"the plain model launched kernels: "
+                             f"{runs['plain']['launches']}")
+    emit({"phase": "train_check", "first_batch_loss": falls["kernels"],
+          "max_step_rel_err": max(step_rel), "launches": got, "card": card})
+    del models
+    torch.cuda.empty_cache()
+    return {k: got[k] for k in want}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
     from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import cross_entropy as ce
     from bigdl_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -405,30 +681,48 @@ def main():
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
     t0 = time.perf_counter()
-    lib = _build.build()
+    libs = _build.build()          # one nvcc per source, all at once
     _build.load()
-    log = (lib.parent / "build.log").read_text() \
-        if (lib.parent / "build.log").exists() else ""
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": lib.name,
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "Used" in ln or "spill" in ln]})
+          "libraries": [lib.name for lib in libs],
+          "ptxas": {stem: [ln.strip() for ln in log.splitlines()
+                           if "Used" in ln or "spill" in ln]
+                    for stem, log in _build.build_logs().items()}})
 
     rows = kernel_phase(fa, card)
-    launches = e2e_phase(fa, card)
+    serving = e2e_phase(fa, card)
+    rows.update(training_kernel_phase(fa, ce, card))
+    training = training_phase(fa, ce, card)
 
-    replaces = {
-        "flash_attention": "bigdl_tpu/ops/flash_attention.py:63",
-        "flash_decode_attention": "bigdl_tpu/ops/flash_attention.py:135",
-        "flash_paged_decode_attention":
-            "bigdl_tpu/ops/flash_attention.py:236",
+    attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
+    kernels_of = {
+        "flash_attention": (attn, "bigdl_tpu/ops/flash_attention.py:63"),
+        "flash_attention_bwd": (
+            "bigdl_tpu_torch/csrc/flash_attention_bwd.cu",
+            "bigdl_tpu/ops/flash_attention.py:63 (its gradient; the TPU "
+            "kernel has no VJP)"),
+        "flash_decode_attention": (attn,
+                                   "bigdl_tpu/ops/flash_attention.py:135"),
+        "flash_paged_decode_attention": (
+            attn, "bigdl_tpu/ops/flash_attention.py:236"),
+        "fused_softmax_cross_entropy": (
+            "bigdl_tpu_torch/csrc/cross_entropy.cu",
+            "bigdl_tpu/ops/cross_entropy.py:77"),
+        "fused_softmax_cross_entropy_bwd": (
+            "bigdl_tpu_torch/csrc/cross_entropy.cu",
+            "bigdl_tpu/ops/cross_entropy.py:126"),
     }
     kernels = []
-    for name, row in rows.items():
+    for name, (source, replaces) in kernels_of.items():
+        row = rows[name]
+        by_path = {path: counts[name]
+                   for path, counts in (("serving", serving),
+                                        ("training", training))
+                   if counts.get(name)}
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

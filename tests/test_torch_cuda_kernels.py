@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card.  These tests are marked ``cuda`` and skip where no card is present;
+card.  These tests are marked ``cuda`` and skip where no card is present
+(the finite-difference checks of the plain gradients run everywhere);
 the file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest -p no:cacheprovider --noconftest \
@@ -12,6 +13,7 @@ the plain version); bf16 outputs round to 8 mantissa bits, 2e-2.
 import pytest
 import torch
 
+from bigdl_tpu_torch.ops import cross_entropy as ce
 from bigdl_tpu_torch.ops import flash_attention as fa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -122,3 +124,130 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA device"):
         fa.flash_decode_attention(q, k.cpu(), k, torch.zeros(
             2, dtype=torch.int32, device=cuda))
+
+
+# --------------------------------------------------------------------------- #
+# K1-bwd, K4, K5 (the training path)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("t,causal", [(1, True), (63, True), (200, True),
+                                      (257, False)])
+def test_flash_attention_bwd_kernel(cuda, dtype, d, t, causal):
+    """K1 forward (with lse) and K1-bwd through the autograd Function,
+    on q/k/v views of one fused buffer, against autograd of the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(t + d + 1)
+    h = 3
+    qkv = _rand(g, (2, t, 3 * h * d), dtype, cuda).requires_grad_(True)
+    dout = _rand(g, (2, t, h, d), dtype, cuda)
+
+    def views(buf):
+        return [x.unflatten(-1, (h, d)) for x in buf.split(h * d, dim=-1)]
+
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*views(qkv), causal=causal)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    want = fa.flash_attention_bwd_reference(*views(qkv.detach()), dout,
+                                            causal)
+    _close(qkv.grad, torch.cat([w.flatten(-2) for w in want], dim=-1), dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_without_grad_writes_no_lse(cuda):
+    """Serving (no grad) takes the plain K1 launch; only grad-enabled
+    calls go through the Function and keep an lse."""
+    q = torch.randn((1, 70, 2, 64), device=cuda, requires_grad=True)
+    with torch.no_grad():
+        out = fa.flash_attention(q, q, q)
+    assert out.grad_fn is None
+    assert fa.flash_attention(q, q, q).grad_fn is not None
+
+
+def _labels(g, n, v, dev):
+    y = torch.randint(0, v, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    if n > 2:
+        y[0], y[1] = -1, v + 3       # outside [0, V): no logit, no one-hot
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,v", [(1, 1), (7, 1000), (33, 513), (5, 4099),
+                                 (64, 32000)])
+def test_cross_entropy_kernels(cuda, dtype, n, v):
+    g = torch.Generator(device=cuda).manual_seed(n + v)
+    x = (3 * _rand(g, (n, v), torch.float32, cuda)).to(dtype)
+    y = _labels(g, n, v, cuda)
+    before = dict(ce.LAUNCHES)
+    loss, lse = ce.fused_softmax_cross_entropy_fwd(x, y)
+    gr = torch.rand(n, generator=g, device=cuda)
+    dx = ce.fused_softmax_cross_entropy_bwd(x, y, lse, gr)
+    torch.cuda.synchronize()
+    assert ce.LAUNCHES["fused_softmax_cross_entropy"] == \
+        before["fused_softmax_cross_entropy"] + 1
+    assert ce.LAUNCHES["fused_softmax_cross_entropy_bwd"] == \
+        before["fused_softmax_cross_entropy_bwd"] + 1
+    want_loss, want_lse = ce.fused_softmax_cross_entropy_reference(x, y)
+    _close(loss, want_loss, torch.float32)
+    _close(lse, want_lse, torch.float32)
+    _close(dx, ce.fused_softmax_cross_entropy_grad_reference(
+        x, y, want_lse, gr), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_entropy_kernels_on_unaligned_rows(cuda, dtype):
+    """Rows whose start is not 16-byte aligned take the scalar loads."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = _rand(g, (9, 1001), torch.float32, cuda).to(dtype)
+    x = base[:, 1:]                              # row stride 1001, offset 1
+    y = _labels(g, 9, 1000, cuda)
+    loss, lse = ce.fused_softmax_cross_entropy_fwd(x, y)
+    dx = ce.fused_softmax_cross_entropy_bwd(x, y, lse,
+                                            torch.ones(9, device=cuda))
+    want_loss, want_lse = ce.fused_softmax_cross_entropy_reference(x, y)
+    _close(loss, want_loss, torch.float32)
+    _close(dx, ce.fused_softmax_cross_entropy_grad_reference(
+        x, y, want_lse, torch.ones(9, device=cuda)), dtype)
+
+
+@pytest.mark.cuda
+def test_cross_entropy_function_on_the_card(cuda):
+    """The autograd Function: a mean's gradient reaches K5 as 1/N rows."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = _rand(g, (100, 2000), torch.float32, cuda).requires_grad_(True)
+    y = _labels(g, 100, 2000, cuda)
+    ce.fused_softmax_cross_entropy(x, y).mean().backward()
+    xr = x.detach().requires_grad_(True)
+    ce.fused_softmax_cross_entropy_reference(xr, y)[0].mean().backward()
+    # times N: the softmax terms are then of the order of p, not p / N
+    _close(x.grad * 100, xr.grad * 100, torch.float32)
+
+
+def test_plain_attention_gradient_by_finite_differences():
+    """The gradient K1-bwd is held to (autograd of the plain version),
+    checked by finite differences in fp64, causal and full, ragged T."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 11, 2, 16), generator=gen,
+                           dtype=torch.float64, requires_grad=True)
+               for _ in range(3))
+    for causal in (True, False):
+        assert torch.autograd.gradcheck(
+            lambda a, b, c: fa.flash_attention(a, b, c, causal), (q, k, v))
+
+
+def test_plain_cross_entropy_gradient_by_finite_differences():
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 37), generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    y = torch.tensor([0, 36, -2, 40])
+    assert torch.autograd.gradcheck(
+        lambda a: ce.fused_softmax_cross_entropy(a, y), (x,))

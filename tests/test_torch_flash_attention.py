@@ -131,10 +131,14 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_build_targets_hopper_and_needs_nvcc():
-    cmd = _build.nvcc_command("nvcc", pathlib.Path("out.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert str(_build.SOURCES[0]) in cmd
-    assert _build.library_path().parent == _build.build_dir()
+    for src in _build.SOURCES:
+        cmd = _build.nvcc_command("nvcc", pathlib.Path("out.so"), src)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert str(src) in cmd and src.exists()
+        assert _build.library_path(src).parent == _build.build_dir()
+    # one library per source, each named by its own hash
+    assert len({_build.library_path(s) for s in _build.SOURCES}) == \
+        len(_build.SOURCES)
     try:
         _build.find_nvcc()
     except RuntimeError as e:              # no toolkit here: a clear error
@@ -153,7 +157,8 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
-              ROOT / "tools" / "torch_serving_profile.py"]
+              ROOT / "tools" / "torch_serving_profile.py",
+              ROOT / "tools" / "torch_training_profile.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):
