@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) attention kernels for bigdl_tpu_torch.
 //
-// Three kernels, one per Pallas kernel of the JAX package's serving path:
+// Four kernels, one per Pallas kernel (or kernel path) of the JAX package's
+// serving path:
 //
 // K1 flash_attn_kernel   replaces bigdl_tpu/ops/flash_attention.py
 //    flash_attention / _attn_kernel (causal or full attention, fp32 online
@@ -36,12 +37,25 @@
 //    loads, V rows are read coalesced across lanes, and the warps' partial
 //    (m, l, acc) are merged through shared memory at the end.  Any block
 //    size works because the table lookup is per key.
+// K3q decode_kernel<PAGED=true, QUANT=true> replaces the quantized=True
+//    path of the same Pallas kernel: int8 K/V pools with one fp32 scale
+//    per (position, head) vector, (NB, bs, H, 1).  Each key row is read
+//    as int8 (D bytes, 16-byte loads; scales at a stride of H*4 bytes)
+//    and dequantized in registers right after the load, float(k8) *
+//    scale, so no fp32 copy of the pool ever exists; the output is fp32
+//    whatever q's dtype, as on the TPU.  Bound: bytes, 2*H*(D + 4) per
+//    visible position against K3's 2*H*D*4 (3.76x fewer at D = 64).  The
+//    loop, masking and softmax are K3's; split-K across blocks is later
+//    work (with one block per (b, h) at B = 8, H = 12 only 96 of the 132
+//    SMs hold a block).
 //
-// Every kernel takes fp32 or bf16 inputs, accumulates in fp32 and reads
+// Every kernel takes fp32 or bf16 queries (K2/K3 also K/V of that dtype), accumulates in fp32 and reads
 // the (B, T, H, D) layout through strides (last dim contiguous), so the
 // q/k/v views of a fused qkv projection need no copy.  The C entry points
 // return cudaGetLastError() after the launch (or -1 for a head_dim or
 // dtype that has no instantiation).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -208,13 +222,15 @@ int launch_attn(const void* q, const void* k, const void* v, void* o, int b,
 }
 
 // ------------------------------------------------------------------------
-// K2 / K3: single-token decode against a contiguous cache or a paged pool
+// K2 / K3 / K3q: single-token decode against a contiguous cache or a pool
 // ------------------------------------------------------------------------
 constexpr int kDecWarps = 8;
 
 struct DecodeArgs {
   const int* pos;      // (B,)
   const int* tables;   // (B, MB) row stride table_stride; paged only
+  const float* k_scale;  // (NB, bs, H, 1) fp32; quantized only
+  const float* v_scale;
   int heads;
   int limit;           // positions addressable: T (contiguous) / MB*bs
   int block_size;      // paged only
@@ -225,14 +241,28 @@ struct DecodeArgs {
   // contiguous: (row stride b, position stride t, head stride h)
   // paged:      (block stride, in-block row stride, head stride)
   int64_t sk0, sk1, skh, sv0, sv1, svh;
+  int64_t sks0, sks1, sksh, svs0, svs1, svsh;  // scales; quantized only
   int64_t sob, soh;
   float scale;
 };
 
-template <typename T, int D, bool PAGED>
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+
+// K3q stores K/V as int8 and always writes fp32 (the TPU kernel's output
+// dtype on the quantized path); K2/K3 read and write the input dtype
+template <typename T, bool QUANT>
+using DecKV = std::conditional_t<QUANT, int8_t, T>;
+template <typename T, bool QUANT>
+using DecOut = std::conditional_t<QUANT, float, T>;
+
+template <typename T, int D, bool PAGED, bool QUANT>
 __global__ void __launch_bounds__(kDecWarps * 32)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, DecodeArgs a) {
+decode_kernel(const T* __restrict__ q, const DecKV<T, QUANT>* __restrict__ k,
+              const DecKV<T, QUANT>* __restrict__ v,
+              DecOut<T, QUANT>* __restrict__ o, DecodeArgs a) {
+  using KV = DecKV<T, QUANT>;
   constexpr int DPL = (D + 31) / 32;
   __shared__ float qs[D];
   __shared__ float red_m[kDecWarps], red_l[kDecWarps];
@@ -259,7 +289,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kp = base + lane;
     const bool valid = kp < n_vis;
     int64_t ko = 0, vo = 0;
-    float s = -INFINITY;
+    float s = -INFINITY, vsc = 1.f;
     if (valid) {
       int64_t row, off;
       if (PAGED) {
@@ -274,15 +304,31 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       ko = row * a.sk0 + off * a.sk1 + h * a.skh;
       vo = row * a.sv0 + off * a.sv1 + h * a.svh;
-      const T* kr = k + ko;
+      const KV* kr = k + ko;
       float dot = 0.f;
+      if constexpr (QUANT) {
+        // the int8 row (D bytes) as 16-byte loads, each value dequantized
+        // in registers right after its load: float(k8) * scale, the
+        // product the plain version's dequantize_blockwise forms
+        const float ks = a.k_scale[row * a.sks0 + off * a.sks1 + h * a.sksh];
+        vsc = a.v_scale[row * a.svs0 + off * a.svs1 + h * a.svsh];
 #pragma unroll
-      for (int c = 0; c < D; c += 4) {
-        const float4 kv = load4(kr + c);
-        dot = fmaf(qs[c], kv.x, dot);
-        dot = fmaf(qs[c + 1], kv.y, dot);
-        dot = fmaf(qs[c + 2], kv.z, dot);
-        dot = fmaf(qs[c + 3], kv.w, dot);
+        for (int c = 0; c < D; c += 16) {
+          const int4 raw = *reinterpret_cast<const int4*>(kr + c);
+          const int8_t* k8 = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            dot = fmaf(qs[c + i], static_cast<float>(k8[i]) * ks, dot);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < D; c += 4) {
+          const float4 kv = load4(kr + c);
+          dot = fmaf(qs[c], kv.x, dot);
+          dot = fmaf(qs[c + 1], kv.y, dot);
+          dot = fmaf(qs[c + 2], kv.z, dot);
+          dot = fmaf(qs[c + 3], kv.w, dot);
+        }
       }
       s = dot;
     }
@@ -298,11 +344,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kk = 0; kk < cnt; ++kk) {
       const float pk = __shfl_sync(kFull, p, kk);
       const int64_t vk = __shfl_sync(kFull, vo, kk);
-      const T* vr = v + vk;
+      // a shuffle is never dead code: K2/K3 must not pay for the scale
+      const float vs = QUANT ? __shfl_sync(kFull, vsc, kk) : 1.f;
+      const KV* vr = v + vk;
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
         const int d = lane + 32 * j;
-        if (d < D) acc[j] = fmaf(pk, to_f32(vr[d]), acc[j]);
+        if (d < D) {
+          const float vx = QUANT ? to_f32(vr[d]) * vs : to_f32(vr[d]);
+          acc[j] = fmaf(pk, vx, acc[j]);
+        }
       }
     }
   }
@@ -329,41 +380,46 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lt += red_l[w] * wt;
       at += red_acc[w][tid] * wt;
     }
-    o[b * a.sob + h * a.soh + tid] = from_f32<T>(at / fmaxf(lt, 1e-30f));
+    o[b * a.sob + h * a.soh + tid] =
+        from_f32<DecOut<T, QUANT>>(at / fmaxf(lt, 1e-30f));
   }
 }
 
-template <typename T, int D, bool PAGED>
+template <typename T, int D, bool PAGED, bool QUANT>
 int launch_decode(const void* q, const void* k, const void* v, void* o,
                   int batch, const DecodeArgs& a, cudaStream_t stream) {
-  decode_kernel<T, D, PAGED><<<batch * a.heads, kDecWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), a);
+  using KV = DecKV<T, QUANT>;
+  using O = DecOut<T, QUANT>;
+  decode_kernel<T, D, PAGED, QUANT>
+      <<<batch * a.heads, kDecWarps * 32, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const KV*>(k),
+          static_cast<const KV*>(v), static_cast<O*>(o), a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool PAGED>
+template <typename T, bool PAGED, bool QUANT>
 int dispatch_decode(int d, const void* q, const void* k, const void* v,
                     void* o, int batch, const DecodeArgs& a,
                     cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_decode<T, 16, PAGED>(q, k, v, o, batch, a, stream);
-    case 32: return launch_decode<T, 32, PAGED>(q, k, v, o, batch, a, stream);
-    case 64: return launch_decode<T, 64, PAGED>(q, k, v, o, batch, a, stream);
-    case 128: return launch_decode<T, 128, PAGED>(q, k, v, o, batch, a, stream);
+    case 16: return launch_decode<T, 16, PAGED, QUANT>(q, k, v, o, batch, a, stream);
+    case 32: return launch_decode<T, 32, PAGED, QUANT>(q, k, v, o, batch, a, stream);
+    case 64: return launch_decode<T, 64, PAGED, QUANT>(q, k, v, o, batch, a, stream);
+    case 128: return launch_decode<T, 128, PAGED, QUANT>(q, k, v, o, batch, a, stream);
     default: return -1;
   }
 }
 
-template <bool PAGED>
+template <bool PAGED, bool QUANT>
 int decode_entry(int dtype, int d, const void* q, const void* k,
                  const void* v, void* o, int batch, const DecodeArgs& a,
                  cudaStream_t stream) {
   if (dtype == 0)
-    return dispatch_decode<float, PAGED>(d, q, k, v, o, batch, a, stream);
+    return dispatch_decode<float, PAGED, QUANT>(d, q, k, v, o, batch, a,
+                                                stream);
   if (dtype == 1)
-    return dispatch_decode<__nv_bfloat16, PAGED>(d, q, k, v, o, batch, a,
-                                                 stream);
+    return dispatch_decode<__nv_bfloat16, PAGED, QUANT>(d, q, k, v, o, batch,
+                                                        a, stream);
   return -1;
 }
 
@@ -378,6 +434,33 @@ int dispatch_attn(int d, const void* q, const void* k, const void* v, void* o,
     case 128: return launch_attn<T, 128>(q, k, v, o, b, t, h, s, causal, scale, lse, stream);
     default: return -1;
   }
+}
+
+// the paged arguments shared by K3 and K3q
+DecodeArgs paged_args(const int* tables, const int* pos, int h,
+                      int num_blocks, int block_size, int max_blocks,
+                      int64_t table_stride, const int64_t* s, float scale) {
+  DecodeArgs a{};
+  a.pos = pos;
+  a.tables = tables;
+  a.heads = h;
+  a.limit = max_blocks * block_size;
+  a.block_size = block_size;
+  a.max_blocks = max_blocks;
+  a.num_blocks = num_blocks;
+  a.table_stride = table_stride;
+  a.sqb = s[0];
+  a.sqh = s[1];
+  a.sk0 = s[2];
+  a.sk1 = s[3];
+  a.skh = s[4];
+  a.sv0 = s[5];
+  a.sv1 = s[6];
+  a.svh = s[7];
+  a.sob = s[8];
+  a.soh = s[9];
+  a.scale = scale;
+  return a;
 }
 
 }  // namespace
@@ -423,8 +506,8 @@ int bigdl_flash_decode_attention(const void* q, const void* k, const void* v,
   a.sob = strides[8];
   a.soh = strides[9];
   a.scale = scale;
-  return decode_entry<false>(dtype, d, q, k, v, o, b, a,
-                             static_cast<cudaStream_t>(stream));
+  return decode_entry<false, false>(dtype, d, q, k, v, o, b, a,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // q, o: (B, 1, H, D); k_pool, v_pool: (NB, bs, H, D); tables: (B, MB)
@@ -435,28 +518,34 @@ int bigdl_flash_paged_decode_attention(
     const int* tables, const int* pos, int dtype, int b, int h, int d,
     int num_blocks, int block_size, int max_blocks, int64_t table_stride,
     const int64_t* strides, float scale, void* stream) {
-  DecodeArgs a{};
-  a.pos = pos;
-  a.tables = tables;
-  a.heads = h;
-  a.limit = max_blocks * block_size;
-  a.block_size = block_size;
-  a.max_blocks = max_blocks;
-  a.num_blocks = num_blocks;
-  a.table_stride = table_stride;
-  a.sqb = strides[0];
-  a.sqh = strides[1];
-  a.sk0 = strides[2];
-  a.sk1 = strides[3];
-  a.skh = strides[4];
-  a.sv0 = strides[5];
-  a.sv1 = strides[6];
-  a.svh = strides[7];
-  a.sob = strides[8];
-  a.soh = strides[9];
-  a.scale = scale;
-  return decode_entry<true>(dtype, d, q, k_pool, v_pool, o, b, a,
-                            static_cast<cudaStream_t>(stream));
+  const DecodeArgs a = paged_args(tables, pos, h, num_blocks, block_size,
+                                  max_blocks, table_stride, strides, scale);
+  return decode_entry<true, false>(dtype, d, q, k_pool, v_pool, o, b, a,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// K3q: as above with int8 pools (rows 16-byte aligned) and their fp32
+// scales k_scale, v_scale (NB, bs, H, 1); o is fp32 whatever q's dtype.
+// strides[16] = the ten of the fp path, then k_scale (block, row, h) and
+// v_scale (block, row, h).
+int bigdl_flash_paged_decode_attention_int8(
+    const void* q, const void* k_pool, const void* v_pool,
+    const float* k_scale, const float* v_scale, void* o, const int* tables,
+    const int* pos, int dtype, int b, int h, int d, int num_blocks,
+    int block_size, int max_blocks, int64_t table_stride,
+    const int64_t* strides, float scale, void* stream) {
+  DecodeArgs a = paged_args(tables, pos, h, num_blocks, block_size,
+                            max_blocks, table_stride, strides, scale);
+  a.k_scale = k_scale;
+  a.v_scale = v_scale;
+  a.sks0 = strides[10];
+  a.sks1 = strides[11];
+  a.sksh = strides[12];
+  a.svs0 = strides[13];
+  a.svs1 = strides[14];
+  a.svsh = strides[15];
+  return decode_entry<true, true>(dtype, d, q, k_pool, v_pool, o, b, a,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

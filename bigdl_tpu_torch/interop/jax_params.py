@@ -1,5 +1,6 @@
-"""The weight bridge: a JAX ``TransformerLM`` parameter tree, with numpy
-leaves (``jax.tree.map(np.asarray, params)``), into the port's modules;
+"""The weight bridge: a JAX ``TransformerLM`` parameter tree, fp32 or
+int8-quantized, with numpy leaves (``jax.tree.map(np.asarray,
+params)``), into the port's modules;
 and the optimizer-state bridge, so a JAX run can be carried across
 mid-training.
 
@@ -25,7 +26,10 @@ def to_port_tree(jax_params):
 
 
 def load_jax_params(model, jax_params):
-    """Copy a JAX parameter tree into ``model``; returns ``model``."""
+    """Copy a JAX parameter tree into ``model``; returns ``model``.  A
+    tree from ``bigdl_tpu.nn.quantized.quantize_params`` loads into the
+    port's int8 twin (``nn.quantized.quantize_model``), its int8
+    payloads as int8 and its scales as fp32."""
     return model.load_parameters_tree(to_port_tree(jax_params))
 
 

@@ -9,7 +9,9 @@ fp32.  Three attention modes share one ``MultiHeadAttention``:
   decode through K2;
 - paged KV pool (``_apply_paged``): chunk prefill through a gather and
   plain attention (as in the JAX package, which keeps it outside
-  Pallas), one-token decode through K3.
+  Pallas), one-token decode through K3; an int8 pool (payloads plus one
+  fp32 scale per (position, head) vector) quantizes every K/V write and
+  decodes through K3q, which dequantizes inside the kernel.
 
 ``use_flash="auto"`` takes the kernel wrappers of ``ops/flash_attention``
 for every shape (they launch the CUDA kernel for CUDA tensors and run
@@ -34,7 +36,10 @@ from bigdl_tpu_torch.nn.initialization import Xavier, normal
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Container, Module
 from bigdl_tpu_torch.nn.normalization import LayerNorm
+from bigdl_tpu_torch.nn.quantized import int8_matmul
 from bigdl_tpu_torch.ops import flash_attention as fa
+from bigdl_tpu_torch.ops.quantization import (dequantize_blockwise,
+                                              quantize_blockwise)
 from bigdl_tpu_torch.utils.device import resolve_device
 
 
@@ -84,9 +89,16 @@ class MultiHeadAttention(Module):
 
     def _project_qkv(self, x):
         """Fused projection, split into ``(N, T, H, Dh)`` views of one
-        buffer (the kernels read their strides; nothing is copied)."""
+        buffer (the kernels read their strides; nothing is copied).  An
+        int8 twin (``qkv_weight_q`` held) contracts in int8; attention
+        itself stays in the activation dtype.  One implementation for
+        the full-sequence, cached and paged paths."""
         dt = x.dtype
-        qkv = F.linear(x, self.qkv_weight.to(dt), self.qkv_bias.to(dt))
+        if "qkv_weight_q" in self._parameters:
+            qkv = (int8_matmul(x, self.qkv_weight_q, self.qkv_scale)
+                   + self.qkv_bias).to(dt)
+        else:
+            qkv = F.linear(x, self.qkv_weight.to(dt), self.qkv_bias.to(dt))
         shape = (self.num_heads, self.head_dim)
         return [t.unflatten(-1, shape)
                 for t in qkv.split(self.hidden_size, dim=-1)]
@@ -94,8 +106,11 @@ class MultiHeadAttention(Module):
     def _project_out(self, y):
         n, t = y.shape[:2]
         dt = y.dtype
-        return F.linear(y.reshape(n, t, self.hidden_size),
-                        self.out_weight.to(dt), self.out_bias.to(dt))
+        y = y.reshape(n, t, self.hidden_size)
+        if "out_weight_q" in self._parameters:
+            return (int8_matmul(y, self.out_weight_q, self.out_scale)
+                    + self.out_bias).to(dt)
+        return F.linear(y, self.out_weight.to(dt), self.out_bias.to(dt))
 
     def forward(self, x):
         q, k, v = self._project_qkv(x)
@@ -108,7 +123,7 @@ class MultiHeadAttention(Module):
     # ----- contiguous KV cache ---------------------------------------------- #
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32):
         shape = (int(batch), int(max_len), self.num_heads, self.head_dim)
-        device = self.qkv_weight.device
+        device = self.qkv_bias.device
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -155,12 +170,43 @@ class MultiHeadAttention(Module):
                          dtype=torch.float32):
         """One ``(num_blocks, block_size, heads, head_dim)`` pool per K and
         V; the caller counts the trash block (the last id) in
-        ``num_blocks``."""
+        ``num_blocks``.
+
+        ``dtype=torch.int8`` selects the quantized layout: int8 payloads
+        plus fp32 absmax scales ``k_scale``/``v_scale`` of shape
+        ``(num_blocks, block_size, heads, 1)``, one per head_dim vector
+        (the ``ops.quantization`` blockwise format with the block =
+        head_dim).  The scales keep the payload's 4-D rank, so block
+        copies and byte counts treat every leaf alike."""
         shape = (int(num_blocks), int(block_size), self.num_heads,
                  self.head_dim)
-        device = self.qkv_weight.device
+        device = self.qkv_bias.device
+        if dtype == torch.int8:
+            sshape = shape[:-1] + (1,)
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(sshape, device=device),
+                    "v_scale": torch.zeros(sshape, device=device)}
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def _paged_quant(self, x):
+        """K/V vectors ``(..., heads, head_dim)`` -> (int8 payload, fp32
+        scales ``(..., heads, 1)``): one absmax scale per head_dim vector;
+        a non-finite vector dequantizes to exact zero."""
+        q8, sc = quantize_blockwise(x.reshape(-1), self.head_dim,
+                                    scale_dtype=torch.float32)
+        return q8.reshape(x.shape), sc.reshape(x.shape[:-1] + (1,))
+
+    def _paged_dequant(self, q8, sc, dt):
+        """Inverse of ``_paged_quant`` over gathered context:
+        ``(..., heads, head_dim)`` int8 + ``(..., heads, 1)`` scales ->
+        ``dt`` values."""
+        lead = q8.shape[:-2]
+        flat = q8.reshape(lead + (q8.shape[-2] * q8.shape[-1],))
+        out = dequantize_blockwise(flat, sc.reshape(lead + (-1,)),
+                                   self.head_dim)
+        return out.reshape(q8.shape).to(dt)
 
     def _apply_paged(self, x, pool, tables, pos, lengths):
         """Attention against a paged pool through per-row block tables
@@ -172,21 +218,43 @@ class MultiHeadAttention(Module):
         attention gathers the row's whole mapped context, masked causally
         at each token's absolute position.
         DECODE (``lengths is None``): one token per row written at
-        ``pos[i]``.  Writes ``pool`` in place and returns ``(y, pool)``."""
+        ``pos[i]``.  Writes ``pool`` in place and returns ``(y, pool)``.
+
+        On an int8 pool every written K/V vector is quantized first and
+        its payload and scale land at the same (block, offset), so the
+        tables, block copies and prefix sharing do not see the format."""
         n, t, _d = x.shape
         dev = x.device
         bs = pool["k"].shape[1]
         max_blocks = tables.shape[1]
         trash = pool["k"].shape[0] - 1
+        quant = "k_scale" in pool
         tables = _int32(tables, dev)
         pos = _int32(pos, dev)
         q, k, v = self._project_qkv(x)
         cdt = pool["k"].dtype
 
+        def scatter(idx, kf, vf):
+            if quant:
+                for name, val in (("k", kf), ("v", vf)):
+                    q8, sc = self._paged_quant(val)
+                    pool[name].index_put_(idx, q8)
+                    pool[name + "_scale"].index_put_(idx, sc)
+            else:
+                pool["k"].index_put_(idx, kf.to(cdt))
+                pool["v"].index_put_(idx, vf.to(cdt))
+
         def gather_ctx(name):
+            """The row's whole mapped context, dequantized on an int8
+            pool (the chunk prefill and plain decode paths only: the
+            kernels read the pool in place)."""
             ctx = max_blocks * bs
-            return pool[name][tables.long()].reshape(
-                n, ctx, self.num_heads, self.head_dim).to(x.dtype)
+            shape = (n, ctx, self.num_heads)
+            raw = pool[name][tables.long()].reshape(*shape, self.head_dim)
+            if quant:
+                sc = pool[name + "_scale"][tables.long()].reshape(*shape, 1)
+                return self._paged_dequant(raw, sc, x.dtype)
+            return raw.to(x.dtype)
 
         if lengths is not None:                           # chunk prefill
             lengths = _int32(lengths, dev)
@@ -200,8 +268,7 @@ class MultiHeadAttention(Module):
             off = gpos % bs
             flat = (n * t, self.num_heads, self.head_dim)
             idx = (phys.reshape(-1).long(), off.reshape(-1).long())
-            pool["k"].index_put_(idx, k.reshape(flat).to(cdt))
-            pool["v"].index_put_(idx, v.reshape(flat).to(cdt))
+            scatter(idx, k.reshape(flat), v.reshape(flat))
             ctx = max_blocks * bs
             mask = (torch.arange(ctx, dtype=torch.int32, device=dev)
                     [None, None, :] <= gpos[:, :, None])[:, None]
@@ -214,9 +281,13 @@ class MultiHeadAttention(Module):
             logical = (pos // bs).clamp(0, max_blocks - 1).long()
             phys = torch.gather(tables, 1, logical[:, None])[:, 0]
             idx = (phys.long(), (pos % bs).long())
-            pool["k"].index_put_(idx, k[:, 0].to(cdt))
-            pool["v"].index_put_(idx, v[:, 0].to(cdt))
-            if self._flash:
+            scatter(idx, k[:, 0], v[:, 0])
+            if self._flash and quant:
+                y = fa.flash_paged_decode_attention(
+                    q, pool["k"], pool["v"], tables, pos,
+                    k_scale=pool["k_scale"],
+                    v_scale=pool["v_scale"]).to(x.dtype)
+            elif self._flash:
                 y = fa.flash_paged_decode_attention(
                     q, pool["k"].to(x.dtype), pool["v"].to(x.dtype),
                     tables, pos)
@@ -255,6 +326,11 @@ class TransformerBlock(Container):
     def apply_cached(self, x, cache, pos):
         a, cache = self.attn._apply_cached(self.ln1(x), cache, pos)
         return self._mlp(x + a), cache
+
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         dtype=torch.float32):
+        """This block's paged K/V pool (the attention sublayer's)."""
+        return self.attn.init_paged_cache(num_blocks, block_size, dtype)
 
     def apply_paged(self, x, pool, tables, pos, lengths=None):
         a, pool = self.attn._apply_paged(self.ln1(x), pool, tables, pos,
@@ -342,9 +418,10 @@ class TransformerLM(Container):
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          dtype=torch.float32):
         """Per-layer pools of ``num_blocks + 1`` blocks: the extra one, id
-        ``num_blocks``, is the trash block."""
-        return {f"block{i}": b.attn.init_paged_cache(int(num_blocks) + 1,
-                                                     block_size, dtype)
+        ``num_blocks``, is the trash block.  ``dtype=torch.int8`` gives
+        the quantized layout (``MultiHeadAttention.init_paged_cache``)."""
+        return {f"block{i}": b.init_paged_cache(int(num_blocks) + 1,
+                                                block_size, dtype)
                 for i, b in enumerate(self.blocks)}
 
     def apply_paged(self, input, pool, tables, *, pos, lengths=None):

@@ -36,8 +36,9 @@ class Module(torch.nn.Module):
     def load_parameters_tree(self, tree):
         """Copy every leaf of ``tree`` (numpy arrays or tensors, nested
         like ``parameters_tree()``) into the matching parameter.  Keys
-        and shapes must match exactly: a missing, extra or misshapen leaf
-        raises before anything is copied."""
+        and shapes must match exactly, and an int8 leaf (a quantized
+        payload) loads only into an int8 parameter: a missing, extra,
+        misshapen or mistyped leaf raises before anything is copied."""
         flat = {}
 
         def walk(node, prefix):
@@ -60,6 +61,12 @@ class Module(torch.nn.Module):
             if shape != tuple(p.shape):
                 raise ValueError(f"{name}: tree leaf has shape {shape}, "
                                  f"parameter has {tuple(p.shape)}")
+            leaf_int8 = str(getattr(flat[name], "dtype", "")) in (
+                "int8", "torch.int8")
+            if leaf_int8 != (p.dtype == torch.int8):
+                # an int8 payload never loads as a float and back
+                raise TypeError(f"{name}: tree leaf is "
+                                f"{flat[name].dtype}, parameter is {p.dtype}")
         for name, p in params.items():
             p.copy_(torch.as_tensor(np.array(flat[name]), dtype=p.dtype))
         return self

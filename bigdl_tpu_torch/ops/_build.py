@@ -124,6 +124,8 @@ def _declare(libs):
                                          p],
         "bigdl_flash_paged_decode_attention": [
             p, p, p, p, p, p, i, i, i, i, i, i, i, i64, p, f, p],
+        "bigdl_flash_paged_decode_attention_int8": [
+            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i64, p, f, p],
         "bigdl_flash_attention_bwd": [p, p, p, p, p, p, p, p, p, p, i, i, i,
                                       i, i, p, i, f, p],
         "bigdl_ce_fwd": [p, p, p, p, i, i, i, i64, p],

@@ -12,7 +12,10 @@ Counterpart of ``bigdl_tpu/ops/flash_attention.py``, with the same
 - ``flash_decode_attention(q, k, v, pos)``: one query row per batch row
   against a contiguous cache, masked at ``kpos <= pos[b]`` (K2);
 - ``flash_paged_decode_attention(q, k_pool, v_pool, tables, pos)``: the
-  same through per-row block tables into a ``(NB, bs, H, D)`` pool (K3).
+  same through per-row block tables into a ``(NB, bs, H, D)`` pool (K3);
+  with ``k_scale``/``v_scale`` the pools are int8 with one fp32 scale per
+  (position, head) vector, dequantized inside the kernel, and the output
+  is fp32 (K3q, the TPU kernel's ``quantized=True`` path).
 
 Each wrapper sends a CPU tensor to its ``*_reference`` version and a CUDA
 tensor to its kernel; it raises on anything the kernel does not take
@@ -32,7 +35,8 @@ from bigdl_tpu_torch.ops import _build
 
 #: kernel launches per wrapper since the last ``reset_launch_counts()``
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
-            "flash_decode_attention": 0, "flash_paged_decode_attention": 0}
+            "flash_decode_attention": 0, "flash_paged_decode_attention": 0,
+            "flash_paged_decode_attention_int8": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -95,14 +99,22 @@ def flash_decode_attention_reference(q, k, v, pos):
     return masked_attention(q, k, v, mask[:, None, None, :])
 
 
-def flash_paged_decode_attention_reference(q, k_pool, v_pool, tables, pos):
+def flash_paged_decode_attention_reference(q, k_pool, v_pool, tables, pos,
+                                           k_scale=None, v_scale=None):
+    """Gathers each row's mapped context; an int8 pool is dequantized
+    after the gather (``payload * scale``, as ``dequantize_blockwise``)
+    and gives fp32, as the kernel does."""
     b, mb = tables.shape
     bs = k_pool.shape[1]
     ctx = mb * bs
     t = tables.long()
     k = k_pool[t].reshape(b, ctx, *k_pool.shape[2:])
     v = v_pool[t].reshape(b, ctx, *v_pool.shape[2:])
-    return flash_decode_attention_reference(q, k, v, pos)
+    if k_scale is None:
+        return flash_decode_attention_reference(q, k, v, pos)
+    k = k.float() * k_scale[t].reshape(b, ctx, *k_scale.shape[2:])
+    v = v.float() * v_scale[t].reshape(b, ctx, *v_scale.shape[2:])
+    return flash_decode_attention_reference(q.float(), k, v, pos)
 
 
 # --------------------------------------------------------------------------- #
@@ -135,13 +147,15 @@ def _check_float(name, *ts):
                              f"(stride 1), got strides {t.stride()}")
 
 
-def _check_vector_rows(name, *ts):
-    """The decode kernels read K rows four elements at a time."""
+def _check_vector_rows(name, *ts, width=4):
+    """The decode kernels read K rows ``width`` elements at a time: four
+    fp32/bf16 values, or sixteen int8 values (one 16-byte load)."""
     for t in ts:
-        if t.data_ptr() % (4 * t.element_size()) or \
-                any(s % 4 for s in t.stride()[:-1]):
-            raise ValueError(f"{name}: K/V rows must start on 4-element "
-                             f"boundaries (strides {t.stride()})")
+        if t.stride(-1) != 1 or t.data_ptr() % (width * t.element_size()) \
+                or any(s % width for s in t.stride()[:-1]):
+            raise ValueError(f"{name}: K/V rows must be contiguous and start "
+                             f"on {width}-element boundaries (strides "
+                             f"{t.stride()})")
 
 
 def _check_int32(name, *ts):
@@ -296,11 +310,31 @@ def flash_decode_attention(q, k, v, pos):
     return out
 
 
-def flash_paged_decode_attention(q, k_pool, v_pool, tables, pos):
+def _check_paged(name, q, k_pool, v_pool, tables, pos):
+    b, t1, h, d = q.shape
+    if t1 != 1 or k_pool.shape != v_pool.shape or k_pool.dim() != 4 or \
+            k_pool.shape[2:] != (h, d) or tables.dim() != 2 or \
+            tables.shape[0] != b or pos.shape != (b,):
+        raise ValueError(f"{name}: need q (B, 1, H, D), pools (NB, bs, H, "
+                         f"D), tables (B, MB), pos (B,), got {q.shape}, "
+                         f"{k_pool.shape}, {tables.shape}, {pos.shape}")
+
+
+def flash_paged_decode_attention(q, k_pool, v_pool, tables, pos,
+                                 k_scale=None, v_scale=None):
     """q ``(B, 1, H, D)`` against pools ``(NB, bs, H, D)`` addressed by
     block tables ``(B, MB)`` int32 at frontier ``pos (B,)`` int32 ->
     ``(B, 1, H, D)``.  Only the ``ceil((pos + 1) / bs)`` blocks a row
-    has mapped are read."""
+    has mapped are read.
+
+    ``k_scale``/``v_scale`` (both or neither, ``(NB, bs, H, 1)`` fp32)
+    select the int8 pool layout: the pools are int8, each row is
+    dequantized inside the kernel (K3q) and the output is fp32."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if k_scale is not None:
+        return _paged_decode_int8(q, k_pool, v_pool, tables, pos, k_scale,
+                                  v_scale)
     if _on_cpu(q, k_pool, v_pool, tables, pos):
         return flash_paged_decode_attention_reference(q, k_pool, v_pool,
                                                       tables, pos)
@@ -308,19 +342,48 @@ def flash_paged_decode_attention(q, k_pool, v_pool, tables, pos):
     _check_float(name, q, k_pool, v_pool)
     _check_vector_rows(name, k_pool, v_pool)
     _check_int32(name, tables, pos)
-    b, t1, h, d = q.shape
+    _check_paged(name, q, k_pool, v_pool, tables, pos)
+    b, _, h, d = q.shape
     nb, bs = k_pool.shape[:2]
-    if t1 != 1 or k_pool.shape != v_pool.shape or \
-            k_pool.shape[2:] != (h, d) or tables.dim() != 2 or \
-            tables.shape[0] != b or pos.shape != (b,):
-        raise ValueError(f"{name}: need q (B, 1, H, D), pools (NB, bs, H, "
-                         f"D), tables (B, MB), pos (B,), got {q.shape}, "
-                         f"{k_pool.shape}, {tables.shape}, {pos.shape}")
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     s = (q.stride(0), q.stride(2), *k_pool.stride()[:3],
          *v_pool.stride()[:3], out.stride(0), out.stride(2))
     rc = _build.load().bigdl_flash_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), pos.data_ptr(), _DTYPES[q.dtype], b, h, d, nb,
+        bs, tables.shape[1], tables.stride(0), _strides(*s),
+        1.0 / math.sqrt(d), _stream())
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _paged_decode_int8(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
+    """K3q: int8 pools and their scales, read in place by the kernel."""
+    if _on_cpu(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
+        return flash_paged_decode_attention_reference(
+            q, k_pool, v_pool, tables, pos, k_scale, v_scale)
+    name = "flash_paged_decode_attention_int8"
+    _check_float(name, q)
+    _check_int32(name, tables, pos)
+    _check_paged(name, q, k_pool, v_pool, tables, pos)
+    b, _, h, d = q.shape
+    nb, bs = k_pool.shape[:2]
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise TypeError(f"{name}: pools must be int8 with scales, got "
+                        f"{k_pool.dtype}, {v_pool.dtype}")
+    _check_vector_rows(name, k_pool, v_pool, width=16)
+    for t in (k_scale, v_scale):
+        if t.dtype != torch.float32 or t.shape != (nb, bs, h, 1):
+            raise ValueError(f"{name}: scales must be fp32 {(nb, bs, h, 1)}"
+                             f", got {t.dtype} {tuple(t.shape)}")
+    out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    s = (q.stride(0), q.stride(2), *k_pool.stride()[:3],
+         *v_pool.stride()[:3], out.stride(0), out.stride(2),
+         *k_scale.stride()[:3], *v_scale.stride()[:3])
+    rc = _build.load().bigdl_flash_paged_decode_attention_int8(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), _DTYPES[q.dtype], b, h, d, nb,
         bs, tables.shape[1], tables.stride(0), _strides(*s),
         1.0 / math.sqrt(d), _stream())

@@ -8,6 +8,13 @@ thread drains a bounded queue under a ``max_batch_size`` /
 and runs one forward.  ``generate`` hands prompts to the continuous-
 batching decode scheduler (``serving/generation.py``), paged by default.
 
+Int8: ``quantize=True`` serves the model's int8 twin
+(``nn.quantized.quantize_model``), ``kv_cache_dtype="int8"`` stores the
+paged pool as int8 blocks decoded through K3q, and ``speculative=k``
+drafts ``k`` tokens a round with the twin and verifies them with the fp32
+model in one forward.  ``accuracy_gate`` holds the twin against the fp32
+model on a held-out batch before the engine serves.
+
 The model's attention runs through the hand-written CUDA kernels on the
 card.  The JAX reference computes in full fp32, and so does the engine:
 building it on a CUDA device switches TF32 matrix products off
@@ -24,6 +31,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.nn.quantized import model_bytes, quantize_model
+from bigdl_tpu_torch.optim.validation import AccuracyDeltaGate
 from bigdl_tpu_torch.serving.buckets import (BucketLadder, ladder_or_default,
                                              pad_batch_axis)
 from bigdl_tpu_torch.utils.device import resolve_device, same_device
@@ -84,6 +93,18 @@ class ServingEngine:
 
     ``device`` (``None`` means the CUDA card) must be where the model
     lies; the CPU serves only when asked for (``device="cpu"``).
+
+    ``quantize=True`` (or a ``select(path, module)`` predicate for the
+    quantizer) serves the int8 twin; the fp32 model is not changed.
+    ``accuracy_gate`` (an ``AccuracyDeltaGate`` or a dict of its
+    arguments) compares the fp32 model with the twin on a held-out batch
+    at construction and refuses to serve, with ``ValueError``, when the
+    twin diverges beyond its tolerance.  ``kv_cache_dtype="int8"``
+    stores the paged pool as int8 payloads plus one fp32 scale per
+    (position, head) vector.  ``speculative=k`` drafts ``k`` tokens a
+    round with the twin (on its own pool of the same dtype) and verifies
+    them with the fp32 model: the stream is the fp32 model's own.  Both
+    need ``kv_cache="paged"``.
     """
 
     def __init__(self, model, max_batch_size: int = 32,
@@ -94,7 +115,10 @@ class ServingEngine:
                  prompt_ladder: Optional[BucketLadder] = None,
                  kv_cache: str = "paged", kv_block_size: int = 16,
                  kv_blocks: Optional[int] = None,
-                 prefill_chunk: Optional[int] = None, device=None):
+                 prefill_chunk: Optional[int] = None,
+                 quantize=False, accuracy_gate=None,
+                 kv_cache_dtype: str = "fp32", speculative: int = 0,
+                 device=None):
         device = resolve_device(device)
         model_device = next(model.parameters()).device
         if not same_device(device, model_device):
@@ -109,8 +133,45 @@ class ServingEngine:
         if kv_cache not in ("paged", "contiguous"):
             raise ValueError(f"kv_cache must be 'paged' or 'contiguous', "
                              f"got {kv_cache!r}")
+        if speculative < 0:
+            raise ValueError(
+                f"speculative must be >= 0 (draft tokens per verify "
+                f"step; 0 disables), got {speculative}")
+        if kv_cache_dtype not in ("fp32", "int8"):
+            raise ValueError(f"kv_cache_dtype must be 'fp32' or 'int8', "
+                             f"got {kv_cache_dtype!r}")
+        if kv_cache_dtype != "fp32" and kv_cache != "paged":
+            raise ValueError(
+                "int8 KV blocks live in the paged pool (payload and scale "
+                "per block); kv_cache_dtype='int8' needs kv_cache='paged'")
+        if speculative and kv_cache != "paged":
+            raise ValueError(
+                "speculative decoding rides the paged block tables (the "
+                "drafter's pool shares the verifier's allocator); "
+                "speculative=k needs kv_cache='paged'")
+        if (kv_cache_dtype != "fp32" or speculative) \
+                and not hasattr(model, "init_paged_cache"):
+            raise TypeError(
+                f"{type(model).__name__} has no init_paged_cache(): int8 "
+                f"KV blocks and speculative decoding need the paged "
+                f"decode mode (TransformerLM has one)")
+        self._quantized = bool(quantize)
+        self._qselect = quantize if callable(quantize) else None
+        self.speculative = int(speculative)
+        if accuracy_gate is not None and not self._quantized \
+                and not self.speculative:
+            raise ValueError(
+                "accuracy_gate compares the fp32 model against its int8 "
+                "twin; it needs quantize=... (int8 serving) or "
+                "speculative=k (int8 drafter) to have a candidate to gate")
+        self._gate = self._make_gate(accuracy_gate)
         self.model = model.eval()
-        self._backend = _LocalEval(model)
+        # the int8 twin SERVES on a quantized engine and DRAFTS on a
+        # speculative one (the fp32 model then verifies)
+        self._qmodel = quantize_model(model, select=self._qselect)[0] \
+            if self._quantized or self.speculative else None
+        serve_model = self._qmodel if self._quantized else model
+        self._backend = _LocalEval(serve_model)
         self.max_batch_size = int(max_batch_size)
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.queue_capacity = int(queue_capacity)
@@ -135,11 +196,23 @@ class ServingEngine:
         self.decode_max_len = decode_max_len
         self._prompt_ladder = prompt_ladder
         self.kv_cache = kv_cache
+        self.kv_cache_dtype = kv_cache_dtype
         self.kv_block_size = int(kv_block_size)
         self.kv_blocks = kv_blocks
         self.prefill_chunk = prefill_chunk
         self._gen = None
         self._gen_lock = threading.Lock()
+        self._gate_detail = None
+        if self._gate is not None:
+            # the twin must clear the gate before the engine serves at all
+            ok, detail = self._gate.check(self._gate_eval(self.model),
+                                          self._gate_eval(self._qmodel))
+            self._gate_detail = detail
+            if not ok:
+                raise ValueError(
+                    f"accuracy gate refused the initial int8 quantization "
+                    f"({detail.get('reason')}); serve fp32 or relax the "
+                    f"gate tolerances")
         self._dispatcher = threading.Thread(
             target=self._loop, name="bigdl-torch-serving-dispatcher",
             daemon=True)
@@ -217,21 +290,32 @@ class ServingEngine:
                             "generation is disabled on this engine "
                             "(decode_slots=0)")
                     from bigdl_tpu_torch.serving.generation import (
-                        GenerateScheduler, PagedGenerateScheduler)
+                        GenerateScheduler, PagedGenerateScheduler,
+                        SpeculativeScheduler)
 
+                    serve_model = self._backend.model
                     kw = dict(slots=self.decode_slots,
                               max_len=self.decode_max_len,
                               prompt_ladder=self._prompt_ladder,
                               queue_capacity=self.queue_capacity,
                               admission_check=self._gen_admission_check)
-                    if self.kv_cache == "paged" \
-                            and hasattr(self.model, "init_paged_cache"):
-                        self._gen = PagedGenerateScheduler(
-                            self.model, block_size=self.kv_block_size,
-                            num_blocks=self.kv_blocks,
-                            prefill_chunk=self.prefill_chunk, **kw)
+                    paged_kw = dict(
+                        kw, block_size=self.kv_block_size,
+                        num_blocks=self.kv_blocks,
+                        prefill_chunk=self.prefill_chunk,
+                        cache_dtype={"fp32": torch.float32,
+                                     "int8": torch.int8}[self.kv_cache_dtype])
+                    if self.speculative:
+                        # the fp32 model verifies, so the stream is its own
+                        self._gen = SpeculativeScheduler(
+                            self.model, self._qmodel,
+                            spec_k=self.speculative, **paged_kw)
+                    elif self.kv_cache == "paged" \
+                            and hasattr(serve_model, "init_paged_cache"):
+                        self._gen = PagedGenerateScheduler(serve_model,
+                                                           **paged_kw)
                     else:
-                        self._gen = GenerateScheduler(self.model, **kw)
+                        self._gen = GenerateScheduler(serve_model, **kw)
         return self._gen
 
     def _gen_admission_check(self):
@@ -269,6 +353,43 @@ class ServingEngine:
                                          max_new_tokens=max_new_tokens,
                                          eos_id=eos_id, timeout=timeout,
                                          sampling=sampling)
+
+    # ----- int8: the twin, the gate ---------------------------------------- #
+    @property
+    def quantized(self) -> bool:
+        """Whether this engine serves the int8 twin."""
+        return self._quantized
+
+    def serving_model_bytes(self) -> int:
+        """Bytes of the weights that answer requests: the twin's int8
+        payloads and scales when quantized, the fp32 tree otherwise."""
+        return model_bytes(self._backend.model.parameters_tree())
+
+    @staticmethod
+    def _make_gate(accuracy_gate):
+        if accuracy_gate is None or \
+                isinstance(accuracy_gate, AccuracyDeltaGate):
+            return accuracy_gate
+        if isinstance(accuracy_gate, dict):
+            return AccuracyDeltaGate(**accuracy_gate)
+        raise ValueError(
+            f"accuracy_gate must be an AccuracyDeltaGate or a dict of its "
+            f"kwargs, got {type(accuracy_gate).__name__}")
+
+    def _gate_eval(self, model):
+        """``model`` as the gate's ``x -> logits`` callable: the held-out
+        batch is padded to its ladder rung, as a served tick would be
+        (the int8 side's activation scale is taken over the padded
+        batch), and the result sliced back."""
+        @torch.no_grad()
+        def run(x):
+            x = np.asarray(x)
+            n = x.shape[0]
+            bucket = self.ladder.bucket_for(n)
+            xb = x if bucket is None or bucket == n \
+                else pad_batch_axis(x, bucket)
+            return model(torch.as_tensor(xb, device=model.device))[:n]
+        return run
 
     # ----- warmup ----------------------------------------------------------- #
     def precompile(self, example_feature=None) -> int:

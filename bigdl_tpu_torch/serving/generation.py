@@ -10,9 +10,11 @@ slot-based continuous-batching scheduler (counterpart of
   batch and length bucketed) with decode ticks (every occupied slot
   advances one token).
 - ``paged_generate_steps(model)`` / ``PagedGenerateScheduler`` -- the same
-  contract over a paged block pool (``serving/paging.py``): prefix
-  sharing, chunked prefill interleaved with decode, and sampling
-  (``serving/sampling.py``).
+  contract over a paged block pool (``serving/paging.py``), fp32 or int8
+  (``cache_dtype``): prefix sharing, chunked prefill interleaved with
+  decode, and sampling (``serving/sampling.py``).
+- ``speculative_verify_step(model)`` / ``SpeculativeScheduler`` -- draft
+  with the int8 twin, verify ``k + 1`` tokens in one fp32 forward.
 - ``GenerateFuture`` -- the streaming per-request handle.
 
 The JAX steps are jitted and donate the cache; these run eagerly under
@@ -39,8 +41,23 @@ from bigdl_tpu_torch.serving.sampling import sample_tokens
 log = logging.getLogger("bigdl_tpu_torch.serving")
 
 
+#: the paged pool's storage dtypes and their short names
+_KV_DTYPES = {torch.float32: "fp32", torch.int8: "int8"}
+
+
 def _tensor(x, device, dtype=torch.int32):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _zeros_like(pool):
+    return {name: {kv: torch.zeros_like(t) for kv, t in layer.items()}
+            for name, layer in pool.items()}
+
+
+def _tree_bytes(pool):
+    """Device bytes of every leaf of a per-layer pool or cache."""
+    return int(sum(t.numel() * t.element_size()
+                   for layer in pool.values() for t in layer.values()))
 
 
 def _last_valid_row(logits, lengths):
@@ -200,6 +217,9 @@ class GenerateScheduler:
         # popped off the queue but not yet slotted (or failed), so drain()
         # waits for true quiescence
         self._in_flight = 0
+        self._tick = 0
+        self._served = 0
+        self._tokens_out = 0
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._not_full = threading.Condition(self._lock)
@@ -219,9 +239,7 @@ class GenerateScheduler:
 
     def cache_bytes(self) -> int:
         """Device bytes the KV cache holds."""
-        return int(sum(t.numel() * t.element_size()
-                       for layer in self._cache.values()
-                       for t in layer.values()))
+        return _tree_bytes(self._cache)
 
     # ----- request surface -------------------------------------------------- #
     def submit(self, prompt, max_new_tokens: int = 16,
@@ -276,10 +294,18 @@ class GenerateScheduler:
     def _active(self):
         return [(i, s) for i, s in enumerate(self._slots) if s is not None]
 
+    def stats(self):
+        with self._lock:
+            return {"pending": len(self._pending),
+                    "in_flight": self._in_flight,
+                    "slots": self.slots, "slots_active": len(self._active()),
+                    "ticks": self._tick, "served": self._served,
+                    "tokens": self._tokens_out,
+                    "running": self._running}
+
     # ----- warmup ----------------------------------------------------------- #
     def _dummy_cache(self):
-        return {name: {kv: torch.zeros_like(t) for kv, t in layer.items()}
-                for name, layer in self._cache.items()}
+        return _zeros_like(self._cache)
 
     def precompile(self) -> int:
         """Warm-up before traffic: builds the kernels (first launch) and
@@ -368,6 +394,7 @@ class GenerateScheduler:
             log.exception("prefill tick failed (%d prompts)", n)
             self._tick_failed(e, [f for _p, f in reqs], slots)
             return
+        self._tick += 1
         for i, (p, f) in enumerate(reqs):
             slot = _Slot(f, int(first[i]), pos=int(p.size))
             self._slots[slots[i]] = slot
@@ -387,6 +414,7 @@ class GenerateScheduler:
             log.exception("decode tick failed (%d slots)", len(active))
             self._tick_failed(e, [], [])
             return
+        self._tick += 1
         for i, slot in active:
             slot.pos += 1
             slot.last = int(nxt[i])
@@ -448,6 +476,7 @@ class GenerateScheduler:
         tok = slot.tokens[-1]
         if len(slot.tokens) == 1:
             fut.first_token_s = time.perf_counter() - fut._t_submit
+        self._tokens_out += 1
         fut._stream.put(tok)
         reason = None
         if fut.eos_id is not None and tok == fut.eos_id:
@@ -459,6 +488,7 @@ class GenerateScheduler:
         self._release_slot(index, slot)
         fut.finish_reason = reason
         self._stamp_latency(fut)
+        self._served += 1
         fut._stream.put(None)
         fut.set_result(list(slot.tokens))
 
@@ -501,6 +531,21 @@ class GenerateScheduler:
         return False
 
 
+def _draw(logits, knobs, position):
+    """Tokens from ``logits`` per the rows' sampling knobs ``(temperature,
+    top_k, top_p, seed)``, the draw for a token at ``position`` keyed on
+    ``(seed, position)``; all rows greedy skips the sampler (the result
+    is the same argmax)."""
+    temperature, top_k, top_p, seed = knobs
+    if not (np.asarray(temperature) > 0).any():
+        return torch.argmax(logits, dim=-1)
+    dev = logits.device
+    return sample_tokens(logits, _tensor(temperature, dev, torch.float32),
+                         _tensor(top_k, dev),
+                         _tensor(top_p, dev, torch.float32),
+                         _tensor(seed, dev), position)
+
+
 def paged_generate_steps(model):
     """The step triple for PAGED generation:
 
@@ -511,22 +556,15 @@ def paged_generate_steps(model):
       for rows whose chunk completes the prompt).
     - ``decode(pool, tokens (S,), pos (S,), tables (S, MB), temperature,
       top_k, top_p, seed) -> next (S,)``: one step over the slot pool.
-    - ``copy_block(pool, src, dst)``: the copy-on-write block copy.
+    - ``copy_block(pool, src, dst)``: the copy-on-write block copy, over
+      every leaf of the pool (an int8 pool's scales included).
 
-    The draw for the token at position ``p`` is keyed on ``(seed, p)``,
-    so a request replays identically however it was chunked or slotted.
-    All rows greedy skips the sampler (the result is the same argmax).
+    The pool carries its own layout (fp32, or int8 payloads plus
+    scales), so one triple serves both.  The draw for the token at
+    position ``p`` is keyed on ``(seed, p)``, so a request replays
+    identically however it was chunked or slotted.
     """
     dev = model.device
-
-    def draw(logits, knobs, position):
-        temperature, top_k, top_p, seed = knobs
-        if not (np.asarray(temperature) > 0).any():
-            return torch.argmax(logits, dim=-1)
-        return sample_tokens(logits, _tensor(temperature, dev, torch.float32),
-                             _tensor(top_k, dev), _tensor(top_p, dev,
-                                                          torch.float32),
-                             _tensor(seed, dev), position)
 
     @torch.no_grad()
     def chunk_prefill(pool, tokens, start, lengths, tables, *knobs):
@@ -536,7 +574,7 @@ def paged_generate_steps(model):
                                       lengths=len_t)
         row = _last_valid_row(logits, len_t)
         # the drawn token OCCUPIES position start + lengths
-        first = draw(row, knobs, start_t + len_t)
+        first = _draw(row, knobs, start_t + len_t)
         return first.cpu().numpy().astype(np.int32)
 
     @torch.no_grad()
@@ -544,7 +582,7 @@ def paged_generate_steps(model):
         pos_t = _tensor(pos, dev)
         logits, _ = model.apply_paged(_tensor(tokens, dev)[:, None], pool,
                                       _tensor(tables, dev), pos=pos_t)
-        nxt = draw(logits[:, 0], knobs, pos_t + 1)
+        nxt = _draw(logits[:, 0], knobs, pos_t + 1)
         return nxt.cpu().numpy().astype(np.int32)
 
     @torch.no_grad()
@@ -591,7 +629,11 @@ class PagedGenerateScheduler(GenerateScheduler):
       shared blocks (``prefix_hit_tokens``) and skip that prefill;
     - prompts prefill ``prefill_chunk`` tokens per dispatcher iteration,
       with a decode tick in between;
-    - decode ticks sample per the request's ``SamplingParams``.
+    - decode ticks sample per the request's ``SamplingParams``;
+    - ``cache_dtype=torch.int8`` stores the pool as int8 payloads plus
+      one fp32 scale per (position, head) vector, decoded through K3q;
+      the allocator namespaces its prefix hashes by the pool's dtype and
+      reports the bytes measured from the pool's tensors.
     """
 
     supports_sampling = True
@@ -600,7 +642,12 @@ class PagedGenerateScheduler(GenerateScheduler):
                  prompt_ladder: Optional[BucketLadder] = None,
                  queue_capacity: int = 1024, admission_check=None,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 cache_dtype=torch.float32):
+        if cache_dtype not in _KV_DTYPES:
+            raise ValueError(f"cache_dtype must be one of "
+                             f"{list(_KV_DTYPES)}, got {cache_dtype}")
+        self._cache_dtype = cache_dtype
         if not hasattr(model, "init_paged_cache"):
             raise TypeError(
                 f"{type(model).__name__} has no init_paged_cache(): the "
@@ -634,11 +681,33 @@ class PagedGenerateScheduler(GenerateScheduler):
         self._reset_pool()
 
     def _reset_pool(self):
-        self._cache = self.model.init_paged_cache(self.num_blocks,
-                                                  self.block_size)
-        self._alloc = BlockAllocator(
-            self.num_blocks, self.block_size,
-            bytes_per_block=self.cache_bytes() // (self.num_blocks + 1))
+        # a failed tick may have written part of the pool: every cached
+        # prefix block's content goes with it (fresh allocator)
+        self._cache = self.model.init_paged_cache(
+            self.num_blocks, self.block_size, self._cache_dtype)
+        self._alloc = self._make_alloc()
+
+    def kv_dtype(self) -> str:
+        """Short name of the pool's storage dtype ("fp32" / "int8"), the
+        spelling ``BlockAllocator`` namespaces prefix hashes with."""
+        return _KV_DTYPES[self._cache_dtype]
+
+    def _make_alloc(self):
+        """The allocator for the pool just allocated: it learns the
+        pool's storage dtype (prefix hashes never cross formats) and the
+        device bytes behind one addressable block, measured from every
+        leaf of the pool, scales included."""
+        return BlockAllocator(
+            self.num_blocks, self.block_size, kv_dtype=self.kv_dtype(),
+            bytes_per_block=_tree_bytes(self._cache)
+            // (self.num_blocks + 1))
+
+    def stats(self):
+        st = super().stats()
+        st["kv"] = self._alloc.stats()
+        st["block_size"] = self.block_size
+        st["prefill_chunk"] = self.prefill_chunk
+        return st
 
     @staticmethod
     def _knobs(n):
@@ -742,10 +811,12 @@ class PagedGenerateScheduler(GenerateScheduler):
         try:
             first = self._chunk_fn(self._cache, tokens, start, lens, tables,
                                    *knobs)
+            self._mirror_chunk(tokens, start, lens, tables, knobs)
         except Exception as e:
             log.exception("chunk prefill tick failed (%d prompts)", n)
             self._tick_failed(e, [], [])
             return
+        self._tick += 1
         for r, (i, s) in enumerate(rows):
             s.consumed += int(lens[r])
             # full prompt blocks now hold real K/V: register their hashes
@@ -776,11 +847,17 @@ class PagedGenerateScheduler(GenerateScheduler):
             log.exception("decode tick failed (%d slots)", len(active))
             self._tick_failed(e, [], [])
             return
+        self._tick += 1
         for i, s in active:
             s.pos += 1
             s.last = int(nxt[i])
             s.tokens.append(s.last)
             self._deliver(i, s)
+
+    def _mirror_chunk(self, tokens, start, lens, tables, knobs):
+        """Hook for a second pool that must see every prompt chunk: none
+        here; the speculative scheduler replays the chunk through its
+        drafter's pool."""
 
     def _cow_guard(self, slot, first_pos, last_pos):
         """Copy-on-write over the blocks a write will touch: a shared
@@ -790,4 +867,209 @@ class PagedGenerateScheduler(GenerateScheduler):
             cow = self._alloc.ensure_writable(slot.seq, b * bs)
             if cow is not None:
                 src, dst = cow
-                self._copy_fn(self._cache, src, dst)
+                self._copy_cow_block(src, dst)
+
+    def _copy_cow_block(self, src, dst):
+        """Copy physical block ``src`` into ``dst`` (the speculative
+        scheduler also copies its drafter's pool: the shared allocator's
+        table move covers both)."""
+        self._copy_fn(self._cache, src, dst)
+
+
+def speculative_verify_step(model):
+    """The VERIFY step of speculative decoding (counterpart of
+    ``speculative_verify_step``, JAX ``serving/generation.py:1263``).
+
+    ``verify(pool, last (S,), drafts (k arrays of (S,)), pos (S,), tables
+    (S, MB), temperature, top_k, top_p, seed) -> sampled (S, k + 1)``:
+    row ``i`` feeds ``[last, d_1 .. d_k]`` at positions ``pos .. pos + k``
+    through the chunk-prefill path (every position's K/V written, every
+    position's logits returned) and draws a token at EVERY position
+    ``pos + 1 .. pos + k + 1`` with the ``(seed, position)`` sampler of
+    plain decode.  Column ``j`` is therefore the token one decode step
+    would have drawn at ``pos + j + 1`` after the fed prefix.
+    """
+    dev = model.device
+
+    @torch.no_grad()
+    def verify(pool, last, drafts, pos, tables, *knobs):
+        tokens = np.stack([np.asarray(last)]
+                          + [np.asarray(d) for d in drafts], axis=1)
+        k1 = tokens.shape[1]
+        pos_t = _tensor(pos, dev)
+        logits, _ = model.apply_paged(_tensor(tokens, dev), pool,
+                                      _tensor(tables, dev), pos=pos_t,
+                                      lengths=torch.full_like(pos_t, k1))
+        positions = pos_t[:, None] + 1 + torch.arange(
+            k1, dtype=torch.int32, device=dev)[None, :]
+        sampled = _draw(logits.reshape(-1, logits.shape[-1]),
+                        [np.repeat(np.asarray(a), k1) for a in knobs],
+                        positions.reshape(-1))
+        return sampled.reshape(tokens.shape).cpu().numpy().astype(np.int32)
+
+    return verify
+
+
+class SpeculativeScheduler(PagedGenerateScheduler):
+    """Draft/verify decoding over the paged pool (counterpart of
+    ``SpeculativeScheduler``, JAX ``serving/generation.py:1317``): per
+    round the int8 twin drafts ``spec_k`` tokens with sequential decode
+    steps and the fp32 verifier scores all of them in one chunk-shaped
+    forward.  The longest prefix of drafts equal to what the verifier
+    itself draws is accepted, plus the verifier's own next token, so one
+    round emits 1 to ``spec_k + 1`` tokens and the stream is the
+    verifier-only stream (greedy, and seeded sampling through the
+    ``(seed, position)`` draw).
+
+    The drafter runs on its OWN pool, of the verifier's dtype, but both
+    pools share ONE ``BlockAllocator``: prefix hits, copy-on-write
+    detaches and evictions stay single-sourced (a copy-on-write copies
+    the block in both pools; every prompt chunk is mirrored into the
+    drafter's pool).  A rejected draft's K/V lies beyond the committed
+    frontier, masked until the next round overwrites it, and the
+    copy-on-write guard runs over the whole ``pos .. pos + k`` span
+    first.  Table rows carry ``ceil((spec_k + 1) / block_size)`` extra
+    trash entries, so a round that overshoots a finishing sequence's
+    reserved blocks writes into the trash block.
+    """
+
+    def __init__(self, model, draft_model, spec_k: int = 4, **kw):
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if not hasattr(draft_model, "init_paged_cache"):
+            raise TypeError(
+                f"{type(draft_model).__name__} has no init_paged_cache():"
+                f" the drafter must run the verifier's paged decode mode")
+        self.spec_k = int(spec_k)
+        self.draft_model = draft_model
+        self._spec_rounds = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        super().__init__(model, **kw)
+        # no request can arrive before the constructor returns, so the
+        # dispatcher never sees the narrower rows
+        self.max_blocks_per_seq += -(-(self.spec_k + 1) // self.block_size)
+
+    def _setup_steps(self):
+        super()._setup_steps()
+        self._dchunk_fn, self._ddecode_fn, self._dcopy_fn = \
+            paged_generate_steps(self.draft_model)
+        self._verify_fn = speculative_verify_step(self.model)
+
+    def _reset_pool(self):
+        super()._reset_pool()
+        self._dcache = self.draft_model.init_paged_cache(
+            self.num_blocks, self.block_size, self._cache_dtype)
+        # one addressable block is backed by both pools
+        self._alloc.bytes_per_block += _tree_bytes(self._dcache) \
+            // (self.num_blocks + 1)
+
+    def cache_bytes(self) -> int:
+        """Verifier pool + drafter pool."""
+        return super().cache_bytes() + _tree_bytes(self._dcache)
+
+    def stats(self):
+        st = super().stats()
+        drafted = self._spec_drafted
+        st["speculative"] = {
+            "k": self.spec_k, "rounds": self._spec_rounds,
+            "drafted": drafted, "accepted": self._spec_accepted,
+            "acceptance_rate": (self._spec_accepted / drafted)
+            if drafted else None}
+        return st
+
+    def _mirror_chunk(self, tokens, start, lens, tables, knobs):
+        """Replay the verifier's prompt chunk through the drafter's pool
+        (same tables: the allocator is shared), so the drafter holds its
+        own K/V for every prompt position once the sequence decodes."""
+        self._dchunk_fn(self._dcache, tokens, start, lens, tables, *knobs)
+
+    def _copy_cow_block(self, src, dst):
+        super()._copy_cow_block(src, dst)
+        self._dcopy_fn(self._dcache, src, dst)
+
+    def precompile(self) -> int:
+        """The verifier's warm-up plus the drafter's decode, chunk rungs
+        and block copy and one verify, on zero copies of the pools."""
+        runs = super().precompile()
+        s, mb = self.slots, self.max_blocks_per_seq
+        tabs = np.full((s, mb), self._alloc.trash, np.int32)
+        zeros = np.zeros((s,), np.int32)
+        ddummy = _zeros_like(self._dcache)
+        self._ddecode_fn(ddummy, zeros, zeros, tabs, *self._knobs(s))
+        for b in self.batch_ladder:
+            self._dchunk_fn(ddummy, np.zeros((b, self.prefill_chunk),
+                                             np.int32),
+                            np.zeros((b,), np.int32), np.ones((b,), np.int32),
+                            np.full((b, mb), self._alloc.trash, np.int32),
+                            *self._knobs(b))
+            runs += 1
+        self._dcopy_fn(ddummy, 0, 0)
+        self._verify_fn(self._dummy_cache(), zeros,
+                        tuple(zeros for _ in range(self.spec_k)), zeros,
+                        tabs, *self._knobs(s))
+        return runs + 3
+
+    def _run_decode_tick(self):
+        """One draft/verify round over every decoding slot:
+
+        1. ``spec_k + 1`` drafter decode steps: the first ``spec_k`` give
+           the drafts ``d_1 .. d_k`` (each fed back in), the last only
+           writes ``d_k``'s K/V, so the drafter's pool covers the same
+           ``pos .. pos + k`` span the verifier writes;
+        2. one fp32 verify over ``[last, d_1 .. d_k]``;
+        3. the longest matching draft prefix plus the verifier's next
+           token are streamed (EOS or the token budget cut the run)."""
+        s_n = self.slots
+        k = self.spec_k
+        mb = self.max_blocks_per_seq
+        tokens = np.zeros((s_n,), np.int32)
+        pos = np.zeros((s_n,), np.int32)
+        tables = np.full((s_n, mb), self._alloc.trash, np.int32)
+        knobs = self._knobs(s_n)
+        active = [(i, s) for i, s in self._active() if not s.prefilling]
+        for i, s in active:
+            # the whole write span, clamped to the sequence's reserved
+            # range (overshoot goes to the trash entries of the row)
+            hi = min(s.pos + k,
+                     int(s.prompt.size) + s.fut.max_new_tokens - 1)
+            self._cow_guard(s, s.pos, max(s.pos, hi))
+            tokens[i] = s.last
+            pos[i] = s.pos
+            tables[i] = self._alloc.table_row(s.seq, mb)
+            self._fill_sampling(knobs, i, s)
+        try:
+            drafts = []
+            cur = tokens
+            for j in range(k + 1):
+                cur = self._ddecode_fn(self._dcache, cur, pos + j, tables,
+                                       *knobs)
+                if j < k:
+                    drafts.append(cur)
+            vtoks = self._verify_fn(self._cache, tokens, tuple(drafts), pos,
+                                    tables, *knobs)
+        except Exception as e:
+            log.exception("speculative tick failed (%d slots)", len(active))
+            self._tick_failed(e, [], [])
+            return
+        self._tick += 1
+        dtoks = np.stack(drafts, axis=1)
+        drafted = accepted = 0
+        for i, s in active:
+            drafted += k
+            a = 0
+            while a < k and int(dtoks[i, a]) == int(vtoks[i, a]):
+                a += 1
+            accepted += a
+            # vtoks[i, :a] are the accepted drafts, vtoks[i, a] the
+            # verifier's own next token (correction or bonus)
+            for j in range(a + 1):
+                s.pos += 1
+                s.last = int(vtoks[i, j])
+                s.tokens.append(s.last)
+                self._deliver(i, s)
+                if s.fut.done():
+                    break
+        self._spec_rounds += 1
+        self._spec_drafted += drafted
+        self._spec_accepted += accepted

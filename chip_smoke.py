@@ -40,13 +40,30 @@ Phases, each printing JSON lines:
    losses within 1e-5 relative, the last below the first, and the first
    batch's loss lower after the 8 steps than before; (c) the training path's
    launches: K1 and K1-bwd 12 a step, K4 and K5 one a step, none on the
-   plain model.
+   plain model;
+8. int8 kernel: K3q, ``flash_paged_decode_attention`` on int8 pools with
+   their fp32 scales (``ops.quantization.quantize_blockwise``), at phase
+   3's K3 shapes, held against its plain version (1e-4) and timed beside
+   its bound (2 * H * (D + 4) bytes a visible position) and its plain
+   version; no PyTorch call reads int8 K/V through block tables, so it
+   has no library time;
+9. int8 serving: TransformerLM "small" (phase 4's weights and prompts)
+   through three engines: (a) ``kv_cache_dtype="int8"``; (b)
+   ``quantize=True`` with an ``accuracy_gate``, fp32 KV; (c)
+   ``speculative=4`` over int8 KV.  Held: K3q launched by (a) and (c), K3
+   never by (a); every step (a) serves against the plain model on a copy
+   of its int8 pool (1e-4); the int8 pool's allocator-measured bytes per
+   block at 136/512 of the fp32 pool's; the gate's measured agreement and
+   RMSE within the stated tolerances, and a gate at half the measured
+   RMSE refusing the engine; (c)'s greedy streams equal to (a)'s (the
+   fp32 model decoding alone over int8 KV) except at stated near-ties.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
 non-zero before printing any result.
 """
 
+import collections
 import json
 import subprocess
 import sys
@@ -62,6 +79,8 @@ FP32_FLOPS_PER_S = 67e12
 ATOL = RTOL = 1e-4
 
 HEADS, HEAD_DIM = 12, 64
+#: the serving runs of phases 4, 5 and 9: vocab and new tokens a request
+SERVE_VOCAB, SERVE_NEW = 32000, 32
 #: the kernels the serving path (phase 4) launches
 SERVING_KERNELS = ("flash_attention", "flash_decode_attention",
                    "flash_paged_decode_attention")
@@ -70,6 +89,20 @@ VOCAB, SEQ, BATCH, TRAIN_ITERS = 32000, 1024, 8, 8
 #: per-step losses of the kernel and plain paths, relative: a hundredth of
 #: a step's fall at lr 1e-4, so a drift of the kernel path shows
 STEP_LOSS_RTOL = 1e-5
+#: phase 9: the accuracy gate of engine (b), the fp32 model against its
+#: int8 twin on 8 held-out sequences of 128 tokens.  Measured on the H100
+#: (PERF.md, the int8 findings): logit RMSE 0.0164, top-1 agreement 0.75
+#: (6 of 8 rows; random weights give near-flat logits).  The limits sit
+#: one step above that: RMSE 1.5x, one more row lost
+GATE_MAX_LOGIT_RMSE = 0.025
+GATE_MIN_TOP1_AGREEMENT = 0.625
+#: phase 9: a greedy token of the fp32 model's stream over int8 KV may
+#: differ between engines (a) and (c), or between rounds, only where the
+#: two tokens' logits, recomputed by the plain model, lie within this of
+#: each other (random weights at vocab 32000 give near-flat logits; the
+#: verify forward, the decode kernel and other prefill chunks sum in other
+#: orders, and an int8 pool can turn that into a whole code)
+TIE_MARGIN = 1e-3
 
 
 def emit(obj):
@@ -307,40 +340,79 @@ def served_step_errors(engines, model, plain, prompts, max_new):
     model.apply_paged, model.forward = apply_paged, forward
     streams = {}
     try:
-        for label in ("paged", "contiguous"):
-            futs = [engines[label].generate(p, max_new_tokens=max_new)
+        for label, eng in engines.items():
+            futs = [eng.generate(p, max_new_tokens=max_new)
                     for p in prompts]
             streams[label] = [f.result(600) for f in futs]
     finally:
         del model.apply_paged, model.forward
-    kinds = ("paged_chunk_prefill", "paged_decode", "contiguous_prefill",
-             "contiguous_decode")
+    kinds = [k for eng in engines.values()
+             for k in (("paged_chunk_prefill", "paged_decode")
+                       if eng.kv_cache == "paged"
+                       else ("contiguous_prefill", "contiguous_decode"))]
     if sorted(errs) != sorted(kinds):
         raise AssertionError(f"served steps checked: {sorted(errs)}")
     return errs, streams
 
 
-def e2e_phase(fa, card):
-    """Phase 4: TransformerLM "small" through three engines and predict."""
-    from bigdl_tpu_torch.models import synthetic_corpus, transformer_lm
-    from bigdl_tpu_torch.serving import ServingEngine
+def serving_models():
+    """TransformerLM "small" from seed 0, with the kernels and with plain
+    attention (the same weights): the models of phases 4, 5 and 9."""
+    from bigdl_tpu_torch.models import transformer_lm
 
-    vocab, max_new = 32000, 32
     t0 = time.perf_counter()
-    model = transformer_lm("small", vocab_size=vocab, device="cuda", seed=0)
-    plain_model = transformer_lm("small", vocab_size=vocab, device="cuda",
-                                 seed=0, use_flash="never")
+    model = transformer_lm("small", vocab_size=SERVE_VOCAB, device="cuda",
+                           seed=0)
+    plain_model = transformer_lm("small", vocab_size=SERVE_VOCAB,
+                                 device="cuda", seed=0, use_flash="never")
     emit({"phase": "e2e_setup", "model": "small",
           "params": sum(p.numel() for p in model.parameters()),
           "init_s": time.perf_counter() - t0})
-    toks, _ = synthetic_corpus(8, 700, vocab, seed=1)
+    return model, plain_model
+
+
+def serving_prompts(seed):
+    """8 greedy prompts of 17 to 700 tokens (``synthetic_corpus``)."""
+    from bigdl_tpu_torch.models import synthetic_corpus
+
+    toks, _ = synthetic_corpus(8, 700, SERVE_VOCAB, seed=seed)
     lengths = np.linspace(17, 700, 8).astype(int)
-    prompts = [toks[i, :n] for i, n in enumerate(lengths)]
+    return [toks[i, :n] for i, n in enumerate(lengths)]
+
+
+def timed_burst(eng, prompts, max_new, label, card, phase="e2e_generate",
+                **extra):
+    """One burst of greedy requests, all submitted at once; emits and
+    returns its streams and tokens/s (host clock)."""
+    t0 = time.perf_counter()
+    futs = [eng.generate(p, max_new_tokens=max_new) for p in prompts]
+    out = [f.result(600) for f in futs]
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(s) for s in out)
+    ttft = sorted(f.first_token_s for f in futs)
+    row = {"phase": phase, "engine": label, **extra,
+           "requests": len(futs), "tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+           "prefix_hit_tokens": sum(f.prefix_hit_tokens for f in futs),
+           "card": card}
+    emit(row)
+    return out, row["tokens_per_s"]
+
+
+def e2e_phase(fa, card, model, plain_model):
+    """Phase 4: TransformerLM "small" through three engines and predict.
+    Returns the main path's launches and the fp32 paged engine's tokens/s
+    in each round."""
+    from bigdl_tpu_torch.models import synthetic_corpus
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    vocab, max_new = SERVE_VOCAB, SERVE_NEW
+    prompts = serving_prompts(1)
     seq512, _ = synthetic_corpus(1, 512, vocab, seed=2)
     seq200, _ = synthetic_corpus(1, 200, vocab, seed=3)
     # fresh prompts for phase 5, so no prefix-cache hit shortens prefill
-    toks5, _ = synthetic_corpus(8, 700, vocab, seed=4)
-    prompts5 = [toks5[i, :n] for i, n in enumerate(lengths)]
+    prompts5 = serving_prompts(4)
 
     engines = {
         "paged": ServingEngine(model, decode_slots=8, decode_max_len=1024),
@@ -360,24 +432,11 @@ def e2e_phase(fa, card):
         # ---- the main path: counts read right after it ----------------
         # two rounds in turn (paged, contiguous, plain, paged, ...): the
         # first rounds' numbers carry the first use of each shape
+        tok_s = {}
         for rnd in (0, 1):
             for label, eng in engines.items():
-                t0 = time.perf_counter()
-                futs = [eng.generate(p, max_new_tokens=max_new)
-                        for p in prompts]
-                out = [f.result(600) for f in futs]
-                wall = time.perf_counter() - t0
-                streams[(label, rnd)] = out
-                n_tok = sum(len(s) for s in out)
-                ttft = sorted(f.first_token_s for f in futs)
-                emit({"phase": "e2e_generate", "engine": label,
-                      "round": rnd, "requests": len(futs), "tokens": n_tok,
-                      "wall_s": wall, "tokens_per_s": n_tok / wall,
-                      "ttft_median_s": ttft[len(ttft) // 2],
-                      "ttft_max_s": ttft[-1],
-                      "prefix_hit_tokens": sum(f.prefix_hit_tokens
-                                               for f in futs),
-                      "card": card})
+                streams[(label, rnd)], tok_s[(label, rnd)] = timed_burst(
+                    eng, prompts, max_new, label, card, round=rnd)
         eng = engines["paged"]
         for seed in (11, 12):
             sampled[seed] = eng.generate(prompts[seed % 8], max_new_tokens=
@@ -392,8 +451,9 @@ def e2e_phase(fa, card):
         launches = {k: fa.LAUNCHES[k] for k in SERVING_KERNELS}
         # -----------------------------------------------------------------
         peak = torch.cuda.max_memory_allocated()
-        step_errs, streams5 = served_step_errors(engines, model, plain_model,
-                                                 prompts5, max_new)
+        step_errs, streams5 = served_step_errors(
+            {k: engines[k] for k in ("paged", "contiguous")}, model,
+            plain_model, prompts5, max_new)
     finally:
         for e in engines.values():
             e.close()
@@ -432,7 +492,7 @@ def e2e_phase(fa, card):
           "greedy_streams_equal": True,
           "distinct_greedy_tokens": len({t for s in streams5["paged"]
                                          for t in s}), "card": card})
-    return launches
+    return launches, [tok_s[("paged", rnd)] for rnd in (0, 1)]
 
 
 def training_kernel_phase(fa, ce, card):
@@ -661,6 +721,211 @@ def training_phase(fa, ce, card):
     return {k: got[k] for k in want}
 
 
+def int8_kernel_phase(fa, card):
+    """Phase 8: K3q on int8 pools at phase 3's K3 shapes, against its
+    plain version, timed."""
+    from bigdl_tpu_torch.ops.quantization import quantize_blockwise
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    dev = "cuda"
+    row = None
+    b, max_len = 8, 1024
+    for bs in (16, 128):
+        mb = max_len // bs
+        nb = b * mb + 1
+        trash = nb - 1
+        pools = []
+        for _ in range(2):
+            x = torch.randn(nb, bs, HEADS, HEAD_DIM, generator=g, device=dev)
+            q8, sc = quantize_blockwise(x.reshape(-1), HEAD_DIM,
+                                        scale_dtype=torch.float32)
+            pools += [q8.reshape(x.shape), sc.reshape(nb, bs, HEADS, 1)]
+        k8, ks, v8, vs = pools
+        perm = torch.randperm(nb - 1, generator=g, device=dev)
+        tables = perm.reshape(b, mb).to(torch.int32)
+        pos = torch.randint(0, max_len, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+        pos[0] = 0
+        used = (pos.long() // bs + 1)[:, None]
+        tables = torch.where(torch.arange(mb, device=dev)[None, :] < used,
+                             tables, torch.full_like(tables, trash))
+        q = torch.randn(b, 1, HEADS, HEAD_DIM, generator=g, device=dev)
+
+        def kernel():
+            return fa.flash_paged_decode_attention(q, k8, v8, tables, pos,
+                                                   k_scale=ks, v_scale=vs)
+
+        got = kernel()
+        want = fa.flash_paged_decode_attention_reference(q, k8, v8, tables,
+                                                         pos, ks, vs)
+        if got.dtype != torch.float32:
+            raise AssertionError(f"K3q wrote {got.dtype}, not fp32")
+        err = check_close(f"flash_paged_decode_attention_int8 bs{bs}", got,
+                          want)
+        ms, lo, hi = device_ms(kernel)
+        plain = device_ms(lambda: fa.flash_paged_decode_attention_reference(
+            q, k8, v8, tables, pos, ks, vs))[0]
+        vis = int((pos.long() + 1).sum())
+        # each visible position: an int8 K and V row and their fp32 scales
+        n_bytes = 2 * vis * HEADS * (HEAD_DIM + 4) \
+            + 2 * b * HEADS * HEAD_DIM * 4 + 4 * b + 4 * int(used.sum())
+        bms, by = bound(n_bytes, 4 * vis * HEADS * HEAD_DIM)
+        # no PyTorch call reads int8 K/V through block tables
+        r = dict(name="flash_paged_decode_attention_int8", case=f"B8_bs{bs}",
+                 max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,
+                 plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                 visible_positions=vis, card=card)
+        emit({"phase": "kernel", **r})
+        row = row or r
+    return {"flash_paged_decode_attention_int8": row}
+
+
+def pool_bytes_per_block(eng):
+    return eng._gen._alloc.stats()["bytes_per_block"]
+
+
+def tie_check(plain_model, prompt, common, tok_a, tok_c):
+    """The logits of the step where two greedy streams part, recomputed
+    by the plain model over a fresh int8 pool: the gap between the two
+    streams' tokens and each one's distance from the largest logit."""
+    seq = np.concatenate([prompt, np.asarray(common, np.int32)])
+    n = len(seq)
+    bs = 16
+    mb = -(-n // bs)
+    dev = plain_model.device
+    pool = plain_model.init_paged_cache(mb, bs, torch.int8)
+    tables = torch.arange(mb, dtype=torch.int32, device=dev)[None]
+    with torch.no_grad():
+        logits, _ = plain_model.apply_paged(
+            torch.as_tensor(seq[None], device=dev), pool, tables,
+            pos=torch.zeros(1, dtype=torch.int32, device=dev),
+            lengths=torch.tensor([n], dtype=torch.int32, device=dev))
+    row = logits[0, -1]
+    top = row.max().item()
+    return {"gap": abs(row[tok_a].item() - row[tok_c].item()),
+            "below_max": max(top - row[tok_a].item(),
+                             top - row[tok_c].item())}
+
+
+def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
+    """Phase 9: TransformerLM "small" served from int8 KV blocks, by its
+    int8 twin, and speculatively, two rounds of phase 4's prompts each,
+    as phase 4 (``fp32_tok_s``: its paged engine's tokens/s by round);
+    each engine's launches read right after its own bursts."""
+    from bigdl_tpu_torch.models import synthetic_corpus
+    from bigdl_tpu_torch.nn.quantized import model_bytes
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    prompts = serving_prompts(1)                  # phase 4's prompts
+    prompts_check = serving_prompts(9)            # fresh: no prefix hit
+    feats, _ = synthetic_corpus(8, 128, SERVE_VOCAB, seed=5)
+    gate = {"features": feats, "min_top1_agreement": GATE_MIN_TOP1_AGREEMENT,
+            "max_logit_rmse": GATE_MAX_LOGIT_RMSE}
+    kw = dict(decode_slots=8, decode_max_len=1024, kv_block_size=16,
+              device=model.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engines = {
+        "a_int8_kv": ServingEngine(model, kv_cache_dtype="int8", **kw),
+        "b_int8_twin": ServingEngine(model, quantize=True,
+                                     accuracy_gate=gate, **kw),
+        "c_speculative4_int8_kv": ServingEngine(
+            model, speculative=4, kv_cache_dtype="int8", **kw),
+    }
+    streams, tok_s = {}, {}
+    launches = {label: collections.Counter() for label in engines}
+    try:
+        detail = engines["b_int8_twin"]._gate_detail
+        emit({"phase": "int8_gate", **detail,
+              "max_logit_rmse": GATE_MAX_LOGIT_RMSE,
+              "min_top1_agreement": GATE_MIN_TOP1_AGREEMENT, "card": card})
+        # the gate bites: half the measured RMSE refuses the same twin
+        try:
+            ServingEngine(model, quantize=True, **kw, accuracy_gate={
+                "features": feats, "min_top1_agreement": None,
+                "max_logit_rmse": detail["logit_rmse"] / 2})
+        except ValueError as e:
+            if "accuracy gate refused" not in str(e):
+                raise
+        else:
+            raise AssertionError("a gate at half the measured RMSE passed")
+        for eng in engines.values():
+            eng.precompile()
+        torch.cuda.synchronize()
+        # ---- the int8 serving path, engine by engine ----------------------
+        for rnd in (0, 1):
+            for label, eng in engines.items():
+                fa.reset_launch_counts()
+                streams[(label, rnd)], tok_s[(label, rnd)] = timed_burst(
+                    eng, prompts, SERVE_NEW, label, card,
+                    phase="int8_generate", round=rnd,
+                    fp32_paged_tokens_per_s=fp32_tok_s[rnd])
+                torch.cuda.synchronize()
+                launches[label].update(fa.LAUNCHES)
+        # -------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        spec = engines["c_speculative4_int8_kv"]._gen.stats()["speculative"]
+        ratio = pool_bytes_per_block(engines["a_int8_kv"]) \
+            / pool_bytes_per_block(engines["b_int8_twin"])
+        twin_bytes = engines["b_int8_twin"].serving_model_bytes()
+        step_errs, _ = served_step_errors(
+            {"a_int8_kv": engines["a_int8_kv"]}, model, plain_model,
+            prompts_check, SERVE_NEW)
+    finally:
+        for e in engines.values():
+            e.close()
+
+    k3q, k3 = "flash_paged_decode_attention_int8", \
+        "flash_paged_decode_attention"
+    for label in ("a_int8_kv", "c_speculative4_int8_kv"):
+        if launches[label][k3q] < 1:
+            raise AssertionError(f"{label} never launched K3q: "
+                                 f"{launches[label]}")
+    if launches["a_int8_kv"][k3]:
+        raise AssertionError(f"the int8-KV engine launched K3: "
+                             f"{launches['a_int8_kv']}")
+    want_ratio = (HEAD_DIM + 4) / (4 * HEAD_DIM)
+    if abs(ratio - want_ratio) > 1e-9:
+        raise AssertionError(f"int8/fp32 pool bytes per block {ratio}, "
+                             f"want {want_ratio}")
+    if not all(len(s) == SERVE_NEW for st in streams.values() for s in st):
+        raise AssertionError("an int8 stream stopped short")
+    # (a) and (c) stream the fp32 model's own tokens over int8 KV: (c)
+    # against (a), and each engine's rounds against each other (round 1
+    # prefills after prefix hits, in other chunks); a stream is compared
+    # up to where it parts, which only a near-tie may explain.  The twin
+    # quantizes its activations per tensor over the whole step, so (b)'s
+    # stream moves with what shares a step and is held to no other
+    ties = []
+    a0 = streams[("a_int8_kv", 0)]
+    for label, rnd in (("c_speculative4_int8_kv", 0), ("a_int8_kv", 1),
+                       ("c_speculative4_int8_kv", 1)):
+        for p, sa, sx in zip(prompts, a0, streams[(label, rnd)]):
+            j = next((i for i, (x, y) in enumerate(zip(sa, sx)) if x != y),
+                     None)
+            if j is None:
+                continue
+            t = tie_check(plain_model, p, sa[:j], sa[j], sx[j])
+            if t["gap"] > TIE_MARGIN or t["below_max"] > TIE_MARGIN:
+                raise AssertionError(
+                    f"{label} round {rnd} parts from the fp32 model's own "
+                    f"int8-KV stream at token {j} with no tie: {t}")
+            ties.append({"engine": label, "round": rnd, "index": j, **t})
+    emit({"phase": "int8_check", "launches": launches,
+          "pool_bytes_ratio_int8_fp32": ratio,
+          "twin_model_bytes": twin_bytes,
+          "fp32_model_bytes": model_bytes(model.parameters_tree()),
+          "speculative": spec, "speculative_tie_count": len(ties),
+          "speculative_ties": ties,
+          "tie_margin": TIE_MARGIN, "max_abs_err_vs_plain": step_errs,
+          "tokens_per_s": {f"{label}_round{rnd}": v
+                           for (label, rnd), v in tok_s.items()},
+          "fp32_paged_tokens_per_s": fp32_tok_s,
+          "peak_memory_bytes": peak, "card": card})
+    return {k: sum(c[k] for c in launches.values())
+            for k in launches["a_int8_kv"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -690,9 +955,14 @@ def main():
                     for stem, log in _build.build_logs().items()}})
 
     rows = kernel_phase(fa, card)
-    serving = e2e_phase(fa, card)
+    serving, fp32_tok_s = e2e_phase(fa, card, *serving_models())
     rows.update(training_kernel_phase(fa, ce, card))
     training = training_phase(fa, ce, card)
+    rows.update(int8_kernel_phase(fa, card))
+    # the same weights again (seed 0), so the training phases' peak
+    # memory holds no serving model
+    int8_serving = int8_serving_phase(fa, card, *serving_models(),
+                                      fp32_tok_s)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     kernels_of = {
@@ -705,6 +975,8 @@ def main():
                                    "bigdl_tpu/ops/flash_attention.py:135"),
         "flash_paged_decode_attention": (
             attn, "bigdl_tpu/ops/flash_attention.py:236"),
+        "flash_paged_decode_attention_int8": (
+            attn, "bigdl_tpu/ops/flash_attention.py:236 (quantized=True)"),
         "fused_softmax_cross_entropy": (
             "bigdl_tpu_torch/csrc/cross_entropy.cu",
             "bigdl_tpu/ops/cross_entropy.py:77"),
@@ -717,7 +989,8 @@ def main():
         row = rows[name]
         by_path = {path: counts[name]
                    for path, counts in (("serving", serving),
-                                        ("training", training))
+                                        ("training", training),
+                                        ("int8_serving", int8_serving))
                    if counts.get(name)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -15,6 +15,7 @@ import torch
 
 from bigdl_tpu_torch.ops import cross_entropy as ce
 from bigdl_tpu_torch.ops import flash_attention as fa
+from bigdl_tpu_torch.ops.quantization import quantize_blockwise
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -111,6 +112,79 @@ def test_flash_paged_decode_kernel(cuda, dtype, d, bs):
         q, kp, vp, tables, pos), dtype)
 
 
+def _int8_pools(g, shape, cuda):
+    """Random K and V pools quantized as the int8 pool stores them: one
+    fp32 absmax scale per head_dim vector -> (k8, k_scale, v8, v_scale)."""
+    out = []
+    for _ in range(2):
+        x = torch.randn(shape, generator=g, device=cuda)
+        q8, sc = quantize_blockwise(x.reshape(-1), shape[-1],
+                                    scale_dtype=torch.float32)
+        out += [q8.reshape(shape), sc.reshape(*shape[:-1], 1)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("bs", [4, 16, 128])
+def test_flash_paged_decode_int8_kernel(cuda, dtype, d, bs):
+    """K3q against its plain version: frontiers at 0, on a block's last
+    row, on the next block's first row and at the end; unmapped table
+    entries name the trash block, which holds garbage at the int8 rails
+    and scale 1e4; one visible vector has payload 0 and scale 0 (the
+    non-finite case).  The output is fp32 for fp32 and bf16 queries."""
+    g = torch.Generator(device=cuda).manual_seed(3 * bs + d)
+    b, h, max_len = 5, 3, 300
+    mb = -(-max_len // bs)
+    nb = b * mb + 1
+    trash = nb - 1
+    k8, ks, v8, vs = _int8_pools(g, (nb, bs, h, d), cuda)
+    k8[trash], v8[trash] = 127, -127
+    ks[trash], vs[trash] = 1e4, 1e4
+    pos = torch.randint(0, max_len, (b,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    pos[0], pos[1], pos[2], pos[-1] = 0, bs - 1, bs, max_len - 1
+    used = (pos.long() // bs + 1)[:, None]
+    tables = torch.randperm(nb - 1, generator=g, device=cuda).reshape(
+        b, mb).to(torch.int32)
+    tables = torch.where(torch.arange(mb, device=cuda)[None, :] < used,
+                         tables, torch.full_like(tables, trash))
+    first = tables[3, 0].long()
+    k8[first, 0], ks[first, 0], v8[first, 0], vs[first, 0] = 0, 0.0, 0, 0.0
+    q = _rand(g, (b, 1, h, d), dtype, cuda)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_paged_decode_attention(q, k8, v8, tables, pos,
+                                          k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_paged_decode_attention_int8"] == \
+        before["flash_paged_decode_attention_int8"] + 1
+    assert fa.LAUNCHES["flash_paged_decode_attention"] == \
+        before["flash_paged_decode_attention"]
+    want = fa.flash_paged_decode_attention_reference(q, k8, v8, tables, pos,
+                                                     ks, vs)
+    assert want.dtype == torch.float32
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+def test_int8_engine_decodes_through_k3q_and_never_k3(cuda):
+    from bigdl_tpu_torch.nn import TransformerLM
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    model = TransformerLM(64, 64, 4, 2, max_len=64, device=cuda)
+    before = dict(fa.LAUNCHES)
+    with ServingEngine(model, decode_slots=2, decode_max_len=48,
+                       kv_block_size=4, kv_cache_dtype="int8",
+                       device=cuda) as eng:
+        out = eng.generate([1, 2, 3, 4, 5], max_new_tokens=6).result(120)
+    assert len(out) == 6
+    assert fa.LAUNCHES["flash_paged_decode_attention_int8"] >= \
+        before["flash_paged_decode_attention_int8"] + 5
+    assert fa.LAUNCHES["flash_paged_decode_attention"] == \
+        before["flash_paged_decode_attention"]
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros((1, 4, 2, 48), device=cuda)
@@ -124,6 +198,17 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA device"):
         fa.flash_decode_attention(q, k.cpu(), k, torch.zeros(
             2, dtype=torch.int32, device=cuda))
+    pool = torch.zeros((3, 4, 2, 64), device=cuda)
+    scale = torch.zeros((3, 4, 2, 1), device=cuda)
+    tables = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        fa.flash_paged_decode_attention(q, pool, pool, tables, pos,
+                                        k_scale=scale, v_scale=scale)
+    with pytest.raises(ValueError, match="fp32"):
+        fa.flash_paged_decode_attention(
+            q, pool.to(torch.int8), pool.to(torch.int8), tables, pos,
+            k_scale=scale.double(), v_scale=scale.double())
 
 
 # --------------------------------------------------------------------------- #

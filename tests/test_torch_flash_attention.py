@@ -157,8 +157,7 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
-              ROOT / "tools" / "torch_serving_profile.py",
-              ROOT / "tools" / "torch_training_profile.py"]
+              *sorted((ROOT / "tools").glob("torch_*.py"))]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

@@ -5,7 +5,8 @@ port (``bigdl_tpu_torch``): ``torch.profiler`` over one
 from a seed).
 
     python3 tools/torch_serving_profile.py [--kv-cache paged|contiguous]
-        [--use-flash auto|never]
+        [--use-flash auto|never] [--kv-cache-dtype fp32|int8]
+        [--quantize] [--speculative K]
 
 The burst is the one ``chip_smoke.py`` serves: 8 greedy prompts of 17 to
 700 tokens, 32 new tokens each, 8 decode slots.  Prints JSON lines: the card (name, power limit), the burst's wall time,
@@ -54,6 +55,12 @@ def main(argv=None):
     ap.add_argument("--kv-cache", default="paged",
                     choices=("paged", "contiguous"))
     ap.add_argument("--use-flash", default="auto", choices=("auto", "never"))
+    ap.add_argument("--kv-cache-dtype", default="fp32",
+                    choices=("fp32", "int8"))
+    ap.add_argument("--quantize", action="store_true",
+                    help="serve the int8 twin")
+    ap.add_argument("--speculative", type=int, default=0,
+                    help="draft tokens a round with the int8 twin")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serving_profile: needs a CUDA card", file=sys.stderr)
@@ -72,7 +79,10 @@ def main(argv=None):
         return [toks[i, :n] for i, n in enumerate(lengths)]
 
     with ServingEngine(model, decode_slots=REQUESTS,
-                       decode_max_len=1024, kv_cache=args.kv_cache) as eng:
+                       decode_max_len=1024, kv_cache=args.kv_cache,
+                       kv_cache_dtype=args.kv_cache_dtype,
+                       quantize=args.quantize,
+                       speculative=args.speculative) as eng:
         eng.precompile()
         warm = [eng.generate(p, max_new_tokens=MAX_NEW_TOKENS)
                 for p in prompts(1)]
@@ -99,7 +109,9 @@ def main(argv=None):
     tokens = sum(len(o) for o in out)
     print(json.dumps({
         "card": card, "kv_cache": args.kv_cache,
-        "use_flash": args.use_flash, "requests": REQUESTS,
+        "use_flash": args.use_flash, "kv_cache_dtype": args.kv_cache_dtype,
+        "quantize": args.quantize, "speculative": args.speculative,
+        "requests": REQUESTS,
         "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
