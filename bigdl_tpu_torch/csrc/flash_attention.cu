@@ -6,17 +6,34 @@
 // K1 flash_attn_kernel   replaces bigdl_tpu/ops/flash_attention.py
 //    flash_attention / _attn_kernel (causal or full attention, fp32 online
 //    softmax, the (T, T) score matrix never leaves the SM).
-//    Bound: at the serving shapes (T <= 2048, D = 64, fp32) the work is
-//    4*B*H*D*T^2/2 FLOPs against 4*B*T*H*D*4 bytes, so it is bounded by
-//    operations: the CUDA-core fp32 rate (this fp32 kernel does not use
-//    the tensor cores).  Design: one block of 8 warps per (b*h, 64-row
-//    query tile); Q, K and V tiles of 64 rows are staged in shared memory
-//    as fp32 (K rows padded to D+1 floats so the lanes of a warp hit
-//    distinct banks); each warp owns 8 query rows, each lane scores two
-//    keys and owns D/32 output columns, so the softmax state stays in
-//    registers.  Causal tiles past the diagonal are never loaded; the
-//    ragged last tile is masked by global position.  Tensor-core MMA and
-//    a TMA/mbarrier pipeline are the work of a later, speed-minded change.
+//    Bound: operations.  At the model's shapes (T <= 2048, D = 64) the
+//    work is 4*B*H*D*T^2/2 FLOPs against 4*B*T*H*D elements, far above the
+//    card's FLOP/byte balance, so the floor is the tensor-core rate: for
+//    fp32 inputs a third of the 495 TFLOP/s TF32 rate, since each product
+//    is three TF32 products (3xTF32, mma.cuh), which keeps the port's fp32
+//    tolerances; for bf16 the 989 TFLOP/s rate, one m16n8k16 product.
+//    Design (FlashAttention-2's work split): one block of 4 warps per
+//    (b*h, 64-row query tile), each warp owning 16 query rows and walking
+//    the 64-row key tiles up to its diagonal; the last query tiles, whose
+//    causal walks are longest, are scheduled first.  Both products
+//    (S = Q.K^T, O += P.V) are mma.sync; S stays in the accumulator
+//    fragments, the row max and sum take two quad shuffles, and P is used
+//    in registers as the A operand of P.V (summed over keys in permuted
+//    order, mma.cuh, so no shuffle).  Q's fragments are split once and
+//    held in registers (re-read from shared memory for fp32 at D 128).  K
+//    and V tiles are double-buffered in shared memory by cp.async
+//    (16-byte copies where every base and stride allows, else 4-byte, else
+//    plain loads for a 2-byte-aligned bf16 view), so the next tile loads
+//    while this one is computed; rows padded by 16 bytes keep every
+//    fragment load free of bank conflicts.  A grid of fewer 64-row blocks
+//    than SMs (B1 T200: 48) takes 16-row blocks of one warp instead (156),
+//    the wrapper's choice.  Causal tiles past the diagonal are never
+//    loaded; the ragged last tile is masked by global position.  The
+//    softmax runs in log2 units (exp2f).  What still bounds it: every warp
+//    splits each K/V fragment it loads into hi/lo itself (integer ops, 4
+//    warps a block), and a warp's softmax sits between its two products;
+//    wgmma with TMA waits for bf16 compute (mma.sync takes fragments in
+//    any shared-memory layout, which fp32's split needs).
 //    For training the kernel also writes each query row's logsumexp
 //    lse = m + log(l) (B, H, T) fp32, which the backward
 //    (flash_attention_bwd.cu) uses to rebuild P; serving passes no lse.
@@ -49,7 +66,8 @@
 //    work (with one block per (b, h) at B = 8, H = 12 only 96 of the 132
 //    SMs hold a block).
 //
-// Every kernel takes fp32 or bf16 queries (K2/K3 also K/V of that dtype), accumulates in fp32 and reads
+// Every kernel takes fp32 or bf16 queries (K2/K3 also K/V of that dtype),
+// accumulates in fp32 and reads
 // the (B, T, H, D) layout through strides (last dim contiguous), so the
 // q/k/v views of a fused qkv projection need no copy.  The C entry points
 // return cudaGetLastError() after the launch (or -1 for a head_dim or
@@ -57,7 +75,7 @@
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -77,147 +95,194 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 // ------------------------------------------------------------------------
 // K1: flash attention forward
 // ------------------------------------------------------------------------
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // key rows per shared-memory tile
-constexpr int kWarps = 8;        // warps per block
-constexpr int kRows = kBQ / kWarps;  // query rows per warp
+constexpr int kBK = 64;  // key rows a tile
 
-template <int D>
+// K/V tiles twice (double-buffered), the query rows once
+template <typename T, int D, int NW>
 constexpr int attn_smem_bytes() {
-  return (kBQ * (D + 1) + kBK * (D + 1) + kBK * D) * 4;
+  return (16 * NW + 4 * kBK) * kPadded<T, D> * static_cast<int>(sizeof(T));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
+struct AttnArgs {
+  int t_len, heads, causal, width;
+  float scale;
+  int64_t sq[3], sk[3], sv[3], so[3];  // (b, t, h) element strides
+  float* lse;                          // (B, H, T) fp32, or null
+};
+
+// One block of NW warps per (b*h, 16*NW query rows); each warp owns 16
+// rows and walks the key tiles up to its diagonal.
+template <typename T, int D, int NW>
+__global__ void __launch_bounds__(NW * 32)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int t_len,
-                  int heads, int64_t sqb, int64_t sqt, int64_t sqh,
-                  int64_t skb, int64_t skt, int64_t skh, int64_t svb,
-                  int64_t svt, int64_t svh, int64_t sob, int64_t sot,
-                  int64_t soh, int causal, float scale,
-                  float* __restrict__ lse) {
-  constexpr int LD = D + 1;
-  constexpr int DPL = (D + 31) / 32;  // output columns per lane
-  extern __shared__ float smem[];
-  float* qs = smem;               // kBQ x LD, pre-scaled
-  float* ks = qs + kBQ * LD;      // kBK x LD
-  float* vs = ks + kBK * LD;      // kBK x D
+                  const T* __restrict__ v, T* __restrict__ o, AttnArgs a) {
+  using M = Mma<T>;
+  constexpr int BQ = 16 * NW, NT = NW * 32, LDS = kPadded<T, D>;
+  constexpr int KS = D / M::K;    // k-steps of Q.K^T
+  constexpr int NS = kBK / 8;     // n-tiles of S (8 keys each)
+  constexpr int ND = D / 8;       // n-tiles of O
+  constexpr int PS = kBK / M::K;  // k-steps of P.V
+  // Q's fragments stay in registers for the whole walk, except fp32 at
+  // D 128 (128 registers of hi/lo): re-read from shared memory there
+  constexpr bool kQRegs = sizeof(T) == 2 || D <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // BQ x LDS
+  T* ks = qs + BQ * LDS;                   // 2 x kBK x LDS
+  T* vs = ks + 2 * kBK * LDS;              // 2 x kBK x LDS
 
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
-  const int q0 = blockIdx.y * kBQ;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const T* qb = q + b * sqb + h * sqh;
-  const T* kb = k + b * skb + h * skh;
-  const T* vb = v + b * svb + h * svh;
-  T* ob = o + b * sob + h * soh;
-
-  for (int i = tid; i < kBQ * D; i += blockDim.x) {
-    const int r = i / D, c = i % D, t = q0 + r;
-    qs[r * LD + c] = t < t_len ? to_f32(qb[t * sqt + c]) * scale : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][DPL];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[r][j] = 0.f;
-  }
+  const int t_len = a.t_len;
+  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+  // the longest causal walks (the last query tiles) start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int warp = threadIdx.x >> 5, g = lane_g(), tq = lane_t();
+  const T* qb = q + b * a.sq[0] + h * a.sq[2];
+  const T* kb = k + b * a.sk[0] + h * a.sk[2];
+  const T* vb = v + b * a.sv[0] + h * a.sv[2];
 
   int n_tiles = (t_len + kBK - 1) / kBK;
-  if (causal) {
-    const int last_q = min(q0 + kBQ - 1, t_len - 1);
+  if (a.causal) {
+    const int last_q = min(q0 + BQ - 1, t_len - 1);
     n_tiles = min(n_tiles, last_q / kBK + 1);  // skip tiles past the diagonal
   }
 
+  copy_rows<T, D, LDS, BQ, NT>(qs, qb, a.sq[1], q0, t_len, a.width);
+  copy_rows<T, D, LDS, kBK, NT>(ks, kb, a.sk[1], 0, t_len, a.width);
+  copy_rows<T, D, LDS, kBK, NT>(vs, vb, a.sv[1], 0, t_len, a.width);
+  cp_async_commit();
+
+  const int wq0 = q0 + warp * 16;  // the warp's first query row
+  const int r0 = wq0 + g, r1 = r0 + 8;
+  const float sl = a.scale * kLog2e;  // scores in log2 units
+  const T* qw = qs + warp * 16 * LDS;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  typename M::A qf[kQRegs ? KS : 1];
+
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // previous tile consumed (and Q staged)
-    for (int i = tid; i < kBK * D; i += blockDim.x) {
-      const int r = i / D, c = i % D, t = k0 + r;
-      const bool ok = t < t_len;
-      ks[r * LD + c] = ok ? to_f32(kb[t * skt + c]) : 0.f;
-      vs[r * D + c] = ok ? to_f32(vb[t * svt + c]) : 0.f;
+    const int k0 = kt * kBK, buf = kt & 1;
+    if (kt + 1 < n_tiles) {  // the next tile's copies fly during this one
+      copy_rows<T, D, LDS, kBK, NT>(ks + (buf ^ 1) * kBK * LDS, kb, a.sk[1],
+                                    k0 + kBK, t_len, a.width);
+      copy_rows<T, D, LDS, kBK, NT>(vs + (buf ^ 1) * kBK * LDS, vb, a.sv[1],
+                                    k0 + kBK, t_len, a.width);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
+    if constexpr (kQRegs) {
+      if (kt == 0) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qr = warp * kRows + r;
-      const int qt = q0 + qr;
-      if (qt >= t_len) continue;  // warp-uniform
-      const float* qrow = qs + qr * LD;
-      const float* ka = ks + lane * LD;
-      const float* kc = ks + (lane + 32) * LD;
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll 16
-      for (int c = 0; c < D; ++c) {
-        const float qv = qrow[c];
-        s0 = fmaf(qv, ka[c], s0);
-        s1 = fmaf(qv, kc[c], s1);
-      }
-      const int kpa = k0 + lane, kpb = k0 + lane + 32;
-      const bool va = kpa < t_len && (!causal || kpa <= qt);
-      const bool vb_ = kpb < t_len && (!causal || kpb <= qt);
-      s0 = va ? s0 : -INFINITY;
-      s1 = vb_ ? s1 : -INFINITY;
-      const float new_m = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
-      const float sm = safe_max(new_m);
-      const float p0 = va ? expf(s0 - sm) : 0.f;
-      const float p1 = vb_ ? expf(s1 - sm) : 0.f;
-      const float corr = rescale(m[r], sm);
-      l[r] = l[r] * corr + warp_sum(p0 + p1);
-      m[r] = new_m;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[r][j] *= corr;
-      for (int kk = 0; kk < 32; ++kk) {
-        const float pa = __shfl_sync(kFull, p0, kk);
-        const float pb = __shfl_sync(kFull, p1, kk);
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) {
-          const int d = lane + 32 * j;
-          if (d < D)
-            acc[r][j] += pa * vs[kk * D + d] + pb * vs[(kk + 32) * D + d];
-        }
+        for (int kk = 0; kk < KS; ++kk) qf[kk] = M::load_a(qw + kk * M::K, LDS);
       }
     }
+    // warp-uniform: rows past the end, or every key past the warp's rows
+    if (wq0 < t_len && !(a.causal && k0 > wq0 + 15)) {
+      const T* kc = ks + buf * kBK * LDS;
+      const T* vc = vs + buf * kBK * LDS;
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        typename M::A qa;
+        if constexpr (kQRegs) qa = qf[kk];
+        else qa = M::load_a(qw + kk * M::K, LDS);
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          M::mma(s[j], qa, M::load_b_nk(kc + j * 8 * LDS + kk * M::K, LDS));
+      }
+      // masked by global position: the ragged last tile, the diagonal
+      const bool edge = k0 + kBK > t_len || (a.causal && k0 + kBK - 1 > wq0);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * tq + (e & 1);
+          const int row = e < 2 ? r0 : r1;
+          float x = s[j][e] * sl;
+          if (edge && (key >= t_len || (a.causal && key > row))) x = -INFINITY;
+          s[j][e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      const float nm0 = fmaxf(m0, quad_max(mx0));
+      const float nm1 = fmaxf(m1, quad_max(mx1));
+      const float sm0 = safe_max(nm0), sm1 = safe_max(nm1);
+      const float c0 = m0 == -INFINITY ? 0.f : exp2f(m0 - sm0);
+      const float c1 = m1 == -INFINITY ? 0.f : exp2f(m1 - sm1);
+      m0 = nm0;
+      m1 = nm1;
+      // each lane keeps its own part of l; the quad sums it at the end
+      l0 *= c0;
+      l1 *= c1;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j][0] = exp2f(s[j][0] - sm0);
+        s[j][1] = exp2f(s[j][1] - sm0);
+        s[j][2] = exp2f(s[j][2] - sm1);
+        s[j][3] = exp2f(s[j][3] - sm1);
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= c0;
+        acc[n][1] *= c0;
+        acc[n][2] *= c1;
+        acc[n][3] *= c1;
+      }
+      // O += P.V, P straight from the score accumulators
+#pragma unroll
+      for (int kk = 0; kk < PS; ++kk) {
+        const typename M::A pa = M::acc_a(s, kk);
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+          M::mma(acc[n], pa, M::load_b_kn(vc + kk * M::K * LDS + n * 8, LDS));
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
   }
 
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  T* ob = o + b * a.so[0] + h * a.so[2];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qt = q0 + warp * kRows + r;
-    if (qt >= t_len) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? r1 : r0;
+    if (row >= t_len) continue;
+    const float l = fmaxf(half ? l1 : l0, 1e-30f);
+    const float inv = 1.f / l;
+    T* orow = ob + row * a.so[1] + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) ob[qt * sot + d] = from_f32<T>(acc[r][j] / denom);
+    for (int n = 0; n < ND; ++n) {
+      orow[8 * n] = from_f32<T>(acc[n][2 * half] * inv);
+      orow[8 * n + 1] = from_f32<T>(acc[n][2 * half + 1] * inv);
     }
     // a row that sees no key gets lse = +inf, so the backward's
     // exp(s - lse) is 0 there (its output is 0 too)
-    if (lse != nullptr && lane == 0)
-      lse[static_cast<int64_t>(blockIdx.x) * t_len + qt] =
-          m[r] == -INFINITY ? INFINITY : m[r] + logf(denom);
+    const float m = half ? m1 : m0;
+    if (a.lse != nullptr && tq == 0)
+      a.lse[static_cast<int64_t>(blockIdx.x) * t_len + row] =
+          m == -INFINITY ? INFINITY : m * kLn2 + logf(l);
   }
 }
 
-template <typename T, int D>
-int launch_attn(const void* q, const void* k, const void* v, void* o, int b,
-                int t, int h, const int64_t* s, int causal, float scale,
-                float* lse, cudaStream_t stream) {
-  constexpr int smem = attn_smem_bytes<D>();
-  cudaFuncSetAttribute(flash_attn_kernel<T, D>,
+template <typename T, int D, int NW>
+int launch_attn(const void* q, const void* k, const void* v, void* o, int bh,
+                const AttnArgs& a, cudaStream_t stream) {
+  constexpr int smem = attn_smem_bytes<T, D, NW>();
+  cudaFuncSetAttribute(flash_attn_kernel<T, D, NW>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid(b * h, (t + kBQ - 1) / kBQ);
-  flash_attn_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
+  dim3 grid(bh, (a.t_len + 16 * NW - 1) / (16 * NW));
+  flash_attn_kernel<T, D, NW><<<grid, NW * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), t, h, s[0], s[1], s[2],
-      s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], causal, scale,
-      lse);
+      static_cast<const T*>(v), static_cast<T*>(o), a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -423,17 +488,24 @@ int decode_entry(int dtype, int d, const void* q, const void* k,
   return -1;
 }
 
-template <typename T>
+template <typename T, int NW>
 int dispatch_attn(int d, const void* q, const void* k, const void* v, void* o,
-                  int b, int t, int h, const int64_t* s, int causal,
-                  float scale, float* lse, cudaStream_t stream) {
+                  int bh, const AttnArgs& a, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_attn<T, 16>(q, k, v, o, b, t, h, s, causal, scale, lse, stream);
-    case 32: return launch_attn<T, 32>(q, k, v, o, b, t, h, s, causal, scale, lse, stream);
-    case 64: return launch_attn<T, 64>(q, k, v, o, b, t, h, s, causal, scale, lse, stream);
-    case 128: return launch_attn<T, 128>(q, k, v, o, b, t, h, s, causal, scale, lse, stream);
+    case 16: return launch_attn<T, 16, NW>(q, k, v, o, bh, a, stream);
+    case 32: return launch_attn<T, 32, NW>(q, k, v, o, bh, a, stream);
+    case 64: return launch_attn<T, 64, NW>(q, k, v, o, bh, a, stream);
+    case 128: return launch_attn<T, 128, NW>(q, k, v, o, bh, a, stream);
     default: return -1;
   }
+}
+
+template <typename T>
+int attn_entry(int d, const void* q, const void* k, const void* v, void* o,
+               int bh, const AttnArgs& a, bool small_tile,
+               cudaStream_t stream) {
+  return small_tile ? dispatch_attn<T, 1>(d, q, k, v, o, bh, a, stream)
+                    : dispatch_attn<T, 4>(d, q, k, v, o, bh, a, stream);
 }
 
 // the paged arguments shared by K3 and K3q
@@ -468,19 +540,32 @@ DecodeArgs paged_args(const int* tables, const int* pos, int h,
 extern "C" {
 
 // q, k, v, o: (B, T, H, D); strides[12] = (b, t, h) element strides of
-// q, k, v, o in that order.  dtype 0 = float32, 1 = bfloat16.  lse: NULL,
-// or (B, H, T) fp32 contiguous, written with each row's logsumexp.
+// q, k, v, o in that order.  dtype 0 = float32, 1 = bfloat16.  flags: bit
+// 0 causal, bit 1 query tiles of 16 rows (one warp) instead of 64 (four
+// warps), for grids too small to fill the card.  lse: NULL, or (B, H, T)
+// fp32 contiguous, written with each row's logsumexp.
 int bigdl_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int dtype, int b, int t, int h, int d,
-                          const int64_t* strides, int causal, float scale,
+                          const int64_t* strides, int flags, float scale,
                           float* lse, void* stream) {
+  AttnArgs a{};
+  a.t_len = t;
+  a.heads = h;
+  a.causal = flags & 1;
+  a.scale = scale;
+  a.lse = lse;
+  int64_t* dst[4] = {a.sq, a.sk, a.sv, a.so};
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
+  const void* in[3] = {q, k, v};
+  a.width = copy_width(in, 3, strides, 9, dtype == 0 ? 4 : 2);
+  const bool small_tile = (flags >> 1) & 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_attn<float>(d, q, k, v, o, b, t, h, strides, causal,
-                                scale, lse, st);
+    return attn_entry<float>(d, q, k, v, o, b * h, a, small_tile, st);
   if (dtype == 1)
-    return dispatch_attn<__nv_bfloat16>(d, q, k, v, o, b, t, h, strides,
-                                        causal, scale, lse, st);
+    return attn_entry<__nv_bfloat16>(d, q, k, v, o, b * h, a, small_tile,
+                                     st);
   return -1;
 }
 

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_bwd.cu",
            CSRC / "cross_entropy.cu")
-HEADERS = (CSRC / "common.cuh",)
+HEADERS = (CSRC / "common.cuh", CSRC / "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

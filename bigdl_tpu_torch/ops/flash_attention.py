@@ -185,6 +185,17 @@ def _check_attention(name, q, k, v):
                          f"shape, got {q.shape}, {k.shape}, {v.shape}")
 
 
+#: streaming multiprocessors of the H100 SXM, which K1's grid should fill
+SMS = 132
+
+
+def query_tile_rows(b, h, t):
+    """K1's query rows a block: 64 (four warps), or 16 (one warp) when the
+    64-row grid of ``b * h * ceil(t / 64)`` blocks would leave SMs idle,
+    as at B1 T200 H12 (48 blocks; 156 with 16 rows)."""
+    return 16 if b * h * -(-t // 64) < SMS else 64
+
+
 def _flash_forward(q, k, v, causal, with_lse):
     """Launch K1; ``with_lse`` also returns the rows' logsumexp
     ``(B, H, T)`` fp32 for the backward."""
@@ -198,7 +209,8 @@ def _flash_forward(q, k, v, causal, with_lse):
     s = [x.stride()[i] for x in (q, k, v, out) for i in (0, 1, 2)]
     rc = _build.load().bigdl_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, t, h, d, _strides(*s), int(bool(causal)),
+        _DTYPES[q.dtype], b, t, h, d, _strides(*s),
+        int(bool(causal)) | (2 if query_tile_rows(b, h, t) == 16 else 0),
         1.0 / math.sqrt(d), None if lse is None else lse.data_ptr(),
         _stream())
     _raise_on(rc, "flash_attention")

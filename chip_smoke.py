@@ -7,12 +7,16 @@ Phases, each printing JSON lines:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions, TF32 switched off;
-2. build: the CUDA kernels compiled from ``bigdl_tpu_torch/csrc``;
+2. build: the CUDA kernels compiled from ``bigdl_tpu_torch/csrc``, and
+   the HMMA (tensor-core) instructions of every K1 and K1-bwd kernel
+   counted in ``cuobjdump -sass`` of the libraries (none fails);
 3. kernels: K1 ``flash_attention``, K2 ``flash_decode_attention`` and K3
    ``flash_paged_decode_attention`` held against their plain PyTorch
    versions at the serving path's shapes (fp32, H 12, D 64), with kernel,
    plain and library device times (CUDA-graph replays, so no host work
-   sits between launches) and the least time the card could take;
+   sits between launches) and the least time the card could take (K1
+   also at the training step's B8 T1024; K1 and K1-bwd bounded by the
+   3xTF32 tensor-core rate, 495/3 TFLOP/s);
 4. end to end: TransformerLM "small" (random weights from a seed) served
    by three engines -- paged (kernels), contiguous (kernels) and paged
    with the plain attention -- on the same greedy prompts, plus sampled
@@ -65,17 +69,24 @@ non-zero before printing any result.
 
 import collections
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 #: published H100 SXM rates (NVIDIA data sheet): HBM bytes/s and the
-#: fp32 CUDA-core FLOP/s (these fp32 kernels do not use tensor cores)
+#: fp32 CUDA-core FLOP/s (the decode and cross-entropy kernels)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+#: K1 and K1-bwd run fp32 inputs on the TF32 tensor cores (495 TFLOP/s
+#: dense) as three TF32 products per product (3xTF32), so their fp32 rate
+#: is a third of it; bf16 inputs would take the 989 TFLOP/s rate
+TF32X3_FLOPS_PER_S = 495e12 / 3
+TF32X3 = "operations (3xTF32 tensor cores)"
 ATOL = RTOL = 1e-4
 
 HEADS, HEAD_DIM = 12, 64
@@ -170,10 +181,68 @@ def backward_ms(out, inputs, grad, iters=20, reps=7):
     return times[len(times) // 2]
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, flops_per_s=FP32_FLOPS_PER_S,
+          ops="operations"):
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the FLOPs over ``flops_per_s``; ``ops``
+    names the units when the operations bound it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = flops / flops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, ops)
+
+
+def kernel_name(mangled):
+    """``flash_attn_kernel<fLi64ELi4>`` for a mangled kernel name whose
+    template arguments are plain (type, ints); the name itself else."""
+    m = re.search(r"([a-z_]+_kernel)I(\w+?)EEEv", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
+def ptxas_report(log):
+    """Each kernel's registers and spills from a ``-Xptxas=-v`` log."""
+    report, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+        elif kernel and ("Used" in line or "spill" in line):
+            report.setdefault(kernel, []).append(
+                line.split(":", 1)[-1].strip())
+    return report
+
+
+#: the kernels that must run on the tensor cores, by function name
+TENSOR_CORE_KERNELS = ("flash_attn_kernel", "bwd_dkdv_kernel",
+                       "bwd_dq_kernel")
+
+
+def tensor_core_instructions(build, libs):
+    """Phase 2: HMMA (tensor-core) instructions in each instantiation of
+    ``TENSOR_CORE_KERNELS``, counted in ``cuobjdump -sass`` of the built
+    libraries; fails where one has none."""
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    counts = {}
+    for lib in libs:
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        kernel = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                kernel = kernel_name(line.split("Function :")[-1].strip())
+                if not kernel.startswith(TENSOR_CORE_KERNELS):
+                    kernel = None
+                else:
+                    counts[kernel] = 0
+            elif kernel and "HMMA" in line:
+                counts[kernel] += 1
+    missing = [k for k in TENSOR_CORE_KERNELS
+               if not any(name.startswith(k) for name in counts)]
+    idle = [name for name, n in counts.items() if n == 0]
+    if missing or idle:
+        raise AssertionError(f"no tensor-core code: missing {missing}, "
+                             f"no HMMA in {idle}")
+    return counts
 
 
 def check_close(name, got, want, atol=ATOL):
@@ -194,9 +263,9 @@ def kernel_phase(fa, card):
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    # K1 at the prefill / predict shapes; q, k, v are views of one fused
-    # qkv buffer exactly as the projection produces them
-    for b, t, label in ((2, 1024, "causal_T1024"), (1, 200, "ragged_T200")):
+    def k1_row(b, t, label):
+        # q, k, v are views of one fused qkv buffer exactly as the
+        # projection produces them
         qkv = rand(b, t, 3 * HEADS * HEAD_DIM)
         q, k, v = (x.unflatten(-1, (HEADS, HEAD_DIM))
                    for x in qkv.split(HEADS * HEAD_DIM, dim=-1))
@@ -211,12 +280,17 @@ def kernel_phase(fa, card):
                         .scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=True))[0]
         n = b * t * HEADS * HEAD_DIM
-        bms, by = bound(4 * n * 4, 4 * b * HEADS * HEAD_DIM * t * (t + 1) / 2)
+        bms, by = bound(4 * n * 4, 4 * b * HEADS * HEAD_DIM * t * (t + 1) / 2,
+                        TF32X3_FLOPS_PER_S, TF32X3)
         row = dict(name="flash_attention", case=label, max_abs_err=err,
                    ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain,
                    bound_ms=bms, bound_by=by, library_ms=lib, card=card)
         emit({"phase": "kernel", **row})
         rows.setdefault("flash_attention", row)
+
+    # K1 at the prefill / predict shapes (the training step's comes last)
+    k1_row(2, 1024, "causal_T1024")
+    k1_row(1, 200, "ragged_T200")
 
     # K2: 8 slots plus the trash row against a 1024-position cache
     b, t = 9, 1024
@@ -283,6 +357,11 @@ def kernel_phase(fa, card):
                    bound_by=by, library_ms=None, card=card)
         emit({"phase": "kernel", **row})
         rows.setdefault("flash_paged_decode_attention", row)
+
+    # K1 at the training step's shape, last: its inputs and its plain
+    # version's (B, H, T, T) temporaries would otherwise change what the
+    # decode rows draw and where their caches lie, and so their times
+    k1_row(BATCH, SEQ, f"causal_B{BATCH}_T{SEQ}")
     return rows
 
 
@@ -577,7 +656,8 @@ def training_kernel_phase(fa, ce, card):
         del leaves, tr
         elems = BATCH * t * HEADS * HEAD_DIM
         bms, by = bound(8 * elems * 4 + BATCH * HEADS * t * 4,
-                        10 * BATCH * HEADS * HEAD_DIM * t * (t + 1) / 2)
+                        10 * BATCH * HEADS * HEAD_DIM * t * (t + 1) / 2,
+                        TF32X3_FLOPS_PER_S, TF32X3)
         row = dict(name="flash_attention_bwd", case=label, max_abs_err=err,
                    ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain,
                    bound_ms=bms, bound_by=by, library_ms=lib, card=card)
@@ -950,9 +1030,9 @@ def main():
     _build.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [lib.name for lib in libs],
-          "ptxas": {stem: [ln.strip() for ln in log.splitlines()
-                           if "Used" in ln or "spill" in ln]
+          "ptxas": {stem: ptxas_report(log)
                     for stem, log in _build.build_logs().items()}})
+    emit({"phase": "sass", "hmma": tensor_core_instructions(_build, libs)})
 
     rows = kernel_phase(fa, card)
     serving, fp32_tok_s = e2e_phase(fa, card, *serving_models())

@@ -40,33 +40,74 @@ def test_cuda_tests_skip_without_a_card():
         require_cuda()
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, msg=None):
     tol = TOL[dtype]
-    assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.isfinite(got.float()).all()
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert got.dtype == want.dtype and got.shape == want.shape, msg
+    assert torch.isfinite(got.float()).all(), msg
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
+                               msg=msg and (lambda m: f"{msg}: {m}"))
 
 
 def _rand(g, shape, dtype, dev):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
+#: sequence lengths that put ragged edges on both query tile sizes (16, 64)
+#: and on the 64-row key tiles
+ATTN_T = [1, 15, 16, 17, 63, 64, 65, 200, 1024]
+
+
+def _qkv_views(buf, h, d):
+    """q, k, v as strided views of one fused projection buffer."""
+    return [x.unflatten(-1, (h, d)) for x in buf.split(h * d, dim=-1)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 64])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-@pytest.mark.parametrize("t,causal", [(1, True), (63, True), (200, True),
-                                      (257, False)])
-def test_flash_attention_kernel(cuda, dtype, d, t, causal):
-    g = torch.Generator(device=cuda).manual_seed(t + d)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel(cuda, monkeypatch, causal, d, dtype, rows):
+    """K1 on both query tile sizes (the wrapper's choice forced), at every
+    length of ``ATTN_T``."""
+    monkeypatch.setattr(fa, "query_tile_rows", lambda b, h, t: rows)
     h = 3
-    # q, k, v as strided views of one fused projection buffer
-    qkv = _rand(g, (2, t, 3 * h * d), dtype, cuda)
-    q, k, v = (x.unflatten(-1, (h, d)) for x in qkv.split(h * d, dim=-1))
-    before = fa.LAUNCHES["flash_attention"]
-    got = fa.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == before + 1
-    _close(got, fa.flash_attention_reference(q, k, v, causal), dtype)
+    for t in ATTN_T:
+        g = torch.Generator(device=cuda).manual_seed(t + d)
+        q, k, v = _qkv_views(_rand(g, (2, t, 3 * h * d), dtype, cuda), h, d)
+        before = fa.LAUNCHES["flash_attention"]
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_attention"] == before + 1
+        _close(got, fa.flash_attention_reference(q, k, v, causal), dtype,
+               f"T {t}")
+
+
+#: element offsets of q/k/v views that are not 16-byte aligned: fp32 at 1
+#: (4-byte cp.async), bf16 at 2 (4-byte) and at 1 (2-byte plain loads)
+MISALIGNED = [(torch.float32, 1), (torch.bfloat16, 2), (torch.bfloat16, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", MISALIGNED)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernels_on_misaligned_views(cuda, dtype, offset,
+                                                     causal):
+    """K1 and K1-bwd on views whose base and row stride are not 16-byte
+    aligned (the narrower copy paths), against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(offset)
+    b, t, h, d = 2, 130, 3, 64
+    width = 3 * h * d + offset
+    buf = _rand(g, (b, t, width), dtype, cuda)[..., offset:]
+    q, k, v = _qkv_views(buf, h, d)
+    assert q.data_ptr() % 16 and q.stride(1) * q.element_size() % 16
+    out, lse = fa._flash_forward(q, k, v, causal, with_lse=True)
+    _close(out, fa.flash_attention_reference(q, k, v, causal), dtype)
+    dout = _rand(g, (b, t, h, d), dtype, cuda)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, dout, causal)
+    for a, w in zip(got, want):
+        _close(a, w, dtype)
 
 
 @pytest.mark.cuda
@@ -218,30 +259,44 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-@pytest.mark.parametrize("t,causal", [(1, True), (63, True), (200, True),
-                                      (257, False)])
-def test_flash_attention_bwd_kernel(cuda, dtype, d, t, causal):
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_kernel(cuda, causal, d, dtype):
     """K1 forward (with lse) and K1-bwd through the autograd Function,
     on q/k/v views of one fused buffer, against autograd of the plain
-    version."""
-    g = torch.Generator(device=cuda).manual_seed(t + d + 1)
+    version, at every length of ``ATTN_T``."""
     h = 3
-    qkv = _rand(g, (2, t, 3 * h * d), dtype, cuda).requires_grad_(True)
-    dout = _rand(g, (2, t, h, d), dtype, cuda)
+    for t in ATTN_T:
+        g = torch.Generator(device=cuda).manual_seed(t + d + 1)
+        qkv = _rand(g, (2, t, 3 * h * d), dtype, cuda).requires_grad_(True)
+        dout = _rand(g, (2, t, h, d), dtype, cuda)
+        before = dict(fa.LAUNCHES)
+        out = fa.flash_attention(*_qkv_views(qkv, h, d), causal=causal)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_attention"] == \
+            before["flash_attention"] + 1
+        assert fa.LAUNCHES["flash_attention_bwd"] == \
+            before["flash_attention_bwd"] + 1
+        want = fa.flash_attention_bwd_reference(
+            *_qkv_views(qkv.detach(), h, d), dout, causal)
+        _close(qkv.grad, torch.cat([w.flatten(-2) for w in want], dim=-1),
+               dtype, f"T {t}")
 
-    def views(buf):
-        return [x.unflatten(-1, (h, d)) for x in buf.split(h * d, dim=-1)]
 
-    before = dict(fa.LAUNCHES)
-    out = fa.flash_attention(*views(qkv), causal=causal)
-    out.backward(dout)
-    torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
-    assert fa.LAUNCHES["flash_attention_bwd"] == \
-        before["flash_attention_bwd"] + 1
-    want = fa.flash_attention_bwd_reference(*views(qkv.detach()), dout,
-                                            causal)
-    _close(qkv.grad, torch.cat([w.flatten(-2) for w in want], dim=-1), dtype)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_bwd_is_deterministic(cuda, dtype):
+    """Each gradient row is summed by one block in a fixed order (no
+    atomics): two calls on the same inputs agree bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, t, h, d = 2, 300, 4, 64
+    q, k, v = _qkv_views(_rand(g, (b, t, 3 * h * d), dtype, cuda), h, d)
+    dout = _rand(g, (b, t, h, d), dtype, cuda)
+    out, lse = fa._flash_forward(q, k, v, True, with_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, dout, True)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, dout, True)
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.cuda

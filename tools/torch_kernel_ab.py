@@ -8,7 +8,11 @@ parent) within one run.
 Each checkout runs in a fresh process that imports its own
 ``chip_smoke.py`` and ``bigdl_tpu_torch``, builds its kernels into its
 own build directory, and times phase 3's rows (K1, K2, K3) and, where the
-checkout has it, phase 8's (K3q): device time from CUDA-graph replays.
+checkout has it, phase 8's (K3q), then K1 and K1-bwd at phase 3's and
+phase 6's shapes (``K1_SHAPES``, ``K1_BWD_SHAPES``: fp32, H 12, D 64,
+causal, q/k/v views of one fused buffer) through the checkout's own
+wrappers, so that a checkout without a row still gets it timed: device
+time from CUDA-graph replays.
 Prints one JSON line per checkout, with the card's name and power limit:
 ``{"checkout": ..., "card": ..., "<kernel>_<case>": ms, ...}``.  Needs a
 CUDA card.
@@ -18,6 +22,37 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+
+#: (B, T) of the K1 forward rows and of the K1-bwd rows
+K1_SHAPES = ((2, 1024), (1, 200), (8, 1024))
+K1_BWD_SHAPES = ((8, 1024), (8, 200))
+
+
+def attention_rows(cs, fa):
+    """K1 and K1-bwd device times (ms) at ``K1_SHAPES`` and
+    ``K1_BWD_SHAPES``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h, d = cs.HEADS, cs.HEAD_DIM
+    out = {}
+
+    def views(b, t):
+        qkv = torch.randn(b, t, 3 * h * d, generator=g, device="cuda")
+        return [x.unflatten(-1, (h, d)) for x in qkv.split(h * d, dim=-1)]
+
+    for b, t in K1_SHAPES:
+        q, k, v = views(b, t)
+        out[f"K1_causal_B{b}_T{t}"] = cs.device_ms(
+            lambda: fa.flash_attention(q, k, v, True))[0]
+    for b, t in K1_BWD_SHAPES:
+        q, k, v = views(b, t)
+        do = torch.randn(b, t, h, d, generator=g, device="cuda")
+        o, lse = fa._flash_forward(q, k, v, True, with_lse=True)
+        out[f"K1-bwd_causal_B{b}_T{t}"] = cs.device_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True))[0]
+    return out
 
 
 def one(root):
@@ -37,7 +72,8 @@ def one(root):
         cs.int8_kernel_phase(fa, card)
     print(json.dumps({"checkout": root, "card": card,
                       **{f"{r['name']}_{r['case']}": r["ms"]
-                         for r in rows}}), flush=True)
+                         for r in rows},
+                      **attention_rows(cs, fa)}), flush=True)
 
 
 def main(argv):
