@@ -123,9 +123,10 @@ def _declare(libs):
         "bigdl_flash_decode_attention": [p, p, p, p, p, i, i, i, i, i, p, f,
                                          p],
         "bigdl_flash_paged_decode_attention": [
-            p, p, p, p, p, p, i, i, i, i, i, i, i, i64, p, f, p],
+            p, p, p, p, p, p, i, i, i, i, i, i, i, i64, p, f, i, p],
         "bigdl_flash_paged_decode_attention_int8": [
-            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i64, p, f, p],
+            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i64, p, f, i, p],
+        "bigdl_empty_cluster_launch": [i, i, p],
         "bigdl_flash_attention_bwd": [p, p, p, p, p, p, p, p, p, p, i, i, i,
                                       i, i, p, i, f, p],
         "bigdl_ce_fwd": [p, p, p, p, i, i, i, i64, p],

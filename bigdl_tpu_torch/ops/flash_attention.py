@@ -185,7 +185,8 @@ def _check_attention(name, q, k, v):
                          f"shape, got {q.shape}, {k.shape}, {v.shape}")
 
 
-#: streaming multiprocessors of the H100 SXM, which K1's grid should fill
+#: streaming multiprocessors of the H100 SXM, which K1's and K3's grids
+#: should fill
 SMS = 132
 
 
@@ -194,6 +195,24 @@ def query_tile_rows(b, h, t):
     64-row grid of ``b * h * ceil(t / 64)`` blocks would leave SMs idle,
     as at B1 T200 H12 (48 blocks; 156 with 16 rows)."""
     return 16 if b * h * -(-t // 64) < SMS else 64
+
+
+#: key positions a tile of K3/K3q (``kPgTile`` in csrc/flash_attention.cu)
+DECODE_TILE = 32
+#: K3/K3q's largest split count: the portable thread-block cluster size
+DECODE_MAX_SPLITS = 8
+
+
+def decode_splits(bh, limit):
+    """K3/K3q's split count S: each of the ``bh = B * H`` rows is read by
+    the S blocks of one cluster, each taking every S-th tile of the row's
+    visible positions.  About three blocks an SM, ``3 * SMS // bh`` (the
+    kernels' 48 KB ring lets three share an SM), from 1 to
+    ``DECODE_MAX_SPLITS``, and no more than the tiles of the addressable
+    length ``limit = tables.shape[1] * bs``: B8 H12 gives 4 (384 blocks
+    on 132 SMs)."""
+    tiles = -(-limit // DECODE_TILE)
+    return max(1, min(DECODE_MAX_SPLITS, 3 * SMS // max(bh, 1), tiles))
 
 
 def _flash_forward(q, k, v, causal, with_lse):
@@ -364,7 +383,8 @@ def flash_paged_decode_attention(q, k_pool, v_pool, tables, pos,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), _DTYPES[q.dtype], b, h, d, nb,
         bs, tables.shape[1], tables.stride(0), _strides(*s),
-        1.0 / math.sqrt(d), _stream())
+        1.0 / math.sqrt(d), decode_splits(b * h, tables.shape[1] * bs),
+        _stream())
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -398,7 +418,8 @@ def _paged_decode_int8(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
         k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), _DTYPES[q.dtype], b, h, d, nb,
         bs, tables.shape[1], tables.stride(0), _strides(*s),
-        1.0 / math.sqrt(d), _stream())
+        1.0 / math.sqrt(d), decode_splits(b * h, tables.shape[1] * bs),
+        _stream())
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out

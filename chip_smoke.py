@@ -7,16 +7,21 @@ Phases, each printing JSON lines:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions, TF32 switched off;
-2. build: the CUDA kernels compiled from ``bigdl_tpu_torch/csrc``, and
-   the HMMA (tensor-core) instructions of every K1 and K1-bwd kernel
-   counted in ``cuobjdump -sass`` of the libraries (none fails);
+2. build: the CUDA kernels compiled from ``bigdl_tpu_torch/csrc``, the
+   compiler's registers, spills and static shared memory of every
+   instantiation (``-Xptxas -v``), and the HMMA (tensor-core)
+   instructions of every K1 and K1-bwd kernel counted in ``cuobjdump
+   -sass`` of the libraries (none fails);
 3. kernels: K1 ``flash_attention``, K2 ``flash_decode_attention`` and K3
    ``flash_paged_decode_attention`` held against their plain PyTorch
    versions at the serving path's shapes (fp32, H 12, D 64), with kernel,
    plain and library device times (CUDA-graph replays, so no host work
    sits between launches) and the least time the card could take (K1
    also at the training step's B8 T1024; K1 and K1-bwd bounded by the
-   3xTF32 tensor-core rate, 495/3 TFLOP/s);
+   3xTF32 tensor-core rate, 495/3 TFLOP/s); K3's rows give their split
+   count and cluster shape, and an empty kernel launched as K3 is (and
+   one of a single block) gives the launch's fixed cost, the floor under
+   K3's and K3q's times;
 4. end to end: TransformerLM "small" (random weights from a seed) served
    by three engines -- paged (kernels), contiguous (kernels) and paged
    with the plain attention -- on the same greedy prompts, plus sampled
@@ -49,8 +54,8 @@ Phases, each printing JSON lines:
    their fp32 scales (``ops.quantization.quantize_blockwise``), at phase
    3's K3 shapes, held against its plain version (1e-4) and timed beside
    its bound (2 * H * (D + 4) bytes a visible position) and its plain
-   version; no PyTorch call reads int8 K/V through block tables, so it
-   has no library time;
+   version, with its split count and cluster shape; no PyTorch call reads
+   int8 K/V through block tables, so it has no library time;
 9. int8 serving: TransformerLM "small" (phase 4's weights and prompts)
    through three engines: (a) ``kv_cache_dtype="int8"``; (b)
    ``quantize=True`` with an ``accuracy_gate``, fp32 KV; (c)
@@ -68,6 +73,7 @@ non-zero before printing any result.
 """
 
 import collections
+import ctypes
 import json
 import re
 import subprocess
@@ -350,19 +356,46 @@ def kernel_phase(fa, card):
         vis = int((pos.long() + 1).sum())
         bms, by = bound(2 * vis * row_bytes + 2 * b * row_bytes + 4 * b
                         + 4 * int(used.sum()), 4 * vis * HEADS * HEAD_DIM)
+        splits = fa.decode_splits(b * HEADS, mb * bs)
         # no single PyTorch call reads K/V through block tables
         row = dict(name="flash_paged_decode_attention", case=f"B8_bs{bs}",
                    max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,
                    plain_ms=plain, bound_ms=bms,
-                   bound_by=by, library_ms=None, card=card)
+                   bound_by=by, library_ms=None, splits=splits,
+                   cluster=[splits, 1, 1], card=card)
         emit({"phase": "kernel", **row})
         rows.setdefault("flash_paged_decode_attention", row)
+    empty_kernel_floor(card, b * HEADS, fa.decode_splits(b * HEADS, max_len))
 
     # K1 at the training step's shape, last: its inputs and its plain
     # version's (B, H, T, T) temporaries would otherwise change what the
     # decode rows draw and where their caches lie, and so their times
     k1_row(BATCH, SEQ, f"causal_B{BATCH}_T{SEQ}")
     return rows
+
+
+def launch_empty_kernel(clusters, splits):
+    """One launch of an empty kernel of K3's block width as K3 is
+    launched: ``clusters`` clusters of ``splits`` blocks."""
+    from bigdl_tpu_torch.ops import _build
+
+    rc = _build.load().bigdl_empty_cluster_launch(
+        clusters, splits,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc:
+        raise RuntimeError(f"empty cluster launch failed ({rc})")
+
+
+def empty_kernel_floor(card, clusters, splits):
+    """The fixed cost of a launch in phase 3's graph harness: the empty
+    kernel in K3's grid (``clusters`` clusters of ``splits`` blocks) and
+    in a single block."""
+    for c, s, case in ((1, 1, "one_block"),
+                       (clusters, splits, f"K3_grid_{clusters}x{splits}")):
+        ms, lo, hi = device_ms(lambda: launch_empty_kernel(c, s))
+        emit({"phase": "kernel_floor", "name": "empty_kernel", "case": case,
+              "clusters": c, "splits": s, "ms": ms, "ms_min": lo,
+              "ms_max": hi, "card": card})
 
 
 def clone_tree(tree):
@@ -850,11 +883,13 @@ def int8_kernel_phase(fa, card):
         n_bytes = 2 * vis * HEADS * (HEAD_DIM + 4) \
             + 2 * b * HEADS * HEAD_DIM * 4 + 4 * b + 4 * int(used.sum())
         bms, by = bound(n_bytes, 4 * vis * HEADS * HEAD_DIM)
+        splits = fa.decode_splits(b * HEADS, mb * bs)
         # no PyTorch call reads int8 K/V through block tables
         r = dict(name="flash_paged_decode_attention_int8", case=f"B8_bs{bs}",
                  max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,
                  plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-                 visible_positions=vis, card=card)
+                 visible_positions=vis, splits=splits,
+                 cluster=[splits, 1, 1], card=card)
         emit({"phase": "kernel", **r})
         row = row or r
     return {"flash_paged_decode_attention_int8": row}

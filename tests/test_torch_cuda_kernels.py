@@ -129,28 +129,62 @@ def test_flash_decode_kernel(cuda, dtype, d, t):
     _close(got, fa.flash_decode_attention_reference(q, k, v, pos), dtype)
 
 
+#: the split counts K3/K3q are forced to: one cluster of S blocks a row
+SPLITS = range(1, fa.DECODE_MAX_SPLITS + 1)
+
+
+def _frontiers(g, b, bs, limit, cuda):
+    """pos (B,) int32: 0, both sides of a page edge and of a 32-position
+    tile edge, the last addressable position, the rest random."""
+    pos = torch.randint(0, limit, (b,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    edges = torch.tensor([0, bs - 1, bs, 31, 32, limit - 1], device=cuda)
+    pos[:len(edges)] = edges.clamp(max=limit - 1).to(torch.int32)
+    return pos
+
+
+def _tables(g, b, mb, nb, bs, pos, cuda):
+    """Shuffled block tables whose entries past each row's frontier name
+    the trash block ``nb - 1``."""
+    tables = torch.randperm(nb - 1, generator=g, device=cuda)[:b * mb] \
+        .reshape(b, mb).to(torch.int32)
+    used = (pos.long() // bs + 1)[:, None]
+    return torch.where(torch.arange(mb, device=cuda)[None, :] < used,
+                       tables, torch.full_like(tables, nb - 1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("bs", [1, 5, 16, 128])
-def test_flash_paged_decode_kernel(cuda, dtype, d, bs):
-    g = torch.Generator(device=cuda).manual_seed(bs + d)
-    b, h, max_len = 4, 3, 300
-    mb = -(-max_len // bs)
-    nb = b * mb + 1
-    kp, vp = (_rand(g, (nb, bs, h, d), dtype, cuda) for _ in range(2))
-    tables = torch.randperm(nb - 1, generator=g, device=cuda).reshape(
-        b, mb).to(torch.int32)
-    pos = torch.randint(0, max_len, (b,), generator=g, device=cuda,
-                        dtype=torch.int32)
-    pos[0], pos[-1] = 0, max_len - 1
-    q = _rand(g, (b, 1, h, d), dtype, cuda)
-    before = fa.LAUNCHES["flash_paged_decode_attention"]
-    got = fa.flash_paged_decode_attention(q, kp, vp, tables, pos)
-    torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_paged_decode_attention"] == before + 1
-    _close(got, fa.flash_paged_decode_attention_reference(
-        q, kp, vp, tables, pos), dtype)
+def test_flash_paged_decode_kernel(cuda, monkeypatch, dtype, d, bs):
+    """K3 against its plain version with the split count forced from 1 to
+    8 (``decode_splits``), frontiers at 0, on page and tile edges and at
+    the last addressable position, pools of 300 positions a row and of one
+    block (max_blocks 1); the trash block holds NaNs, which the kernel must
+    never read (the plain version reads it on a copy holding zeros).  One
+    launch a call."""
+    b, h = 8, 3
+    for max_len in (300, bs):
+        mb = -(-max_len // bs)
+        nb = b * mb + 1
+        for splits in SPLITS:
+            monkeypatch.setattr(fa, "decode_splits",
+                                lambda bh, limit: splits)
+            g = torch.Generator(device=cuda).manual_seed(bs + d + splits)
+            kp, vp = (_rand(g, (nb, bs, h, d), dtype, cuda)
+                      for _ in range(2))
+            pos = _frontiers(g, b, bs, mb * bs, cuda)
+            tables = _tables(g, b, mb, nb, bs, pos, cuda)
+            q = _rand(g, (b, 1, h, d), dtype, cuda)
+            want = fa.flash_paged_decode_attention_reference(
+                q, kp, vp, tables, pos)
+            kp[nb - 1], vp[nb - 1] = float("nan"), float("nan")
+            before = fa.LAUNCHES["flash_paged_decode_attention"]
+            got = fa.flash_paged_decode_attention(q, kp, vp, tables, pos)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES["flash_paged_decode_attention"] == before + 1
+            _close(got, want, dtype, f"max_len {max_len} S {splits}")
 
 
 def _int8_pools(g, shape, cuda):
@@ -168,44 +202,90 @@ def _int8_pools(g, shape, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-@pytest.mark.parametrize("bs", [4, 16, 128])
-def test_flash_paged_decode_int8_kernel(cuda, dtype, d, bs):
-    """K3q against its plain version: frontiers at 0, on a block's last
-    row, on the next block's first row and at the end; unmapped table
+@pytest.mark.parametrize("bs", [1, 4, 5, 16, 128])
+def test_flash_paged_decode_int8_kernel(cuda, monkeypatch, dtype, d, bs):
+    """K3q against its plain version with the split count forced from 1
+    to 8, frontiers at 0, on page and tile edges and at the end, pools of
+    300 positions a row and of one block (max_blocks 1); unmapped table
     entries name the trash block, which holds garbage at the int8 rails
     and scale 1e4; one visible vector has payload 0 and scale 0 (the
-    non-finite case).  The output is fp32 for fp32 and bf16 queries."""
-    g = torch.Generator(device=cuda).manual_seed(3 * bs + d)
-    b, h, max_len = 5, 3, 300
-    mb = -(-max_len // bs)
+    non-finite case).  The output is fp32 for fp32 and bf16 queries; one
+    launch of K3q and none of K3 a call."""
+    b, h = 8, 3
+    for max_len in (300, bs):
+        mb = -(-max_len // bs)
+        nb = b * mb + 1
+        trash = nb - 1
+        for splits in SPLITS:
+            monkeypatch.setattr(fa, "decode_splits",
+                                lambda bh, limit: splits)
+            g = torch.Generator(device=cuda).manual_seed(3 * bs + d + splits)
+            k8, ks, v8, vs = _int8_pools(g, (nb, bs, h, d), cuda)
+            k8[trash], v8[trash] = 127, -127
+            ks[trash], vs[trash] = 1e4, 1e4
+            pos = _frontiers(g, b, bs, mb * bs, cuda)
+            tables = _tables(g, b, mb, nb, bs, pos, cuda)
+            first = tables[3, 0].long()
+            k8[first, 0], ks[first, 0] = 0, 0.0
+            v8[first, 0], vs[first, 0] = 0, 0.0
+            q = _rand(g, (b, 1, h, d), dtype, cuda)
+            before = dict(fa.LAUNCHES)
+            got = fa.flash_paged_decode_attention(q, k8, v8, tables, pos,
+                                                  k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES["flash_paged_decode_attention_int8"] == \
+                before["flash_paged_decode_attention_int8"] + 1
+            assert fa.LAUNCHES["flash_paged_decode_attention"] == \
+                before["flash_paged_decode_attention"]
+            want = fa.flash_paged_decode_attention_reference(
+                q, k8, v8, tables, pos, ks, vs)
+            assert want.dtype == torch.float32
+            _close(got, want, torch.float32, f"max_len {max_len} S {splits}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_kernels_are_deterministic(cuda, monkeypatch, dtype):
+    """K3 and K3q merge their splits in rank order inside the cluster (no
+    workspace, no atomics): two calls agree bit for bit, at the engine's
+    split count and at 8."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    b, h, d, bs, mb = 8, 12, 64, 16, 64
     nb = b * mb + 1
-    trash = nb - 1
+    kp, vp = (_rand(g, (nb, bs, h, d), dtype, cuda) for _ in range(2))
     k8, ks, v8, vs = _int8_pools(g, (nb, bs, h, d), cuda)
-    k8[trash], v8[trash] = 127, -127
-    ks[trash], vs[trash] = 1e4, 1e4
-    pos = torch.randint(0, max_len, (b,), generator=g, device=cuda,
-                        dtype=torch.int32)
-    pos[0], pos[1], pos[2], pos[-1] = 0, bs - 1, bs, max_len - 1
-    used = (pos.long() // bs + 1)[:, None]
-    tables = torch.randperm(nb - 1, generator=g, device=cuda).reshape(
-        b, mb).to(torch.int32)
-    tables = torch.where(torch.arange(mb, device=cuda)[None, :] < used,
-                         tables, torch.full_like(tables, trash))
-    first = tables[3, 0].long()
-    k8[first, 0], ks[first, 0], v8[first, 0], vs[first, 0] = 0, 0.0, 0, 0.0
+    pos = _frontiers(g, b, bs, mb * bs, cuda)
+    tables = _tables(g, b, mb, nb, bs, pos, cuda)
     q = _rand(g, (b, 1, h, d), dtype, cuda)
+    for splits in (fa.decode_splits(b * h, mb * bs), 8):
+        monkeypatch.setattr(fa, "decode_splits", lambda bh, limit: splits)
+        for call in (
+                lambda: fa.flash_paged_decode_attention(q, kp, vp, tables,
+                                                        pos),
+                lambda: fa.flash_paged_decode_attention(
+                    q, k8, v8, tables, pos, k_scale=ks, v_scale=vs)):
+            assert torch.equal(call(), call())
+
+
+@pytest.mark.cuda
+def test_paged_decode_raises_when_the_cluster_launch_is_refused(
+        cuda, monkeypatch):
+    """A split count the kernel does not take (9: past the portable
+    cluster size) is refused by the launch, and the wrapper raises rather
+    than fall back."""
+    monkeypatch.setattr(fa, "decode_splits", lambda bh, limit: 9)
+    q = torch.zeros((2, 1, 2, 64), device=cuda)
+    pool = torch.zeros((3, 4, 2, 64), device=cuda)
+    tables = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
     before = dict(fa.LAUNCHES)
-    got = fa.flash_paged_decode_attention(q, k8, v8, tables, pos,
-                                          k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_paged_decode_attention_int8"] == \
-        before["flash_paged_decode_attention_int8"] + 1
-    assert fa.LAUNCHES["flash_paged_decode_attention"] == \
-        before["flash_paged_decode_attention"]
-    want = fa.flash_paged_decode_attention_reference(q, k8, v8, tables, pos,
-                                                     ks, vs)
-    assert want.dtype == torch.float32
-    _close(got, want, torch.float32)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_paged_decode_attention(q, pool, pool, tables, pos)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_paged_decode_attention(
+            q, pool.to(torch.int8), pool.to(torch.int8), tables, pos,
+            k_scale=pool[..., :1], v_scale=pool[..., :1])
+    assert fa.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""K3 and K3q device times against their split count, on one card.
+
+    python3 tools/torch_decode_splits.py
+
+K3 (``flash_paged_decode_attention``) and K3q (its int8 pools) read each
+(b, h) row with the S blocks of one thread-block cluster; the wrapper
+picks S (``ops.flash_attention.decode_splits``).  This tool forces S from
+1 to 8 and times both kernels (fp32 q, H 12, D 64, B 8 rows over 1024
+positions a row, as ``chip_smoke.py`` phases 3 and 8) on three sets of
+frontiers: random ones as in phase 3, every row at position 0 (one tile:
+the kernel's fixed cost), and every row at the last position (the most
+bytes).  It also times an empty kernel launched as K3 is, the floor under
+both.  Device time from CUDA-graph replays (``chip_smoke.device_ms``).
+Prints one JSON line per (block size, frontiers, S) and one per floor,
+each with the card's name and power limit.  Needs a CUDA card.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+# run as a script from a checkout: the package sits beside tools/
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+B, HEADS, HEAD_DIM, MAX_LEN = 8, 12, 64, 1024
+
+
+def pools(g, nb, bs):
+    """fp32 K and V pools, then each one's int8 form and fp32 scales:
+    (k, v, k8, k_scale, v8, v_scale)."""
+    from bigdl_tpu_torch.ops.quantization import quantize_blockwise
+
+    shape = (nb, bs, HEADS, HEAD_DIM)
+    out = [torch.randn(shape, generator=g, device="cuda") for _ in range(2)]
+    for x in out[:2]:
+        q8, sc = quantize_blockwise(x.reshape(-1), HEAD_DIM,
+                                    scale_dtype=torch.float32)
+        out += [q8.reshape(shape), sc.reshape(nb, bs, HEADS, 1)]
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("torch_decode_splits: needs a CUDA card", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    card = cs.card_line()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    chosen = fa.decode_splits
+    for bs in (16, 128):
+        mb = MAX_LEN // bs
+        nb = B * mb + 1
+        kp, vp, k8, ks, v8, vs = pools(g, nb, bs)
+        tables = torch.randperm(nb - 1, generator=g, device="cuda") \
+            .reshape(B, mb).to(torch.int32)
+        rand = torch.randint(0, MAX_LEN, (B,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        q = torch.randn(B, 1, HEADS, HEAD_DIM, generator=g, device="cuda")
+        frontiers = {"random": rand, "zero": torch.zeros_like(rand),
+                     "full": torch.full_like(rand, MAX_LEN - 1)}
+        for label, pos in frontiers.items():
+            for splits in range(1, fa.DECODE_MAX_SPLITS + 1):
+                fa.decode_splits = lambda bh, limit, s=splits: s
+                k3 = cs.device_ms(lambda: fa.flash_paged_decode_attention(
+                    q, kp, vp, tables, pos))[0]
+                k3q = cs.device_ms(lambda: fa.flash_paged_decode_attention(
+                    q, k8, v8, tables, pos, k_scale=ks, v_scale=vs))[0]
+                print(json.dumps({
+                    "bs": bs, "frontiers": label,
+                    "visible_positions": int((pos.long() + 1).sum()),
+                    "splits": splits,
+                    "chosen": splits == chosen(B * HEADS, MAX_LEN),
+                    "k3_ms": k3, "k3q_ms": k3q, "card": card}), flush=True)
+            fa.decode_splits = chosen
+
+    for splits in range(1, fa.DECODE_MAX_SPLITS + 1):
+        ms = cs.device_ms(lambda: cs.launch_empty_kernel(B * HEADS,
+                                                         splits))[0]
+        print(json.dumps({"empty_kernel_clusters": B * HEADS,
+                          "splits": splits, "ms": ms, "card": card}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,8 +7,9 @@ parent) within one run.
 
 Each checkout runs in a fresh process that imports its own
 ``chip_smoke.py`` and ``bigdl_tpu_torch``, builds its kernels into its
-own build directory, and times phase 3's rows (K1, K2, K3) and, where the
-checkout has it, phase 8's (K3q), then K1 and K1-bwd at phase 3's and
+own build directory, and times phase 3's rows (K1, K2, K3, and the
+empty-kernel floor where the checkout has it) and, where the checkout
+has it, phase 8's (K3q), then K1 and K1-bwd at phase 3's and
 phase 6's shapes (``K1_SHAPES``, ``K1_BWD_SHAPES``: fp32, H 12, D 64,
 causal, q/k/v views of one fused buffer) through the checkout's own
 wrappers, so that a checkout without a row still gets it timed: device
