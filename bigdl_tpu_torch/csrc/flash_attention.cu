@@ -38,28 +38,26 @@
 //    lse = m + log(l) (B, H, T) fp32, which the backward
 //    (flash_attention_bwd.cu) uses to rebuild P; serving passes no lse.
 //
-// K2 decode_kernel<PAGED=false, QUANT=false> replaces
+// K2 paged_decode_kernel<QUANT=false, PAGED=false> replaces
 //    flash_decode_attention / _decode_kernel: one query row per (b, h)
 //    against a contiguous (B, T, H, D) cache, masked at kpos <= pos[b].
-//    Bound: bytes (see K3).  Design: one block of 8 warps per (b, h); the
-//    loop visits only the pos[b]+1 visible positions (the dynamic trip
-//    count of the TPU kernel), warps split them 32 at a time, each lane
-//    scores one key with 16-byte row loads, V rows are read coalesced
-//    across lanes, and the warps' partial (m, l, acc) are merged through
-//    shared memory at the end.
-//
-// K3 paged_decode_kernel<QUANT=false> replaces flash_paged_decode_attention
-//    / _paged_decode_kernel (fp path): the same function, with key
-//    position kp read from pool block tables[b, kp / bs], row kp % bs, in
-//    place -- no per-head copy of the pool.
-// K3q paged_decode_kernel<QUANT=true> replaces the quantized=True path of
-//    the same Pallas kernel: int8 K/V pools with one fp32 scale per
-//    (position, head) vector, (NB, bs, H, 1); the output is fp32 whatever
-//    q's dtype, as on the TPU.  No fp32 copy of the pool ever exists.
-//    Bound for both: bytes.  A decode step does 4*D FLOPs per 2*D*elt bytes
-//    of K/V, far below the card's FLOP/byte balance, so the floor is the
-//    K/V rows up to pos[b] read once at the memory rate: 2*H*D*4 bytes a
-//    visible position for fp32, 2*H*(D + 4) for int8 (3.76x fewer at D 64).
+//    It is K3's split-KV kernel below without the tables: position kp of
+//    row b lies at b*sk0 + kp*sk1 + h*skh, so no table window is loaded
+//    and no position is divided by a block size.  Bound: bytes, as K3.
+// K3 paged_decode_kernel<QUANT=false, PAGED=true> replaces
+//    flash_paged_decode_attention / _paged_decode_kernel (fp path): the
+//    same function, with key position kp read from pool block tables[b,
+//    kp / bs], row kp % bs, in place -- no per-head copy of the pool.
+// K3q paged_decode_kernel<QUANT=true, PAGED=true> replaces the
+//    quantized=True path of the same Pallas kernel: int8 K/V pools with
+//    one fp32 scale per (position, head) vector, (NB, bs, H, 1); the
+//    output is fp32 whatever q's dtype, as on the TPU.  No fp32 copy of
+//    the pool ever exists.
+//    Bound for all three: bytes.  A decode step does 4*D FLOPs per
+//    2*D*elt bytes of K/V, far below the card's FLOP/byte balance, so the
+//    floor is the K/V rows up to pos[b] read once at the memory rate:
+//    2*H*D*4 bytes a visible position for fp32, 2*H*(D + 4) for int8
+//    (3.76x fewer at D 64).
 //    At the serving shapes (B 8, H 12, a few hundred positions a row) that
 //    is a few microseconds, so the kernel's fixed cost (launch, ramp,
 //    cluster barriers) and the latency of its longest chain of dependent
@@ -68,12 +66,13 @@
 //    - Grid: S x B*H blocks of 4 warps, flattened on x, in clusters of S
 //      (S = 1..8, the portable cluster size, chosen by the wrapper from
 //      B*H and the addressable length, ops/flash_attention.decode_splits:
-//      about three blocks an SM).  The block of rank r takes tiles r,
-//      r + S, r + 2S, ... of 32 visible positions, so its first page is
-//      known before pos[b]: its window of table entries (256 pages, moved
-//      on only where its tiles reach past it) loads together with pos[b]
-//      and q.  A rank with no visible tile keeps the neutral partial
-//      (m = -inf, l = 0, acc = 0).
+//      about three blocks an SM, from the card's SM count).  The block of
+//      rank r takes tiles r, r + S, r + 2S, ... of 32 visible positions,
+//      so its first page is known before pos[b]: K3's window of table
+//      entries (256 pages, moved on only where its tiles reach past it)
+//      loads together with pos[b] and q (contiguous ranges would put
+//      pos[b] at the head of every block's chain).  A rank with no
+//      visible tile keeps the neutral partial (m = -inf, l = 0, acc = 0).
 //    - Bytes in flight: each tile's K and V rows of one head (32 x D at a
 //      stride of H*D*elt) are copied by cp.async, 16-byte pieces (8 for
 //      bf16 rows, which are only 8-byte aligned), into a ring of 3 to 8
@@ -108,6 +107,10 @@
 //    so the longest row's tiles over S set the time.  More splits shorten
 //    that chain until the blocks no longer fit the card at once (S = 5
 //    at fp32, 48 KB of ring a block): decode_splits takes 4 at B8 H12.
+//    K2 is bounded the same way: at the contiguous engine's B9 H12 (S 3,
+//    the longest row 1024 positions) it takes 12.6 us, 3.8-4.4 us with
+//    one tile a row (no table to load) and 23.4-24.3 us with every row
+//    full (56.6 MB of fp32 K/V, 2.4 TB/s).
 //
 // Every kernel takes fp32 or bf16 queries (K2/K3 also K/V of that dtype),
 // accumulates in fp32 and reads
@@ -125,19 +128,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-// four consecutive elements starting at a 4-element-aligned address
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  uint2 raw = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&raw.x);
-  __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&raw.y);
-  float2 a = __bfloat1622float2(lo);
-  float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 // ------------------------------------------------------------------------
 // K1: flash attention forward
@@ -334,214 +324,7 @@ int launch_attn(const void* q, const void* k, const void* v, void* o, int bh,
 }
 
 // ------------------------------------------------------------------------
-// K2: single-token decode against a contiguous cache
-// ------------------------------------------------------------------------
-// K2 is decode_kernel<PAGED=false, QUANT=false>.  The template's paged and
-// int8 paths are K3's and K3q's earlier design and are no longer
-// instantiated (K3 and K3q are paged_decode_kernel below); they stay so
-// that K2's instantiation compiles to the same code as before, and go
-// with K2's own redesign.
-constexpr int kDecWarps = 8;
-
-struct DecodeArgs {
-  const int* pos;      // (B,)
-  const int* tables;   // (B, MB) row stride table_stride; paged only
-  const float* k_scale;  // (NB, bs, H, 1) fp32; quantized only
-  const float* v_scale;
-  int heads;
-  int limit;           // positions addressable: T (contiguous) / MB*bs
-  int block_size;      // paged only
-  int max_blocks;      // paged only
-  int num_blocks;      // paged only
-  int64_t table_stride;
-  int64_t sqb, sqh;
-  // contiguous: (row stride b, position stride t, head stride h)
-  // paged:      (block stride, in-block row stride, head stride)
-  int64_t sk0, sk1, skh, sv0, sv1, svh;
-  int64_t sks0, sks1, sksh, svs0, svs1, svsh;  // scales; quantized only
-  int64_t sob, soh;
-  float scale;
-};
-
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
-}
-
-// K3q stores K/V as int8 and always writes fp32 (the TPU kernel's output
-// dtype on the quantized path); K2/K3 read and write the input dtype
-template <typename T, bool QUANT>
-using DecKV = std::conditional_t<QUANT, int8_t, T>;
-template <typename T, bool QUANT>
-using DecOut = std::conditional_t<QUANT, float, T>;
-
-template <typename T, int D, bool PAGED, bool QUANT>
-__global__ void __launch_bounds__(kDecWarps * 32)
-decode_kernel(const T* __restrict__ q, const DecKV<T, QUANT>* __restrict__ k,
-              const DecKV<T, QUANT>* __restrict__ v,
-              DecOut<T, QUANT>* __restrict__ o, DecodeArgs a) {
-  using KV = DecKV<T, QUANT>;
-  constexpr int DPL = (D + 31) / 32;
-  __shared__ float qs[D];
-  __shared__ float red_m[kDecWarps], red_l[kDecWarps];
-  __shared__ float red_acc[kDecWarps][D];
-
-  const int b = blockIdx.x / a.heads;
-  const int h = blockIdx.x % a.heads;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int c = tid; c < D; c += blockDim.x)
-    qs[c] = to_f32(q[b * a.sqb + h * a.sqh + c]) * a.scale;
-  __syncthreads();
-
-  // positions kpos <= pos[b] are visible: the dynamic trip count
-  const int n_vis = max(0, min(a.pos[b] + 1, a.limit));
-
-  float m = -INFINITY, l = 0.f, acc[DPL];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) acc[j] = 0.f;
-
-  for (int base = warp * 32; base < n_vis; base += kDecWarps * 32) {
-    const int kp = base + lane;
-    const bool valid = kp < n_vis;
-    int64_t ko = 0, vo = 0;
-    float s = -INFINITY, vsc = 1.f;
-    if (valid) {
-      int64_t row, off;
-      if (PAGED) {
-        const int lb = min(kp / a.block_size, a.max_blocks - 1);
-        int bid = a.tables[b * a.table_stride + lb];
-        bid = min(max(bid, 0), a.num_blocks - 1);
-        row = bid;
-        off = kp % a.block_size;
-      } else {
-        row = b;
-        off = kp;
-      }
-      ko = row * a.sk0 + off * a.sk1 + h * a.skh;
-      vo = row * a.sv0 + off * a.sv1 + h * a.svh;
-      const KV* kr = k + ko;
-      float dot = 0.f;
-      if constexpr (QUANT) {
-        // the int8 row (D bytes) as 16-byte loads, each value dequantized
-        // in registers right after its load: float(k8) * scale, the
-        // product the plain version's dequantize_blockwise forms
-        const float ks = a.k_scale[row * a.sks0 + off * a.sks1 + h * a.sksh];
-        vsc = a.v_scale[row * a.svs0 + off * a.svs1 + h * a.svsh];
-#pragma unroll
-        for (int c = 0; c < D; c += 16) {
-          const int4 raw = *reinterpret_cast<const int4*>(kr + c);
-          const int8_t* k8 = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-          for (int i = 0; i < 16; ++i)
-            dot = fmaf(qs[c + i], static_cast<float>(k8[i]) * ks, dot);
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < D; c += 4) {
-          const float4 kv = load4(kr + c);
-          dot = fmaf(qs[c], kv.x, dot);
-          dot = fmaf(qs[c + 1], kv.y, dot);
-          dot = fmaf(qs[c + 2], kv.z, dot);
-          dot = fmaf(qs[c + 3], kv.w, dot);
-        }
-      }
-      s = dot;
-    }
-    const float new_m = fmaxf(m, warp_max(s));
-    const float sm = safe_max(new_m);
-    const float p = valid ? expf(s - sm) : 0.f;
-    const float corr = rescale(m, sm);
-    l = l * corr + warp_sum(p);
-    m = new_m;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[j] *= corr;
-    const int cnt = min(32, n_vis - base);
-    for (int kk = 0; kk < cnt; ++kk) {
-      const float pk = __shfl_sync(kFull, p, kk);
-      const int64_t vk = __shfl_sync(kFull, vo, kk);
-      // a shuffle is never dead code: K2/K3 must not pay for the scale
-      const float vs = QUANT ? __shfl_sync(kFull, vsc, kk) : 1.f;
-      const KV* vr = v + vk;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        const int d = lane + 32 * j;
-        if (d < D) {
-          const float vx = QUANT ? to_f32(vr[d]) * vs : to_f32(vr[d]);
-          acc[j] = fmaf(pk, vx, acc[j]);
-        }
-      }
-    }
-  }
-
-  if (lane == 0) {
-    red_m[warp] = m;
-    red_l[warp] = l;
-  }
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int d = lane + 32 * j;
-    if (d < D) red_acc[warp][d] = acc[j];
-  }
-  __syncthreads();
-  if (tid < D) {
-    float mg = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) mg = fmaxf(mg, red_m[w]);
-    const float sm = safe_max(mg);
-    float lt = 0.f, at = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) {
-      const float wt = rescale(red_m[w], sm);
-      lt += red_l[w] * wt;
-      at += red_acc[w][tid] * wt;
-    }
-    o[b * a.sob + h * a.soh + tid] =
-        from_f32<DecOut<T, QUANT>>(at / fmaxf(lt, 1e-30f));
-  }
-}
-
-template <typename T, int D, bool PAGED, bool QUANT>
-int launch_decode(const void* q, const void* k, const void* v, void* o,
-                  int batch, const DecodeArgs& a, cudaStream_t stream) {
-  using KV = DecKV<T, QUANT>;
-  using O = DecOut<T, QUANT>;
-  decode_kernel<T, D, PAGED, QUANT>
-      <<<batch * a.heads, kDecWarps * 32, 0, stream>>>(
-          static_cast<const T*>(q), static_cast<const KV*>(k),
-          static_cast<const KV*>(v), static_cast<O*>(o), a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, bool PAGED, bool QUANT>
-int dispatch_decode(int d, const void* q, const void* k, const void* v,
-                    void* o, int batch, const DecodeArgs& a,
-                    cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_decode<T, 16, PAGED, QUANT>(q, k, v, o, batch, a, stream);
-    case 32: return launch_decode<T, 32, PAGED, QUANT>(q, k, v, o, batch, a, stream);
-    case 64: return launch_decode<T, 64, PAGED, QUANT>(q, k, v, o, batch, a, stream);
-    case 128: return launch_decode<T, 128, PAGED, QUANT>(q, k, v, o, batch, a, stream);
-    default: return -1;
-  }
-}
-
-template <bool PAGED, bool QUANT>
-int decode_entry(int dtype, int d, const void* q, const void* k,
-                 const void* v, void* o, int batch, const DecodeArgs& a,
-                 cudaStream_t stream) {
-  if (dtype == 0)
-    return dispatch_decode<float, PAGED, QUANT>(d, q, k, v, o, batch, a,
-                                                stream);
-  if (dtype == 1)
-    return dispatch_decode<__nv_bfloat16, PAGED, QUANT>(d, q, k, v, o, batch,
-                                                        a, stream);
-  return -1;
-}
-
-// ------------------------------------------------------------------------
-// K3 / K3q: split-KV paged decode, the splits merged inside a cluster
+// K2 / K3 / K3q: split-KV decode, the splits merged inside a cluster
 // ------------------------------------------------------------------------
 constexpr int kPgWarps = 4;
 constexpr int kPgThreads = kPgWarps * 32;
@@ -551,9 +334,12 @@ constexpr int kPgWindow = 256;               // table entries held at once
 constexpr int kPgMaxSplits = 8;              // the portable cluster size
 constexpr int kPgRingBytes = 49152;          // the ring of K/V stages
 
+// K2 takes the same arguments: no tables, one "block" of T positions a
+// row (block_size T, max_blocks 1), and K/V strides (row b, position,
+// head) in place of (block, in-block row, head)
 struct PagedArgs {
   const int* pos;        // (B,)
-  const int* tables;     // (B, MB), row stride table_stride
+  const int* tables;     // (B, MB), row stride table_stride; paged only
   const float* k_scale;  // (NB, bs, H, 1) fp32; K3q only
   const float* v_scale;
   int heads, block_size, max_blocks, num_blocks, splits;
@@ -564,6 +350,13 @@ struct PagedArgs {
   int64_t sob, soh;
   float scale;
 };
+
+// K3q stores K/V as int8 and always writes fp32 (the TPU kernel's output
+// dtype on the quantized path); K2/K3 read and write the input dtype
+template <typename T, bool QUANT>
+using DecKV = std::conditional_t<QUANT, int8_t, T>;
+template <typename T, bool QUANT>
+using DecOut = std::conditional_t<QUANT, float, T>;
 
 // four int8 values (the bytes of w) as fp32 by the exponent trick: the
 // float with bits 0x4B0000uu is 2^23 + uu, and uu = x + 128 is x's byte
@@ -695,7 +488,9 @@ __device__ __forceinline__ void cluster_wait_acquire() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <typename T, int D, bool QUANT>
+// PAGED = false is K2: position kp of row b at b*sk0 + kp*sk1 + h*skh,
+// with no table window, no table load and no division by the block size
+template <typename T, int D, bool QUANT, bool PAGED>
 __global__ void __launch_bounds__(kPgThreads)
 paged_decode_kernel(const T* __restrict__ q,
                     const DecKV<T, QUANT>* __restrict__ k,
@@ -717,13 +512,14 @@ paged_decode_kernel(const T* __restrict__ q,
   constexpr int TD = kPgTile * D;       // elements of a K (or V) tile
   static_assert(C >= 1 && C % LPK == 0 && D % EPC == 0, "row layout");
   static_assert(kPgTile + 1 <= kPgWindow, "a tile's pages fit the window");
+  static_assert(PAGED || !QUANT, "int8 K/V come only from paged pools");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   KV* ks = reinterpret_cast<KV*>(smem_raw);  // STAGES x kPgTile x D
   KV* vs = ks + STAGES * TD;                 // STAGES x kPgTile x D
   float* kss = reinterpret_cast<float*>(vs + STAGES * TD);  // K3q scales
   float* vss = kss + STAGES * kPgTile;
-  __shared__ int pages[kPgWindow];         // pool block ids of pages w0...
+  __shared__ int pages[PAGED ? kPgWindow : 1];  // pool block ids, w0...
   __shared__ float sc[kPgWarps][kPgKeys];  // a warp's scores of a tile
   __shared__ float wm[kPgWarps], wl[kPgWarps];
   __shared__ float wacc[kPgWarps][D];
@@ -754,7 +550,7 @@ paged_decode_kernel(const T* __restrict__ q,
          i += kPgThreads)
       pages[i] = min(max(trow[w0 + i], 0), a.num_blocks - 1);
   };
-  load_window(div_small(rank * kPgTile, bs, inv_bs));
+  if constexpr (PAGED) load_window(div_small(rank * kPgTile, bs, inv_bs));
   // positions kpos <= pos[b] are visible
   const int n_vis = max(0, min(a.pos[b] + 1, a.max_blocks * bs));
   const int n_tiles = (n_vis + kPgTile - 1) / kPgTile;
@@ -770,18 +566,23 @@ paged_decode_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < EPV; ++e)
       qr[i][e] = to_f32(qb[(sub + LPK * i) * EPV + e]) * qscale;
-  __syncthreads();  // the window is in place
+  if constexpr (PAGED) __syncthreads();  // the window is in place
+  // K2: this (b, h) row of the cache
+  const KV* krow = k + (PAGED ? 0 : b * a.sk0 + h * a.skh);
+  const KV* vrow = v + (PAGED ? 0 : b * a.sv0 + h * a.svh);
 
   // this rank's i-th tile into stage i % STAGES (zeros past n_vis), the
   // window moved on first where the tile's pages lie past it
   auto issue = [&](int i) {
     const int k0 = (rank + i * splits) * kPgTile;
-    const int p0 = div_small(k0, bs, inv_bs);
-    const int p1 = div_small(min(k0 + kPgTile, n_vis) - 1, bs, inv_bs);
-    if (p1 - w0 >= kPgWindow) {  // block-uniform
-      __syncthreads();
-      load_window(p0);
-      __syncthreads();
+    if constexpr (PAGED) {
+      const int p0 = div_small(k0, bs, inv_bs);
+      const int p1 = div_small(min(k0 + kPgTile, n_vis) - 1, bs, inv_bs);
+      if (p1 - w0 >= kPgWindow) {  // block-uniform
+        __syncthreads();
+        load_window(p0);
+        __syncthreads();
+      }
     }
     const int st = i % STAGES;
     KV* kd = ks + st * TD;
@@ -792,10 +593,15 @@ paged_decode_kernel(const T* __restrict__ q,
       const KV* kx = k;
       const KV* vx = v;
       if (ok) {
-        const int pg = div_small(kp, bs, inv_bs);
-        const int64_t blk = pages[pg - w0], off = kp - pg * bs;
-        kx = k + blk * a.sk0 + off * a.sk1 + h * a.skh + c;
-        vx = v + blk * a.sv0 + off * a.sv1 + h * a.svh + c;
+        if constexpr (PAGED) {
+          const int pg = div_small(kp, bs, inv_bs);
+          const int64_t blk = pages[pg - w0], off = kp - pg * bs;
+          kx = k + blk * a.sk0 + off * a.sk1 + h * a.skh + c;
+          vx = v + blk * a.sv0 + off * a.sv1 + h * a.svh + c;
+        } else {
+          kx = krow + kp * a.sk1 + c;
+          vx = vrow + kp * a.sv1 + c;
+        }
       }
       cp_async<W>(kd + r * D + c, kx, ok);
       cp_async<W>(vd + r * D + c, vx, ok);
@@ -951,14 +757,14 @@ paged_decode_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int D, bool QUANT>
+template <typename T, int D, bool QUANT, bool PAGED>
 int launch_paged(const void* q, const void* k, const void* v, void* o,
                  int batch, const PagedArgs& a, cudaStream_t stream) {
   using KV = DecKV<T, QUANT>;
   using O = DecOut<T, QUANT>;
   constexpr int smem =
       kPgStages<KV, D, QUANT> * kPgStageBytes<KV, D, QUANT>;
-  auto kernel = paged_decode_kernel<T, D, QUANT>;
+  auto kernel = paged_decode_kernel<T, D, QUANT, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -981,34 +787,42 @@ int launch_paged(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool QUANT>
+template <typename T, bool QUANT, bool PAGED>
 int dispatch_paged(int d, const void* q, const void* k, const void* v,
                    void* o, int batch, const PagedArgs& a,
                    cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_paged<T, 16, QUANT>(q, k, v, o, batch, a, stream);
-    case 32: return launch_paged<T, 32, QUANT>(q, k, v, o, batch, a, stream);
-    case 64: return launch_paged<T, 64, QUANT>(q, k, v, o, batch, a, stream);
-    case 128: return launch_paged<T, 128, QUANT>(q, k, v, o, batch, a, stream);
+    case 16:
+      return launch_paged<T, 16, QUANT, PAGED>(q, k, v, o, batch, a, stream);
+    case 32:
+      return launch_paged<T, 32, QUANT, PAGED>(q, k, v, o, batch, a, stream);
+    case 64:
+      return launch_paged<T, 64, QUANT, PAGED>(q, k, v, o, batch, a, stream);
+    case 128:
+      return launch_paged<T, 128, QUANT, PAGED>(q, k, v, o, batch, a,
+                                                stream);
     default: return -1;
   }
 }
 
-template <bool QUANT>
+// K2 is <QUANT=false, PAGED=false>, K3 <false, true>, K3q <true, true>
+template <bool QUANT, bool PAGED>
 int paged_entry(int dtype, int d, const void* q, const void* k,
                 const void* v, void* o, int batch, const PagedArgs& a,
                 cudaStream_t stream) {
   if (a.splits < 1 || a.splits > kPgMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_paged<float, QUANT>(d, q, k, v, o, batch, a, stream);
+    return dispatch_paged<float, QUANT, PAGED>(d, q, k, v, o, batch, a,
+                                               stream);
   if (dtype == 1)
-    return dispatch_paged<__nv_bfloat16, QUANT>(d, q, k, v, o, batch, a,
-                                                stream);
+    return dispatch_paged<__nv_bfloat16, QUANT, PAGED>(d, q, k, v, o, batch,
+                                                       a, stream);
   return -1;
 }
 
-// the fixed cost of a launch: a kernel that does nothing, in K3's grid
+// the fixed cost of a launch: a kernel that does nothing, in K2's or K3's
+// grid
 __global__ void empty_kernel() {}
 
 template <typename T, int NW>
@@ -1031,7 +845,7 @@ int attn_entry(int d, const void* q, const void* k, const void* v, void* o,
                     : dispatch_attn<T, 4>(d, q, k, v, o, bh, a, stream);
 }
 
-// the paged arguments shared by K3 and K3q
+// the arguments shared by K2, K3 and K3q
 PagedArgs paged_args(const int* tables, const int* pos, int h,
                      int num_blocks, int block_size, int max_blocks,
                      int64_t table_stride, const int64_t* s, float scale,
@@ -1094,28 +908,16 @@ int bigdl_flash_attention(const void* q, const void* k, const void* v,
 
 // q, o: (B, 1, H, D); k, v: (B, T, H, D); pos: (B,) int32.
 // strides[10] = q (b, h), k (b, t, h), v (b, t, h), o (b, h).
+// splits: blocks (one cluster) a (b, h) row, 1 to 8.
 int bigdl_flash_decode_attention(const void* q, const void* k, const void* v,
                                  void* o, const int* pos, int dtype, int b,
                                  int h, int d, int t, const int64_t* strides,
-                                 float scale, void* stream) {
-  DecodeArgs a{};
-  a.pos = pos;
-  a.tables = nullptr;
-  a.heads = h;
-  a.limit = t;
-  a.sqb = strides[0];
-  a.sqh = strides[1];
-  a.sk0 = strides[2];
-  a.sk1 = strides[3];
-  a.skh = strides[4];
-  a.sv0 = strides[5];
-  a.sv1 = strides[6];
-  a.svh = strides[7];
-  a.sob = strides[8];
-  a.soh = strides[9];
-  a.scale = scale;
-  return decode_entry<false, false>(dtype, d, q, k, v, o, b, a,
-                                    static_cast<cudaStream_t>(stream));
+                                 float scale, int splits, void* stream) {
+  // one block of T positions a row and no tables: see PagedArgs
+  const PagedArgs a = paged_args(nullptr, pos, h, b, t, 1, 0, strides, scale,
+                                 splits);
+  return paged_entry<false, false>(dtype, d, q, k, v, o, b, a,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // q, o: (B, 1, H, D); k_pool, v_pool: (NB, bs, H, D); tables: (B, MB)
@@ -1130,8 +932,8 @@ int bigdl_flash_paged_decode_attention(
   const PagedArgs a =
       paged_args(tables, pos, h, num_blocks, block_size, max_blocks,
                  table_stride, strides, scale, splits);
-  return paged_entry<false>(dtype, d, q, k_pool, v_pool, o, b, a,
-                            static_cast<cudaStream_t>(stream));
+  return paged_entry<false, true>(dtype, d, q, k_pool, v_pool, o, b, a,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // K3q: as above with int8 pools (rows 16-byte aligned) and their fp32
@@ -1154,13 +956,13 @@ int bigdl_flash_paged_decode_attention_int8(
   a.svs0 = strides[13];
   a.svs1 = strides[14];
   a.svsh = strides[15];
-  return paged_entry<true>(dtype, d, q, k_pool, v_pool, o, b, a,
-                           static_cast<cudaStream_t>(stream));
+  return paged_entry<true, true>(dtype, d, q, k_pool, v_pool, o, b, a,
+                                 static_cast<cudaStream_t>(stream));
 }
 
-// An empty kernel launched as K3 is: clusters x splits blocks of K3's
-// width in clusters of splits.  Timing it gives the fixed cost of such a
-// launch, the floor under K3's and K3q's times.
+// An empty kernel launched as K2 and K3 are: clusters x splits blocks of
+// their width in clusters of splits.  Timing it gives the fixed cost of
+// such a launch, the floor under K2's, K3's and K3q's times.
 int bigdl_empty_cluster_launch(int clusters, int splits, void* stream) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

@@ -121,7 +121,7 @@ def _declare(libs):
     signatures = {
         "bigdl_flash_attention": [p, p, p, p, i, i, i, i, i, p, i, f, p, p],
         "bigdl_flash_decode_attention": [p, p, p, p, p, i, i, i, i, i, p, f,
-                                         p],
+                                         i, p],
         "bigdl_flash_paged_decode_attention": [
             p, p, p, p, p, p, i, i, i, i, i, i, i, i64, p, f, i, p],
         "bigdl_flash_paged_decode_attention_int8": [

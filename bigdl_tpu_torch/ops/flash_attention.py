@@ -27,6 +27,7 @@ any sequence length, cache length and block size is taken.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -185,34 +186,58 @@ def _check_attention(name, q, k, v):
                          f"shape, got {q.shape}, {k.shape}, {v.shape}")
 
 
-#: streaming multiprocessors of the H100 SXM, which K1's and K3's grids
-#: should fill
-SMS = 132
+#: streaming multiprocessors of the H100 SXM: the count the grid sizes
+#: below are stated and tested at; a launch reads its card's own
+#: (``sm_count``)
+H100_SXM_SMS = 132
 
 
-def query_tile_rows(b, h, t):
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device):
+    """The streaming multiprocessors of CUDA ``device``, which K1's, K2's
+    and K3's grids should fill (132 on an H100 SXM, 114 on an H100
+    PCIe); read from the card once per device."""
+    device = torch.device(device)
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _sm_count(index)
+
+
+def query_tile_rows(b, h, t, sms=H100_SXM_SMS):
     """K1's query rows a block: 64 (four warps), or 16 (one warp) when the
-    64-row grid of ``b * h * ceil(t / 64)`` blocks would leave SMs idle,
-    as at B1 T200 H12 (48 blocks; 156 with 16 rows)."""
-    return 16 if b * h * -(-t // 64) < SMS else 64
+    64-row grid of ``b * h * ceil(t / 64)`` blocks would leave some of the
+    ``sms`` SMs idle, as at B1 T200 H12 on 132 (48 blocks; 156 with 16
+    rows)."""
+    return 16 if b * h * -(-t // 64) < sms else 64
 
 
-#: key positions a tile of K3/K3q (``kPgTile`` in csrc/flash_attention.cu)
+#: key positions a tile of K2/K3/K3q (``kPgTile`` in
+#: csrc/flash_attention.cu)
 DECODE_TILE = 32
-#: K3/K3q's largest split count: the portable thread-block cluster size
+#: K2/K3/K3q's largest split count: the portable thread-block cluster size
 DECODE_MAX_SPLITS = 8
 
 
-def decode_splits(bh, limit):
-    """K3/K3q's split count S: each of the ``bh = B * H`` rows is read by
-    the S blocks of one cluster, each taking every S-th tile of the row's
-    visible positions.  About three blocks an SM, ``3 * SMS // bh`` (the
-    kernels' 48 KB ring lets three share an SM), from 1 to
-    ``DECODE_MAX_SPLITS``, and no more than the tiles of the addressable
-    length ``limit = tables.shape[1] * bs``: B8 H12 gives 4 (384 blocks
-    on 132 SMs)."""
+def decode_splits(bh, limit, sms=H100_SXM_SMS):
+    """The split count S of K2, K3 and K3q: each of the ``bh = B * H`` rows
+    is read by the S blocks of one cluster, each taking every S-th tile of
+    the row's visible positions.  About three blocks an SM,
+    ``3 * sms // bh`` (the kernels' 48 KB ring lets three share an SM),
+    from 1 to ``DECODE_MAX_SPLITS``, and no more than the tiles of the
+    addressable length ``limit`` (K2: the cache's T; K3:
+    ``tables.shape[1] * bs``).  On 132 SMs, B8 H12 gives 4 (384 blocks),
+    B9 H12 3 (324) and B1 H12 8; on 114 SMs (H100 PCIe) B8 H12 gives 3,
+    short of the residency cliff that 4 would cross there.  One rule
+    serves all three kernels: forced from 1 to 8 on the H100
+    (``tools/torch_decode_splits.py``), K2 and K3 rank the split counts
+    alike at the same B * H, at 8 rows and at 9."""
     tiles = -(-limit // DECODE_TILE)
-    return max(1, min(DECODE_MAX_SPLITS, 3 * SMS // max(bh, 1), tiles))
+    return max(1, min(DECODE_MAX_SPLITS, 3 * sms // max(bh, 1), tiles))
 
 
 def _flash_forward(q, k, v, causal, with_lse):
@@ -229,7 +254,8 @@ def _flash_forward(q, k, v, causal, with_lse):
     rc = _build.load().bigdl_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], b, t, h, d, _strides(*s),
-        int(bool(causal)) | (2 if query_tile_rows(b, h, t) == 16 else 0),
+        int(bool(causal))
+        | (2 if query_tile_rows(b, h, t, sm_count(q.device)) == 16 else 0),
         1.0 / math.sqrt(d), None if lse is None else lse.data_ptr(),
         _stream())
     _raise_on(rc, "flash_attention")
@@ -316,7 +342,9 @@ def flash_attention(q, k, v, causal=True):
 
 def flash_decode_attention(q, k, v, pos):
     """q ``(B, 1, H, D)`` against a cache ``k, v (B, T, H, D)`` with
-    frontier positions ``pos (B,)`` int32 -> ``(B, 1, H, D)``."""
+    frontier positions ``pos (B,)`` int32 -> ``(B, 1, H, D)``.  Only the
+    ``min(pos + 1, T)`` visible positions of a row are read, by the
+    ``decode_splits`` blocks of one cluster."""
     if _on_cpu(q, k, v, pos):
         return flash_decode_attention_reference(q, k, v, pos)
     name = "flash_decode_attention"
@@ -332,10 +360,12 @@ def flash_decode_attention(q, k, v, pos):
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     s = (q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
          out.stride(0), out.stride(2))
+    t = k.shape[1]
     rc = _build.load().bigdl_flash_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        pos.data_ptr(), _DTYPES[q.dtype], b, h, d, k.shape[1],
-        _strides(*s), 1.0 / math.sqrt(d), _stream())
+        pos.data_ptr(), _DTYPES[q.dtype], b, h, d, t, _strides(*s),
+        1.0 / math.sqrt(d), decode_splits(b * h, t, sm_count(q.device)),
+        _stream())
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -383,7 +413,8 @@ def flash_paged_decode_attention(q, k_pool, v_pool, tables, pos,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), _DTYPES[q.dtype], b, h, d, nb,
         bs, tables.shape[1], tables.stride(0), _strides(*s),
-        1.0 / math.sqrt(d), decode_splits(b * h, tables.shape[1] * bs),
+        1.0 / math.sqrt(d),
+        decode_splits(b * h, tables.shape[1] * bs, sm_count(q.device)),
         _stream())
     _raise_on(rc, name)
     LAUNCHES[name] += 1
@@ -418,7 +449,8 @@ def _paged_decode_int8(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
         k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), _DTYPES[q.dtype], b, h, d, nb,
         bs, tables.shape[1], tables.stride(0), _strides(*s),
-        1.0 / math.sqrt(d), decode_splits(b * h, tables.shape[1] * bs),
+        1.0 / math.sqrt(d),
+        decode_splits(b * h, tables.shape[1] * bs, sm_count(q.device)),
         _stream())
     _raise_on(rc, name)
     LAUNCHES[name] += 1

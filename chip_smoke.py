@@ -18,10 +18,11 @@ Phases, each printing JSON lines:
    plain and library device times (CUDA-graph replays, so no host work
    sits between launches) and the least time the card could take (K1
    also at the training step's B8 T1024; K1 and K1-bwd bounded by the
-   3xTF32 tensor-core rate, 495/3 TFLOP/s); K3's rows give their split
-   count and cluster shape, and an empty kernel launched as K3 is (and
-   one of a single block) gives the launch's fixed cost, the floor under
-   K3's and K3q's times;
+   3xTF32 tensor-core rate, 495/3 TFLOP/s); K2's and K3's rows give
+   their split count (from the card's SM count) and cluster shape, and
+   an empty kernel launched as K2 is and as K3 is (and one of a single
+   block) gives each launch's fixed cost, the floor under K2's, K3's and
+   K3q's times;
 4. end to end: TransformerLM "small" (random weights from a seed) served
    by three engines -- paged (kernels), contiguous (kernels) and paged
    with the plain attention -- on the same greedy prompts, plus sampled
@@ -321,10 +322,13 @@ def kernel_phase(fa, card):
     row_bytes = HEADS * HEAD_DIM * 4
     bms, by = bound(2 * vis * row_bytes + 2 * b * row_bytes + 4 * b,
                     4 * vis * HEADS * HEAD_DIM)
+    sms = fa.sm_count(dev)
+    k2_grid = (b * HEADS, fa.decode_splits(b * HEADS, t, sms))
     rows["flash_decode_attention"] = dict(
         name="flash_decode_attention", case="B9_T1024", max_abs_err=err,
-        ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
-        card=card)
+        ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain, bound_ms=bms,
+        bound_by=by, library_ms=lib, splits=k2_grid[1],
+        cluster=[k2_grid[1], 1, 1], sms=sms, card=card)
     emit({"phase": "kernel", **rows["flash_decode_attention"]})
 
     # K3: 8 rows over pools sized like the engine's default, shuffled
@@ -356,7 +360,7 @@ def kernel_phase(fa, card):
         vis = int((pos.long() + 1).sum())
         bms, by = bound(2 * vis * row_bytes + 2 * b * row_bytes + 4 * b
                         + 4 * int(used.sum()), 4 * vis * HEADS * HEAD_DIM)
-        splits = fa.decode_splits(b * HEADS, mb * bs)
+        splits = fa.decode_splits(b * HEADS, mb * bs, sms)
         # no single PyTorch call reads K/V through block tables
         row = dict(name="flash_paged_decode_attention", case=f"B8_bs{bs}",
                    max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,
@@ -365,7 +369,9 @@ def kernel_phase(fa, card):
                    cluster=[splits, 1, 1], card=card)
         emit({"phase": "kernel", **row})
         rows.setdefault("flash_paged_decode_attention", row)
-    empty_kernel_floor(card, b * HEADS, fa.decode_splits(b * HEADS, max_len))
+    empty_kernel_floor(card, {
+        "K2": k2_grid,
+        "K3": (b * HEADS, fa.decode_splits(b * HEADS, max_len, sms))})
 
     # K1 at the training step's shape, last: its inputs and its plain
     # version's (B, H, T, T) temporaries would otherwise change what the
@@ -375,8 +381,8 @@ def kernel_phase(fa, card):
 
 
 def launch_empty_kernel(clusters, splits):
-    """One launch of an empty kernel of K3's block width as K3 is
-    launched: ``clusters`` clusters of ``splits`` blocks."""
+    """One launch of an empty kernel of K2's and K3's block width as they
+    are launched: ``clusters`` clusters of ``splits`` blocks."""
     from bigdl_tpu_torch.ops import _build
 
     rc = _build.load().bigdl_empty_cluster_launch(
@@ -386,12 +392,13 @@ def launch_empty_kernel(clusters, splits):
         raise RuntimeError(f"empty cluster launch failed ({rc})")
 
 
-def empty_kernel_floor(card, clusters, splits):
+def empty_kernel_floor(card, grids):
     """The fixed cost of a launch in phase 3's graph harness: the empty
-    kernel in K3's grid (``clusters`` clusters of ``splits`` blocks) and
-    in a single block."""
-    for c, s, case in ((1, 1, "one_block"),
-                       (clusters, splits, f"K3_grid_{clusters}x{splits}")):
+    kernel in a single block and in each of ``grids`` (kernel label ->
+    ``(clusters, splits)``: clusters of splits blocks)."""
+    cases = [(1, 1, "one_block")] + [
+        (c, s, f"{label}_grid_{c}x{s}") for label, (c, s) in grids.items()]
+    for c, s, case in cases:
         ms, lo, hi = device_ms(lambda: launch_empty_kernel(c, s))
         emit({"phase": "kernel_floor", "name": "empty_kernel", "case": case,
               "clusters": c, "splits": s, "ms": ms, "ms_min": lo,
@@ -883,7 +890,7 @@ def int8_kernel_phase(fa, card):
         n_bytes = 2 * vis * HEADS * (HEAD_DIM + 4) \
             + 2 * b * HEADS * HEAD_DIM * 4 + 4 * b + 4 * int(used.sum())
         bms, by = bound(n_bytes, 4 * vis * HEADS * HEAD_DIM)
-        splits = fa.decode_splits(b * HEADS, mb * bs)
+        splits = fa.decode_splits(b * HEADS, mb * bs, fa.sm_count(dev))
         # no PyTorch call reads int8 K/V through block tables
         r = dict(name="flash_paged_decode_attention_int8", case=f"B8_bs{bs}",
                  max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,

@@ -70,7 +70,7 @@ def _qkv_views(buf, h, d):
 def test_flash_attention_kernel(cuda, monkeypatch, causal, d, dtype, rows):
     """K1 on both query tile sizes (the wrapper's choice forced), at every
     length of ``ATTN_T``."""
-    monkeypatch.setattr(fa, "query_tile_rows", lambda b, h, t: rows)
+    monkeypatch.setattr(fa, "query_tile_rows", lambda b, h, t, sms: rows)
     h = 3
     for t in ATTN_T:
         g = torch.Generator(device=cuda).manual_seed(t + d)
@@ -129,8 +129,107 @@ def test_flash_decode_kernel(cuda, dtype, d, t):
     _close(got, fa.flash_decode_attention_reference(q, k, v, pos), dtype)
 
 
-#: the split counts K3/K3q are forced to: one cluster of S blocks a row
+#: the split counts K2/K3/K3q are forced to: one cluster of S blocks a row
 SPLITS = range(1, fa.DECODE_MAX_SPLITS + 1)
+#: K2's cache lengths: one position, both sides of a 32-position tile,
+#: a ragged and a whole multiple of the tile, and past the engine's 1024
+DECODE_T = [1, 31, 32, 33, 1000, 1024, 4096]
+
+
+def _decode_frontiers(g, b, t, cuda):
+    """pos (B,) int32 for a cache of ``t``: -1 (nothing visible), 0, both
+    sides of a tile edge, the last position, past it (the kernel clamps
+    to ``t``), the rest random."""
+    pos = torch.randint(0, t, (b,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    edges = torch.tensor([-1, 0, 31, 32, 33, t - 1, t, t + 40], device=cuda)
+    pos[:len(edges)] = edges.clamp(min=-1, max=t + 40).to(torch.int32)
+    return pos
+
+
+def _strided_cache(g, b, t, h, d, dtype, cuda):
+    """k, v as views of one (B, T + 7, 2, H, D) buffer, rows 3 to T + 3:
+    strided on every axis but the last, as a slice of a larger cache."""
+    buf = _rand(g, (b, t + 7, 2, h, d), dtype, cuda)[:, 3:t + 3]
+    return buf[:, :, 0], buf[:, :, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_decode_split_kernel(cuda, monkeypatch, dtype, d):
+    """K2 against its plain version with the split count forced from 1 to
+    8 (``decode_splits``), at every length of ``DECODE_T``, on a strided
+    view of a cache, with frontiers at -1, 0, on a tile edge, at the last
+    position and past it.  Positions past each row's frontier then hold
+    NaN, which the kernel must never read.  One launch a call."""
+    b, h = 10, 3
+    for t in DECODE_T:
+        for splits in SPLITS:
+            monkeypatch.setattr(fa, "decode_splits",
+                                lambda bh, limit, sms: splits)
+            g = torch.Generator(device=cuda).manual_seed(t + d + splits)
+            k, v = _strided_cache(g, b, t, h, d, dtype, cuda)
+            pos = _decode_frontiers(g, b, t, cuda)
+            q = _rand(g, (b, 1, h, d), dtype, cuda)
+            want = fa.flash_decode_attention_reference(q, k, v, pos)
+            hidden = torch.arange(t, device=cuda)[None, :] > pos[:, None]
+            k[hidden], v[hidden] = float("nan"), float("nan")
+            before = fa.LAUNCHES["flash_decode_attention"]
+            got = fa.flash_decode_attention(q, k, v, pos)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES["flash_decode_attention"] == before + 1
+            _close(got, want, dtype, f"T {t} S {splits}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_kernel_is_deterministic(cuda, monkeypatch, dtype):
+    """K2 merges its splits in rank order inside the cluster: two calls
+    agree bit for bit, at the engine's split count (B9 H12) and at 8."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    b, t, h, d = 9, 1024, 12, 64
+    k, v = _strided_cache(g, b, t, h, d, dtype, cuda)
+    pos = _decode_frontiers(g, b, t, cuda)
+    q = _rand(g, (b, 1, h, d), dtype, cuda)
+    for splits in (fa.decode_splits(b * h, t), 8):
+        monkeypatch.setattr(fa, "decode_splits",
+                            lambda bh, limit, sms: splits)
+        assert torch.equal(fa.flash_decode_attention(q, k, v, pos),
+                           fa.flash_decode_attention(q, k, v, pos))
+
+
+@pytest.mark.cuda
+def test_flash_decode_raises_when_the_cluster_launch_is_refused(
+        cuda, monkeypatch):
+    """K2 with 9 splits (past the portable cluster size) is refused, and
+    the wrapper raises rather than fall back."""
+    monkeypatch.setattr(fa, "decode_splits", lambda bh, limit, sms: 9)
+    q = torch.zeros((2, 1, 2, 64), device=cuda)
+    k = torch.zeros((2, 300, 2, 64), device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_decode_attention(q, k, k, pos)
+    assert fa.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_contiguous_engine_decodes_through_k2_and_never_k3(cuda):
+    from bigdl_tpu_torch.nn import TransformerLM
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    model = TransformerLM(64, 64, 4, 2, max_len=64, device=cuda)
+    before = dict(fa.LAUNCHES)
+    with ServingEngine(model, decode_slots=2, decode_max_len=48,
+                       kv_cache="contiguous", device=cuda) as eng:
+        out = eng.generate([1, 2, 3, 4, 5], max_new_tokens=6).result(120)
+    assert len(out) == 6
+    assert fa.LAUNCHES["flash_decode_attention"] >= \
+        before["flash_decode_attention"] + 5
+    for name in ("flash_paged_decode_attention",
+                 "flash_paged_decode_attention_int8"):
+        assert fa.LAUNCHES[name] == before[name]
 
 
 def _frontiers(g, b, bs, limit, cuda):
@@ -170,7 +269,7 @@ def test_flash_paged_decode_kernel(cuda, monkeypatch, dtype, d, bs):
         nb = b * mb + 1
         for splits in SPLITS:
             monkeypatch.setattr(fa, "decode_splits",
-                                lambda bh, limit: splits)
+                                lambda bh, limit, sms: splits)
             g = torch.Generator(device=cuda).manual_seed(bs + d + splits)
             kp, vp = (_rand(g, (nb, bs, h, d), dtype, cuda)
                       for _ in range(2))
@@ -218,7 +317,7 @@ def test_flash_paged_decode_int8_kernel(cuda, monkeypatch, dtype, d, bs):
         trash = nb - 1
         for splits in SPLITS:
             monkeypatch.setattr(fa, "decode_splits",
-                                lambda bh, limit: splits)
+                                lambda bh, limit, sms: splits)
             g = torch.Generator(device=cuda).manual_seed(3 * bs + d + splits)
             k8, ks, v8, vs = _int8_pools(g, (nb, bs, h, d), cuda)
             k8[trash], v8[trash] = 127, -127
@@ -258,7 +357,8 @@ def test_paged_decode_kernels_are_deterministic(cuda, monkeypatch, dtype):
     tables = _tables(g, b, mb, nb, bs, pos, cuda)
     q = _rand(g, (b, 1, h, d), dtype, cuda)
     for splits in (fa.decode_splits(b * h, mb * bs), 8):
-        monkeypatch.setattr(fa, "decode_splits", lambda bh, limit: splits)
+        monkeypatch.setattr(fa, "decode_splits",
+                            lambda bh, limit, sms: splits)
         for call in (
                 lambda: fa.flash_paged_decode_attention(q, kp, vp, tables,
                                                         pos),
@@ -273,7 +373,7 @@ def test_paged_decode_raises_when_the_cluster_launch_is_refused(
     """A split count the kernel does not take (9: past the portable
     cluster size) is refused by the launch, and the wrapper raises rather
     than fall back."""
-    monkeypatch.setattr(fa, "decode_splits", lambda bh, limit: 9)
+    monkeypatch.setattr(fa, "decode_splits", lambda bh, limit, sms: 9)
     q = torch.zeros((2, 1, 2, 64), device=cuda)
     pool = torch.zeros((3, 4, 2, 64), device=cuda)
     tables = torch.zeros((2, 1), dtype=torch.int32, device=cuda)

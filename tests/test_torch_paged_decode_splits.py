@@ -1,4 +1,4 @@
-"""K3 / K3q's split-KV design (``csrc/flash_attention.cu``
+"""The split-KV design of K2, K3 and K3q (``csrc/flash_attention.cu``
 ``paged_decode_kernel``), checked on the CPU.
 
 The kernel reads each (b, h) row's visible positions with the S blocks
@@ -18,9 +18,19 @@ the plain versions (the Pallas paged kernel does not trace on the
 installed JAX).  Inputs come from a numpy seed: frontiers at 0, at every
 tile and page edge and at the last addressable position; rows so short
 that most splits are empty; table entries past the frontier naming a
-trash block of large values.  The wrapper's split choice
-(``ops.flash_attention.decode_splits``) is pinned at the engine's
-shapes.  The kernel itself is tested on the card by
+trash block of large values.
+
+K2 (``PAGED=false``) reads a contiguous ``(B, T, H, D)`` cache with the
+same tiles, warps and merge; its emulation (``emulated_decode``) is held
+within 1e-5 of the JAX package's Pallas kernel,
+``flash_decode_attention(..., interpret=True)``, for S 1-8 and caches
+of 1 to 1024 positions, with frontiers at -1, at 0, on every tile edge,
+at T - 1 and past the cache (where the kernel clamps to T).
+
+The wrapper's split choice (``ops.flash_attention.decode_splits``) is
+pinned at the engines' shapes for 132 SMs (the H100 SXM) and 114 (the
+H100 PCIe), and the SM count is read from the card once per device.
+The kernel itself is tested on the card by
 ``tests/test_torch_cuda_kernels.py``.
 """
 
@@ -28,6 +38,7 @@ import functools
 import math
 import pathlib
 import re
+import types
 
 import numpy as np
 import pytest
@@ -37,7 +48,10 @@ import torch
 
 from bigdl_tpu.nn.attention import MultiHeadAttention as JaxMHA
 from bigdl_tpu.nn.attention import dot_product_attention as jax_dpa
+from bigdl_tpu.ops.flash_attention import flash_decode_attention as \
+    jax_decode
 from bigdl_tpu.ops.quantization import quantize_blockwise as jax_quant
+from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops import flash_attention as fa
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -115,17 +129,14 @@ def _merge(m, l, acc):
     return mg, lt, at
 
 
-def emulated_paged_decode(q, k_pool, v_pool, tables, pos, splits,
-                          k_scale=None, v_scale=None):
-    """``paged_decode_kernel``'s arithmetic in plain PyTorch (fp32):
-    q ``(B, 1, H, D)``, pools ``(NB, bs, H, D)`` (int8 with ``(NB, bs, H,
-    1)`` scales), tables ``(B, MB)``, pos ``(B,)`` -> ``(B, 1, H, D)``."""
+def _emulated_split_kv(q, n_vis, read_tile, splits, quant=False):
+    """The split-KV arithmetic shared by ``paged_decode_kernel``'s K2, K3
+    and K3q instantiations, in plain PyTorch (fp32): q ``(B, 1, H, D)``,
+    ``n_vis (B,)`` visible positions a row, ``read_tile(kpos, vis)`` ->
+    the tile's K and V ``(B, TILE, H, D)`` (zeros past the frontier, never
+    read) and, for int8, their scales ``(B, TILE, H)``."""
     b, _, h, d = q.shape
-    nb, bs = k_pool.shape[:2]
-    mb = tables.shape[1]
     keys = TILE // WARPS
-    quant = k_scale is not None
-    n_vis = (pos.long() + 1).clamp(0, mb * bs)
     n_tiles = (n_vis + TILE - 1) // TILE
     qs = q[:, 0].float() * (1.0 / math.sqrt(d))
     parts = []
@@ -138,18 +149,10 @@ def emulated_paged_decode(q, k_pool, v_pool, tables, pos, splits,
             live = (t < n_tiles)[:, None, None]
             kpos = t * TILE + torch.arange(TILE)
             vis = kpos[None, :] < n_vis[:, None]              # (B, TILE)
-            page = (kpos // bs).clamp(max=mb - 1)
-            bid = tables.long()[:, page].clamp(0, nb - 1)
-            off = kpos % bs
-            # positions past the frontier are zero-filled, never read
-            kt = torch.where(vis[..., None, None], k_pool[bid, off].float(),
-                             0.0)
-            vt = torch.where(vis[..., None, None], v_pool[bid, off].float(),
-                             0.0)
+            kt, vt, ks, vs = read_tile(kpos, vis)
             s = torch.einsum("bhd,bthd->bth", qs, kt)
             if quant:   # the K scale on the finished dot product
-                s = s * torch.where(vis[..., None], k_scale[bid, off, :, 0],
-                                    0.0)
+                s = s * ks
             s = torch.where(vis[..., None], s, -math.inf)
             s = s.reshape(b, WARPS, keys, h)
             new_m = torch.maximum(m, s.amax(2))
@@ -160,8 +163,7 @@ def emulated_paged_decode(q, k_pool, v_pool, tables, pos, splits,
             p = torch.exp(s - sm[:, :, None])
             pv = p
             if quant:   # the V scale folded into p
-                pv = p * torch.where(vis[..., None], v_scale[bid, off, :, 0],
-                                     0.0).reshape(b, WARPS, keys, h)
+                pv = p * vs.reshape(b, WARPS, keys, h)
             l2 = l * corr + p.sum(2)
             acc2 = acc * corr[..., None] + torch.einsum(
                 "bwkh,bwkhd->bwhd", pv, vt.reshape(b, WARPS, keys, h, d))
@@ -171,6 +173,50 @@ def emulated_paged_decode(q, k_pool, v_pool, tables, pos, splits,
         parts.append(_merge(m, l, acc))          # the block's warps
     m, l, acc = _merge(*(torch.stack(x, 1) for x in zip(*parts)))
     return (acc / l.clamp_min(1e-30)[..., None])[:, None]
+
+
+def emulated_paged_decode(q, k_pool, v_pool, tables, pos, splits,
+                          k_scale=None, v_scale=None):
+    """``paged_decode_kernel``'s arithmetic (K3, K3q) in plain PyTorch
+    (fp32): q ``(B, 1, H, D)``, pools ``(NB, bs, H, D)`` (int8 with
+    ``(NB, bs, H, 1)`` scales), tables ``(B, MB)``, pos ``(B,)`` ->
+    ``(B, 1, H, D)``."""
+    nb, bs = k_pool.shape[:2]
+    mb = tables.shape[1]
+    quant = k_scale is not None
+
+    def read_tile(kpos, vis):
+        page = (kpos // bs).clamp(max=mb - 1)
+        bid = tables.long()[:, page].clamp(0, nb - 1)
+        off = kpos % bs
+        # positions past the frontier are zero-filled, never read
+        kt = torch.where(vis[..., None, None], k_pool[bid, off].float(), 0.0)
+        vt = torch.where(vis[..., None, None], v_pool[bid, off].float(), 0.0)
+        if not quant:
+            return kt, vt, None, None
+        return (kt, vt,
+                torch.where(vis[..., None], k_scale[bid, off, :, 0], 0.0),
+                torch.where(vis[..., None], v_scale[bid, off, :, 0], 0.0))
+
+    n_vis = (pos.long() + 1).clamp(0, mb * bs)
+    return _emulated_split_kv(q, n_vis, read_tile, splits, quant)
+
+
+def emulated_decode(q, k, v, pos, splits):
+    """``paged_decode_kernel<PAGED=false>``'s arithmetic (K2) in plain
+    PyTorch (fp32): q ``(B, 1, H, D)`` against a contiguous cache ``k, v
+    (B, T, H, D)`` at frontiers ``pos (B,)`` -> ``(B, 1, H, D)``.
+    Position kp of row b is ``k[b, kp]``; no tables."""
+    t = k.shape[1]
+
+    def read_tile(kpos, vis):
+        at = kpos.clamp(max=max(t - 1, 0))
+        return (torch.where(vis[..., None, None], k[:, at].float(), 0.0),
+                torch.where(vis[..., None, None], v[:, at].float(), 0.0),
+                None, None)
+
+    n_vis = (pos.long() + 1).clamp(0, t)
+    return _emulated_split_kv(q, n_vis, read_tile, splits)
 
 
 def _frontiers(bs, limit):
@@ -256,3 +302,149 @@ def test_split_and_merge_match_the_jax_gather_path(bs, quant, splits):
     n_vis = np.minimum(pos + 1, tables.shape[1] * bs)
     assert splits == 1 or any(not split_tiles(n, splits, splits - 1)
                               for n in n_vis)
+
+
+# --------------------------------------------------------------------------- #
+# K2: the contiguous cache
+# --------------------------------------------------------------------------- #
+
+#: K2's cache lengths: one position, both sides of a tile edge, a ragged
+#: and a whole multiple of the tile (the engine's 1024)
+DECODE_T = (1, 31, 32, 33, 1000, 1024)
+
+
+def _decode_frontiers(t):
+    """-1 (nothing visible), 0, both sides of every tile edge, T - 1, and
+    past the cache (T, T + 5)."""
+    edges = {-1, 0, t - 1, t, t + 5}
+    for e in range(TILE, t, TILE):
+        edges |= {e - 1, e}
+    return np.array(sorted(edges), np.int32)
+
+
+def _jax_block_k(t):
+    """The largest key block up to the TPU kernel's 128 that divides T
+    (the Pallas kernel needs ``T % block_k == 0``)."""
+    return next(bk for bk in range(min(128, t), 0, -1) if t % bk == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_case(t):
+    """One numpy-seeded batch for a cache of ``t`` positions, a row at
+    every frontier of ``_decode_frontiers``, and the Pallas kernel's
+    output on it.  Past the cache the TPU kernel would read its last block
+    again; the port clamps the frontier to T - 1 (every position
+    visible), so the reference for those rows is the Pallas kernel at
+    T - 1."""
+    rng = np.random.default_rng(7000 + t)
+    pos = _decode_frontiers(t)
+    b = len(pos)
+    q = rng.standard_normal((b, 1, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((b, t, H, D)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(jax_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(np.minimum(pos, t - 1)), block_k=_jax_block_k(t),
+        interpret=True))
+    return q, k, v, pos, want
+
+
+@pytest.mark.parametrize("splits", range(1, fa.DECODE_MAX_SPLITS + 1))
+@pytest.mark.parametrize("t", DECODE_T)
+def test_contiguous_split_and_merge_match_jax_flash_decode(t, splits):
+    q, k, v, pos, want = _decode_case(t)
+    args = [torch.from_numpy(x) for x in (q, k, v, pos)]
+    got = emulated_decode(*args, splits)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(fa.flash_decode_attention(*args).numpy(),
+                               want, **TOL)
+    # rows of one tile or none leave every split but the first empty
+    n_vis = np.clip(pos + 1, 0, t)
+    assert splits == 1 or any(not split_tiles(n, splits, splits - 1)
+                              for n in n_vis)
+
+
+@pytest.mark.parametrize("b,t,sms,splits", [
+    (9, 1024, 132, 3),   # the contiguous engine: 8 slots + the trash row
+    (8, 1024, 132, 4),   # the paged engines
+    (1, 1024, 132, 8),   # one request
+    (9, 1024, 114, 3),   # H100 PCIe
+    (8, 1024, 114, 3),   # short of the cliff that 4 would cross there
+    (1, 1024, 114, 8),
+    (9, 33, 132, 2),     # two tiles addressable
+    (9, 32, 132, 1),
+    (9, 1, 132, 1),
+])
+def test_decode_split_count_at_the_engine_shapes(b, t, sms, splits):
+    """K2 and K3 take one rule, ``decode_splits(B * H, limit, sms)``, at
+    H 12."""
+    assert fa.decode_splits(b * 12, t, sms) == splits
+
+
+def test_sm_count_is_read_from_the_card_once_per_device(monkeypatch):
+    calls = []
+
+    def properties(index):
+        calls.append(index)
+        return types.SimpleNamespace(
+            multi_processor_count={0: 132, 1: 114}[index])
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", properties)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    fa._sm_count.cache_clear()
+    try:
+        assert fa.sm_count(torch.device("cuda", 1)) == 114
+        assert fa.sm_count("cuda:0") == 132
+        assert fa.sm_count("cuda") == 114      # the current device
+        assert fa.sm_count("cuda:0") == 132
+        assert calls == [1, 0]
+    finally:
+        fa._sm_count.cache_clear()
+
+
+def _c_parameters(name):
+    """The parameter count of a C entry point in ``csrc/``."""
+    for src in _build.SOURCES:
+        m = re.search(rf"\bint {name}\(([^)]*)\)", src.read_text())
+        if m:
+            return len(m.group(1).split(","))
+    raise AssertionError(f"no entry point {name}")
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Every binding declares as many arguments as its C entry point
+    takes (K2's now ends in its split count and the stream)."""
+    class Library:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    ns = _build._declare([Library()])
+    for name, fn in vars(ns).items():
+        assert len(fn.argtypes) == _c_parameters(name), name
+
+
+def test_k2_wrapper_passes_the_card_split_count(monkeypatch):
+    """On a card the wrapper launches K2 once with
+    ``decode_splits(B * H, T, sm_count(device))`` blocks a row: a stand-in
+    library records the launch (no card here)."""
+    seen = []
+
+    def launch(*args):
+        seen.append(args)
+        return 0
+
+    monkeypatch.setattr(fa, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(fa, "_stream", lambda: None)
+    monkeypatch.setattr(fa, "sm_count", lambda device: 114)
+    monkeypatch.setattr(_build, "load", lambda: types.SimpleNamespace(
+        bigdl_flash_decode_attention=launch))
+    monkeypatch.setattr(fa, "LAUNCHES", dict(fa.LAUNCHES))
+    b, t, h, d = 8, 1024, 12, 16
+    q = torch.zeros((b, 1, h, d))
+    k = torch.zeros((b, t, h, d))
+    fa.flash_decode_attention(q, k, k, torch.zeros(b, dtype=torch.int32))
+    assert len(seen) == 1 and fa.LAUNCHES["flash_decode_attention"] == 1
+    assert seen[0][9] == t and seen[0][-2] == 3     # 4 on 132 SMs

@@ -15,11 +15,19 @@ causal, q/k/v views of one fused buffer) through the checkout's own
 wrappers, so that a checkout without a row still gets it timed: device
 time from CUDA-graph replays.
 Prints one JSON line per checkout, with the card's name and power limit:
-``{"checkout": ..., "card": ..., "<kernel>_<case>": ms, ...}``.  Needs a
+``{"checkout": ..., "card": ..., "<kernel>_<case>": ms, ...}``.  Then,
+for each checkout after the first, one line comparing the SASS of every
+attention kernel instantiation it shares with the first (``cuobjdump
+-sass`` of each checkout's ``flash_attention`` library; the split-KV
+kernel's ``PAGED = true`` flag is dropped from its name, so K3 and K3q
+of a checkout that has the flag meet those of one that has not):
+``{"sass_vs": ..., "identical": [...], "differ": {name: [line, first's,
+other's]}, ...}``, SASS compared with its padding collapsed.  Needs a
 CUDA card.
 """
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -77,6 +85,49 @@ def one(root):
                       **attention_rows(cs, fa)}), flush=True)
 
 
+#: nvcc's name for a source's anonymous namespace, which differs between
+#: checkouts of different sources
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+
+
+def sass_bodies(root):
+    """Each kernel instantiation's SASS in a checkout's built
+    ``flash_attention`` library, by name (``paged_decode_kernel<fLi64ELb0>``
+    for a mangled name with plain template arguments, ``PAGED = true``
+    dropped)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+    from bigdl_tpu_torch.ops import _build
+
+    lib, = (p for p in (Path(root) / "build" /
+                        "bigdl_tpu_torch_kernels").iterdir()
+            if re.fullmatch(r"libflash_attention_[0-9a-f]{16}\.so", p.name))
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    bodies, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = cs.kernel_name(ANON.sub(
+                "_GLOBAL__N_", line.split("Function :")[-1].strip()))
+            name = re.sub(r"^(paged_decode_kernel<\w+Lb[01])ELb1>$", r"\1>",
+                          name)
+            bodies[name] = []
+        elif name is not None:
+            # the anonymous namespace's name carries a hash of the source,
+            # and cuobjdump pads columns to the longest name
+            bodies[name].append(" ".join(ANON.sub("_GLOBAL__N_",
+                                                  line).split()))
+    return bodies
+
+
+def first_difference(a, b):
+    """The first pair of SASS lines where two bodies part."""
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    return [i, a[i] if i < len(a) else None, b[i] if i < len(b) else None]
+
+
 def main(argv):
     if len(argv) == 2 and argv[0] == "--one":
         one(argv[1])
@@ -86,6 +137,18 @@ def main(argv):
         return 2
     for root in argv:
         subprocess.run([sys.executable, __file__, "--one", root], check=True)
+    first = sass_bodies(argv[0])
+    for root in dict.fromkeys(argv[1:]):
+        other = sass_bodies(root)
+        shared = sorted(set(first) & set(other))
+        print(json.dumps({
+            "sass_vs": [str(Path(argv[0]).resolve()),
+                        str(Path(root).resolve())],
+            "identical": [k for k in shared if first[k] == other[k]],
+            "differ": {k: first_difference(first[k], other[k])
+                       for k in shared if first[k] != other[k]},
+            "only_first": sorted(set(first) - set(other)),
+            "only_other": sorted(set(other) - set(first))}), flush=True)
     return 0
 
 
