@@ -8,11 +8,12 @@ from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                           FusedSoftmaxCrossEntropyCriterion,
                                           TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.linear import Linear
-from bigdl_tpu_torch.nn.module import Container, Criterion, Module
+from bigdl_tpu_torch.nn.module import (Container, Criterion, Module,
+                                       frozen_param_mask, has_frozen)
 from bigdl_tpu_torch.nn.normalization import LayerNorm
 
 __all__ = ["ClassNLLCriterion", "Container", "Criterion",
            "CrossEntropyCriterion", "FusedSoftmaxCrossEntropyCriterion",
            "LayerNorm", "Linear", "Module", "MultiHeadAttention",
            "TimeDistributedCriterion", "TransformerBlock", "TransformerLM",
-           "dot_product_attention"]
+           "dot_product_attention", "frozen_param_mask", "has_frozen"]

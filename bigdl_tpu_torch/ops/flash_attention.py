@@ -20,7 +20,8 @@ Counterpart of ``bigdl_tpu/ops/flash_attention.py``, with the same
 Each wrapper sends a CPU tensor to its ``*_reference`` version and a CUDA
 tensor to its kernel; it raises on anything the kernel does not take
 (there is no fallback).  ``LAUNCHES`` counts kernel launches per wrapper,
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels, and
+``BF16_LAUNCHES`` the bf16 share of K1's and K1-bwd's.
 
 Unlike the TPU kernels, the CUDA kernels mask ragged edges themselves:
 any sequence length, cache length and block size is taken.
@@ -39,13 +40,23 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
             "flash_decode_attention": 0, "flash_paged_decode_attention": 0,
             "flash_paged_decode_attention_int8": 0}
 
+#: of ``LAUNCHES``, those with bf16 inputs (the m16n8k16 instantiations)
+BF16_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BF16_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count_launch(name, dtype):
+    LAUNCHES[name] += 1
+    if dtype == torch.bfloat16 and name in BF16_LAUNCHES:
+        BF16_LAUNCHES[name] += 1
 
 
 # --------------------------------------------------------------------------- #
@@ -137,7 +148,8 @@ def _check_float(name, *ts):
     dt = ts[0].dtype
     if dt not in _DTYPES or any(t.dtype != dt for t in ts):
         raise TypeError(f"{name}: need float32 or bfloat16 inputs of one "
-                        f"dtype, got {[t.dtype for t in ts]}")
+                        f"dtype, got {[t.dtype for t in ts]} (no kernel "
+                        f"takes float16: ROADMAP A1)")
     d = ts[0].shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {d} has no kernel "
@@ -259,7 +271,7 @@ def _flash_forward(q, k, v, causal, with_lse):
         1.0 / math.sqrt(d), None if lse is None else lse.data_ptr(),
         _stream())
     _raise_on(rc, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    _count_launch("flash_attention", q.dtype)
     return out, lse
 
 
@@ -295,7 +307,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True):
         *(g.data_ptr() for g in grads), _DTYPES[q.dtype], b, t, h, d,
         _strides(*s), int(bool(causal)), 1.0 / math.sqrt(d), _stream())
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count_launch(name, q.dtype)
     return tuple(grads)
 
 

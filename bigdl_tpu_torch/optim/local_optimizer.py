@@ -81,9 +81,10 @@ def _leaves(x):
 
 
 class BaseOptimizer:
-    """Builder facade: ``set_end_when``, gradient clipping, a train
-    summary, and the driver state (``epoch``, ``neval``,
-    ``record_count``) the triggers read."""
+    """The optimizer's setters (``set_end_when``, gradient clipping, the
+    compute dtype, a gradient transform, a train summary) and the loop
+    state ``driver_state`` (``epoch``, ``neval``, ``record_count``) that
+    the triggers read."""
 
     def __init__(self, model, dataset, criterion, optim_method=None,
                  device=None):
@@ -100,6 +101,8 @@ class BaseOptimizer:
         self.end_trigger = Trigger.max_epoch(1)
         self.clip_value = None
         self.clip_norm = None
+        self.compute_dtype = None
+        self.grad_transform = None
         self.train_summary = None
         self.driver_state = {"epoch": 1, "neval": 1, "record_count": 0}
 
@@ -113,6 +116,20 @@ class BaseOptimizer:
 
     def set_gradient_clipping_by_l2_norm(self, max_norm):
         self.clip_norm = max_norm
+        return self
+
+    def set_compute_dtype(self, dtype):
+        """Mixed precision: ``torch.bfloat16`` runs the forward and
+        backward in bf16 on fp32 master parameters, with an fp32 loss
+        and update (``make_train_step``)."""
+        self.compute_dtype = dtype
+        return self
+
+    def set_grad_transform(self, fn):
+        """A function of the ``{name: fp32 gradient}`` dict, applied in
+        the step before freezing and clipping (custom scaling, fault
+        injection)."""
+        self.grad_transform = fn
         return self
 
     def set_train_summary(self, summary):
@@ -218,7 +235,9 @@ class LocalOptimizer(BaseOptimizer):
             opt_state = self.optim_method.init_state(params)
         step = make_train_step(self.model, self.criterion, self.optim_method,
                                clip_value=self.clip_value,
-                               clip_norm=self.clip_norm)
+                               clip_norm=self.clip_norm,
+                               compute_dtype=self.compute_dtype,
+                               grad_transform=self.grad_transform)
 
         def dispatch(staged):
             nonlocal opt_state

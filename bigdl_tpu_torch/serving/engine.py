@@ -16,8 +16,9 @@ model in one forward.  ``accuracy_gate`` holds the twin against the fp32
 model on a held-out batch before the engine serves.
 
 The model's attention runs through the hand-written CUDA kernels on the
-card.  The JAX reference computes in full fp32, and so does the engine:
-building it on a CUDA device switches TF32 matrix products off
+card.  The JAX reference computes in full fp32, and so does the engine
+unless ``compute_dtype`` asks for bf16 ``predict``: building it on a
+CUDA device switches TF32 matrix products off
 (``utils.device.require_fp32_matmul``).
 """
 
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.nn.quantized import model_bytes, quantize_model
+from bigdl_tpu_torch.optim.train_step import compute_copy, make_eval_step
 from bigdl_tpu_torch.optim.validation import AccuracyDeltaGate
 from bigdl_tpu_torch.serving.buckets import (BucketLadder, ladder_or_default,
                                              pad_batch_axis)
@@ -57,15 +59,21 @@ class ServeFuture(Future):
 
 
 class _LocalEval:
-    """Single-device layout: the model's own placement."""
+    """Single-device layout: the model's own placement, evaluated in
+    ``compute_dtype`` and returned in fp32 (``make_eval_step``).  In a
+    compute dtype the dispatcher evaluates a copy of the model cast at
+    construction (``compute_copy``), as the int8 twin is quantized then:
+    the generation scheduler's thread keeps reading ``model``."""
 
-    def __init__(self, model):
+    def __init__(self, model, compute_dtype=None):
         self.model = model
+        if compute_dtype is not None:
+            model = compute_copy(model, compute_dtype)
+        self.step = make_eval_step(model, compute_dtype)
 
-    @torch.no_grad()
     def eval(self, x):
         tokens = torch.as_tensor(x, device=self.model.device)
-        return self.model(tokens).cpu().numpy()
+        return self.step(tokens).cpu().numpy()
 
     def precompile(self, sample, buckets):
         for b in buckets:
@@ -105,6 +113,12 @@ class ServingEngine:
     round with the twin (on its own pool of the same dtype) and verifies
     them with the fp32 model: the stream is the fp32 model's own.  Both
     need ``kv_cache="paged"``.
+
+    ``compute_dtype`` (``torch.bfloat16``) runs ``predict`` and the
+    accuracy gate in that dtype on the fp32 weights (cast when the
+    engine is built) and returns fp32 logits, as the JAX engine's eval
+    step does; generation is not affected (its schedulers take the KV
+    cache dtype only).
     """
 
     def __init__(self, model, max_batch_size: int = 32,
@@ -118,7 +132,7 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  quantize=False, accuracy_gate=None,
                  kv_cache_dtype: str = "fp32", speculative: int = 0,
-                 device=None):
+                 compute_dtype=None, device=None):
         device = resolve_device(device)
         model_device = next(model.parameters()).device
         if not same_device(device, model_device):
@@ -171,7 +185,8 @@ class ServingEngine:
         self._qmodel = quantize_model(model, select=self._qselect)[0] \
             if self._quantized or self.speculative else None
         serve_model = self._qmodel if self._quantized else model
-        self._backend = _LocalEval(serve_model)
+        self._compute_dtype = compute_dtype
+        self._backend = _LocalEval(serve_model, compute_dtype)
         self.max_batch_size = int(max_batch_size)
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.queue_capacity = int(queue_capacity)
@@ -380,15 +395,17 @@ class ServingEngine:
         """``model`` as the gate's ``x -> logits`` callable: the held-out
         batch is padded to its ladder rung, as a served tick would be
         (the int8 side's activation scale is taken over the padded
-        batch), and the result sliced back."""
-        @torch.no_grad()
+        batch), and the result sliced back.  Both sides run in the
+        engine's ``compute_dtype`` and give fp32."""
+        step = make_eval_step(model, self._compute_dtype)
+
         def run(x):
             x = np.asarray(x)
             n = x.shape[0]
             bucket = self.ladder.bucket_for(n)
             xb = x if bucket is None or bucket == n \
                 else pad_batch_axis(x, bucket)
-            return model(torch.as_tensor(xb, device=model.device))[:n]
+            return step(torch.as_tensor(xb, device=model.device))[:n]
         return run
 
     # ----- warmup ----------------------------------------------------------- #

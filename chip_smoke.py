@@ -17,8 +17,10 @@ Phases, each printing JSON lines:
    versions at the serving path's shapes (fp32, H 12, D 64), with kernel,
    plain and library device times (CUDA-graph replays, so no host work
    sits between launches) and the least time the card could take (K1
-   also at the training step's B8 T1024; K1 and K1-bwd bounded by the
-   3xTF32 tensor-core rate, 495/3 TFLOP/s); K2's and K3's rows give
+   also at the training step's B8 T1024, in fp32 and in bf16; K1 and
+   K1-bwd bounded by the 3xTF32 tensor-core rate, 495/3 TFLOP/s, in fp32
+   and by the bf16 rate, 989 TFLOP/s, in bf16, held to 2e-2); K2's and
+   K3's rows give
    their split count (from the card's SM count) and cluster shape, and
    an empty kernel launched as K2 is and as K3 is (and one of a single
    block) gives each launch's fixed cost, the floor under K2's, K3's and
@@ -38,8 +40,9 @@ Phases, each printing JSON lines:
    backward) at the training step's (8192, 32000) fp32 logits, and
    K1-bwd ``flash_attention_bwd`` at B8 H12 D64 causal, T 1024 and a
    ragged T 200, each held to its plain version (1e-4; K5 elementwise
-   relative, at an upstream gradient of order 1) and timed beside
-   its bound, its plain version and the library call;
+   relative, at an upstream gradient of order 1), and K1-bwd in bf16 at
+   T 1024 (2e-2), each timed beside its bound, its plain version and the
+   library call;
 7. training end to end: TransformerLM "small" (vocab 32000, max_len
    1024, random weights from seed 0) on ``synthetic_corpus(64, 1024,
    32000)``: (a) one batch's loss and the gradient of every parameter
@@ -50,7 +53,15 @@ Phases, each printing JSON lines:
    losses within 1e-5 relative, the last below the first, and the first
    batch's loss lower after the 8 steps than before; (c) the training path's
    launches: K1 and K1-bwd 12 a step, K4 and K5 one a step, none on the
-   plain model;
+   plain model; then the bf16 leg, ``compute_dtype=torch.bfloat16`` on
+   the same weights: (a) one batch's loss and gradients through the
+   kernels against the plain path in bf16 and the loss against the fp32
+   kernel path's, (b) 8 iterations of ``Optimizer(...)
+   .set_compute_dtype(torch.bfloat16).optimize()``, per-step losses
+   against the fp32 run's, the loss falling, tokens/s and peak memory,
+   (c) its launches: the bf16 K1 and K1-bwd 12 a step, K4 and K5 (on
+   fp32 logits) one a step, no fp32 K1 and no call of the plain
+   attention (tolerances: ``BF16_*`` below);
 8. int8 kernel: K3q, ``flash_paged_decode_attention`` on int8 pools with
    their fp32 scales (``ops.quantization.quantize_blockwise``), at phase
    3's K3 shapes, held against its plain version (1e-4) and timed beside
@@ -91,10 +102,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 #: K1 and K1-bwd run fp32 inputs on the TF32 tensor cores (495 TFLOP/s
 #: dense) as three TF32 products per product (3xTF32), so their fp32 rate
-#: is a third of it; bf16 inputs would take the 989 TFLOP/s rate
+#: is a third of it; bf16 inputs take the dense bf16 rate (m16n8k16)
 TF32X3_FLOPS_PER_S = 495e12 / 3
 TF32X3 = "operations (3xTF32 tensor cores)"
+BF16_FLOPS_PER_S = 989e12
+BF16_OPS = "operations (bf16 tensor cores)"
 ATOL = RTOL = 1e-4
+#: a bf16 kernel output against its plain version on the same bf16
+#: inputs: both round to 8 mantissa bits, the kernel also its
+#: probabilities before P.V (as the card tests)
+BF16_TOL = 2e-2
 
 HEADS, HEAD_DIM = 12, 64
 #: the serving runs of phases 4, 5 and 9: vocab and new tokens a request
@@ -107,6 +124,18 @@ VOCAB, SEQ, BATCH, TRAIN_ITERS = 32000, 1024, 8, 8
 #: per-step losses of the kernel and plain paths, relative: a hundredth of
 #: a step's fall at lr 1e-4, so a drift of the kernel path shows
 STEP_LOSS_RTOL = 1e-5
+#: phase 7's bf16 leg (``set_compute_dtype(torch.bfloat16)``), set before
+#: its first run from bf16's unit roundoff (2^-8 = 3.9e-3): the kernel
+#: path and the plain path differ only inside attention (the kernel rounds
+#: P to bf16 for P.V, the plain path computes it in fp32), so one batch's
+#: losses within half a roundoff of each other, relative ...
+BF16_LOSS_RTOL = 2e-3
+#: ... every gradient within 5e-2 relative L2 (about 13 roundoffs, summed
+#: over 12 layers' backward) ...
+BF16_GRAD_REL_L2 = 5e-2
+#: ... and the bf16 losses (one batch, and each of the 8 steps) within
+#: 5e-3 of the fp32 kernel path's at the same weights and batches
+BF16_FP32_LOSS_RTOL = 5e-3
 #: phase 9: the accuracy gate of engine (b), the fp32 model against its
 #: int8 twin on 8 held-out sequences of 128 tokens.  Measured on the H100
 #: (PERF.md, the int8 findings): logit RMSE 0.0164, top-1 agreement 0.75
@@ -252,9 +281,9 @@ def tensor_core_instructions(build, libs):
     return counts
 
 
-def check_close(name, got, want, atol=ATOL):
+def check_close(name, got, want, atol=ATOL, rtol=RTOL):
     err = (got.float() - want.float()).abs()
-    bad = err > atol + RTOL * want.float().abs()
+    bad = err > atol + rtol * want.float().abs()
     if not bool(torch.isfinite(got).all()) or bool(bad.any()):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {err.max().item()})")
@@ -270,15 +299,16 @@ def kernel_phase(fa, card):
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    def k1_row(b, t, label):
+    def k1_row(b, t, label, dtype=torch.float32):
         # q, k, v are views of one fused qkv buffer exactly as the
         # projection produces them
-        qkv = rand(b, t, 3 * HEADS * HEAD_DIM)
+        qkv = rand(b, t, 3 * HEADS * HEAD_DIM).to(dtype)
         q, k, v = (x.unflatten(-1, (HEADS, HEAD_DIM))
                    for x in qkv.split(HEADS * HEAD_DIM, dim=-1))
         got = fa.flash_attention(q, k, v, causal=True)
         want = fa.flash_attention_reference(q, k, v, causal=True)
-        err = check_close(f"flash_attention {label}", got, want)
+        tol = BF16_TOL if dtype == torch.bfloat16 else ATOL
+        err = check_close(f"flash_attention {label}", got, want, tol, tol)
         ms, lo, hi = device_ms(lambda: fa.flash_attention(q, k, v, True))
         plain = device_ms(lambda: fa.flash_attention_reference(
             q, k, v, True))[0]
@@ -287,13 +317,15 @@ def kernel_phase(fa, card):
                         .scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=True))[0]
         n = b * t * HEADS * HEAD_DIM
-        bms, by = bound(4 * n * 4, 4 * b * HEADS * HEAD_DIM * t * (t + 1) / 2,
-                        TF32X3_FLOPS_PER_S, TF32X3)
-        row = dict(name="flash_attention", case=label, max_abs_err=err,
-                   ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain,
-                   bound_ms=bms, bound_by=by, library_ms=lib, card=card)
+        bms, by = bound(4 * n * q.element_size(),
+                        4 * b * HEADS * HEAD_DIM * t * (t + 1) / 2,
+                        *tensor_core_rate(dtype))
+        row = dict(name="flash_attention", case=label, dtype=str(dtype),
+                   max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,
+                   plain_ms=plain, bound_ms=bms, bound_by=by,
+                   library_ms=lib, card=card)
         emit({"phase": "kernel", **row})
-        rows.setdefault("flash_attention", row)
+        rows.setdefault(kernel_key("flash_attention", dtype), row)
 
     # K1 at the prefill / predict shapes (the training step's comes last)
     k1_row(2, 1024, "causal_T1024")
@@ -377,7 +409,20 @@ def kernel_phase(fa, card):
     # version's (B, H, T, T) temporaries would otherwise change what the
     # decode rows draw and where their caches lie, and so their times
     k1_row(BATCH, SEQ, f"causal_B{BATCH}_T{SEQ}")
+    k1_row(BATCH, SEQ, f"bf16_causal_B{BATCH}_T{SEQ}", torch.bfloat16)
     return rows
+
+
+def tensor_core_rate(dtype):
+    """K1's and K1-bwd's peak rate for ``dtype`` inputs and its label."""
+    if dtype == torch.bfloat16:
+        return BF16_FLOPS_PER_S, BF16_OPS
+    return TF32X3_FLOPS_PER_S, TF32X3
+
+
+def kernel_key(name, dtype):
+    """The kernels line's name of K1's or K1-bwd's row in ``dtype``."""
+    return f"{name}_bf16" if dtype == torch.bfloat16 else name
 
 
 def launch_empty_kernel(clusters, splits):
@@ -669,18 +714,24 @@ def training_kernel_phase(fa, ce, card):
     emit({"phase": "kernel", **rows["fused_softmax_cross_entropy_bwd"]})
     del x
 
-    # K1-bwd on q/k/v views of one fused buffer, as the model gives them
-    for t, label in ((SEQ, f"causal_B{BATCH}_T{SEQ}"),
-                     (200, f"ragged_B{BATCH}_T200")):
+    # K1-bwd on q/k/v views of one fused buffer, as the model gives them;
+    # the bf16 case is the bf16 training step's
+    for t, label, dtype in (
+            (SEQ, f"causal_B{BATCH}_T{SEQ}", torch.float32),
+            (200, f"ragged_B{BATCH}_T200", torch.float32),
+            (SEQ, f"bf16_causal_B{BATCH}_T{SEQ}", torch.bfloat16)):
         qkv = torch.randn(BATCH, t, 3 * HEADS * HEAD_DIM, generator=g,
-                          device=dev)
+                          device=dev).to(dtype)
         q, k, v_ = (z.unflatten(-1, (HEADS, HEAD_DIM))
                     for z in qkv.split(HEADS * HEAD_DIM, dim=-1))
-        do = torch.randn(BATCH, t, HEADS, HEAD_DIM, generator=g, device=dev)
+        do = torch.randn(BATCH, t, HEADS, HEAD_DIM, generator=g,
+                         device=dev).to(dtype)
         out, lse = fa._flash_forward(q, k, v_, True, with_lse=True)
         got = fa.flash_attention_bwd(q, k, v_, out, lse, do, True)
         want = fa.flash_attention_bwd_reference(q, k, v_, do, True)
-        err = max(check_close(f"flash_attention_bwd {label} d{w}", a, b)
+        tol = BF16_TOL if dtype == torch.bfloat16 else ATOL
+        err = max(check_close(f"flash_attention_bwd {label} d{w}", a, b,
+                              tol, tol)
                   for w, a, b in zip("qkv", got, want))
         del got, want
         ms, lo, hi = device_ms(lambda: fa.flash_attention_bwd(
@@ -695,14 +746,16 @@ def training_kernel_phase(fa, ce, card):
                           tr, do.transpose(1, 2))
         del leaves, tr
         elems = BATCH * t * HEADS * HEAD_DIM
-        bms, by = bound(8 * elems * 4 + BATCH * HEADS * t * 4,
+        # q, k, v, out, dout read and dq, dk, dv written; the fp32 lse read
+        bms, by = bound(8 * elems * q.element_size() + BATCH * HEADS * t * 4,
                         10 * BATCH * HEADS * HEAD_DIM * t * (t + 1) / 2,
-                        TF32X3_FLOPS_PER_S, TF32X3)
-        row = dict(name="flash_attention_bwd", case=label, max_abs_err=err,
-                   ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain,
-                   bound_ms=bms, bound_by=by, library_ms=lib, card=card)
+                        *tensor_core_rate(dtype))
+        row = dict(name="flash_attention_bwd", case=label, dtype=str(dtype),
+                   max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,
+                   plain_ms=plain, bound_ms=bms, bound_by=by,
+                   library_ms=lib, card=card)
         emit({"phase": "kernel", **row})
-        rows.setdefault("flash_attention_bwd", row)
+        rows.setdefault(kernel_key("flash_attention_bwd", dtype), row)
     torch.cuda.empty_cache()
     return rows
 
@@ -836,9 +889,161 @@ def training_phase(fa, ce, card):
                              f"{runs['plain']['launches']}")
     emit({"phase": "train_check", "first_batch_loss": falls["kernels"],
           "max_step_rel_err": max(step_rel), "launches": got, "card": card})
-    del models
+    # the loop's last model and optimizer (the plain path's) go too, so
+    # the bf16 leg's peak memory is its own
+    del models, model, crit, opt
     torch.cuda.empty_cache()
-    return {k: got[k] for k in want}
+    bf16 = training_bf16_phase(fa, ce, card, x, y, losses["kernels"],
+                               runs["kernels"])
+    return {k: got[k] for k in want}, bf16
+
+
+def rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def training_bf16_phase(fa, ce, card, x, y, fp32_loss, fp32_run):
+    """Phase 7's bf16 leg: TransformerLM "small" from seed 0 trained with
+    ``compute_dtype=torch.bfloat16``.  (a) One batch through the kernel
+    path and the plain path (``use_flash="never"``, plain cross-entropy)
+    on the same weights: the losses, each against the other and against
+    the fp32 kernel path's ``fp32_loss``, and every parameter's fp32
+    gradient.  (b) 8 iterations of ``Optimizer(...).set_compute_dtype(
+    torch.bfloat16).optimize()``: the per-step losses against the fp32
+    kernel run ``fp32_run``, the loss falling, tokens/s, wall and peak
+    memory.  (c) That run's launches: the bf16 K1 and K1-bwd 12 a step,
+    K4 and K5 (fp32 logits) one a step, no fp32 K1 and no plain
+    attention.  Returns (c)'s counts under the kernels line's names."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.models import transformer_lm
+
+    bf16 = torch.bfloat16
+    models = {
+        "kernels": (transformer_lm("small", VOCAB, max_len=SEQ,
+                                   device="cuda", seed=0),
+                    nn.TimeDistributedCriterion(
+                        nn.FusedSoftmaxCrossEntropyCriterion())),
+        "plain": (transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                                 seed=0, use_flash="never"),
+                  nn.TimeDistributedCriterion(nn.CrossEntropyCriterion())),
+    }
+    # (a) one batch through the train step at learning rate 0: the
+    # gradients stay on the parameters, which do not move
+    xb = torch.as_tensor(x[:BATCH], device="cuda")
+    yb = torch.as_tensor(y[:BATCH], device="cuda")
+    losses, grads = {}, {}
+    for label, (model, crit) in models.items():
+        step = optim.make_train_step(model, crit, optim.SGD(learning_rate=0.0),
+                                     compute_dtype=bf16)
+        _, loss = step({"neval": 0}, xb, yb)
+        losses[label] = loss.item()
+        grads[label] = {k: p.grad for k, p in model.named_parameters()}
+    lk, lp = losses["kernels"], losses["plain"]
+    if abs(lk - lp) > BF16_LOSS_RTOL * abs(lp) or \
+            abs(lk - fp32_loss) > BF16_FP32_LOSS_RTOL * abs(fp32_loss):
+        raise AssertionError(f"bf16 loss: kernels {lk}, plain {lp}, fp32 "
+                             f"kernels {fp32_loss}")
+    rel = {}
+    for name, gk in grads["kernels"].items():
+        gp = grads["plain"][name]
+        if gk is None or gp is None or gk.dtype != torch.float32:
+            raise AssertionError(f"{name}: no fp32 gradient ("
+                                 f"{None if gk is None else gk.dtype})")
+        if gk.norm().item() == 0.0 or gp.norm().item() == 0.0:
+            raise AssertionError(f"zero bf16 gradient for {name}")
+        rel[name] = rel_l2(gk, gp)
+    worst = max(rel, key=rel.get)
+    if rel[worst] > BF16_GRAD_REL_L2:
+        raise AssertionError(f"bf16 gradient of {worst}: relative L2 "
+                             f"{rel[worst]} > {BF16_GRAD_REL_L2}")
+    emit({"phase": "train_bf16_grads", "params": len(rel), "loss_kernels": lk,
+          "loss_plain": lp, "loss_fp32_kernels": fp32_loss,
+          "loss_rel_kernels_plain": abs(lk - lp) / abs(lp),
+          "loss_rel_bf16_fp32": abs(lk - fp32_loss) / abs(fp32_loss),
+          "worst_param": worst, "worst_rel_l2": rel[worst],
+          "median_rel_l2": sorted(rel.values())[len(rel) // 2],
+          "loss_rtol": BF16_LOSS_RTOL, "fp32_loss_rtol": BF16_FP32_LOSS_RTOL,
+          "grad_rel_l2_limit": BF16_GRAD_REL_L2, "card": card})
+    model, crit = models["kernels"]
+    del models, grads, step      # the step holds the plain model too
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # (b) optimize() in bf16 from the same weights; (c) its launches, and
+    # every call of the plain attention body counted
+    ds = array_dataset(x, y) >> SampleToMiniBatch(BATCH)
+    opt = optim.Optimizer(model, ds, crit, optim.Adam(learning_rate=1e-4))
+    opt.set_end_when(optim.Trigger.max_iteration(TRAIN_ITERS))
+    opt.set_compute_dtype(bf16)
+    summary = _Losses()
+    opt.set_train_summary(summary)
+    plain_calls = [0]
+    masked_attention = fa.masked_attention
+
+    def counted(*args, **kw):
+        plain_calls[0] += 1
+        return masked_attention(*args, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    ce.reset_launch_counts()
+    fa.masked_attention = counted
+    try:
+        # ---- the bf16 training main path: counts read right after it --
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {f"{k}_{dt}": n for k in fa.BF16_LAUNCHES
+                    for dt, n in (("bf16", fa.BF16_LAUNCHES[k]),
+                                  ("fp32", fa.LAUNCHES[k]
+                                   - fa.BF16_LAUNCHES[k]))}
+        launches.update(ce.LAUNCHES, plain_attention_calls=plain_calls[0])
+        # -----------------------------------------------------------------
+    finally:
+        fa.masked_attention = masked_attention
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():   # the first batch again, after training
+        after = crit.apply(optim.make_eval_step(model, bf16)(xb), yb).item()
+    steps = summary.scalars["Loss"]
+    tok_s = sorted(r * SEQ for r in summary.scalars["Throughput"][1:])
+    fp32_steps = fp32_run["losses"]
+    step_rel = [abs(a - b) / abs(b) for a, b in zip(steps, fp32_steps)]
+    emit({"phase": "train_bf16_run", "losses": steps,
+          "fp32_losses": fp32_steps, "step_rel_to_fp32": step_rel,
+          "first_batch_loss_before": lk, "first_batch_loss_after": after,
+          "wall_s": wall, "tokens_per_s": TRAIN_ITERS * BATCH * SEQ / wall,
+          "step_tokens_per_s_median": tok_s[len(tok_s) // 2],
+          "fp32_tokens_per_s": fp32_run["tokens_per_s"],
+          "peak_memory_bytes": peak,
+          "fp32_peak_memory_bytes": fp32_run["peak_memory_bytes"],
+          "launches": launches, "card": card})
+    if len(steps) != TRAIN_ITERS or max(step_rel) > BF16_FP32_LOSS_RTOL:
+        raise AssertionError(f"bf16 per-step losses {steps} against fp32 "
+                             f"{fp32_steps}")
+    if not (after < lk and steps[-1] < steps[0]):
+        raise AssertionError(f"the bf16 loss did not fall: {lk} -> {after}, "
+                             f"{steps}")
+    want = {"flash_attention_bf16": 12 * TRAIN_ITERS,
+            "flash_attention_bwd_bf16": 12 * TRAIN_ITERS,
+            "flash_attention_fp32": 0, "flash_attention_bwd_fp32": 0,
+            "fused_softmax_cross_entropy": TRAIN_ITERS,
+            "fused_softmax_cross_entropy_bwd": TRAIN_ITERS,
+            "plain_attention_calls": 0}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"bf16 training launches {launches}, want "
+                             f"{want}")
+    emit({"phase": "train_bf16_check", "max_step_rel_to_fp32": max(step_rel),
+          "first_batch_loss": [lk, after], "launches": launches,
+          "card": card})
+    del model, opt
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in ("flash_attention_bf16",
+                                     "flash_attention_bwd_bf16",
+                                     "fused_softmax_cross_entropy",
+                                     "fused_softmax_cross_entropy_bwd")}
 
 
 def int8_kernel_phase(fa, card):
@@ -1079,7 +1284,7 @@ def main():
     rows = kernel_phase(fa, card)
     serving, fp32_tok_s = e2e_phase(fa, card, *serving_models())
     rows.update(training_kernel_phase(fa, ce, card))
-    training = training_phase(fa, ce, card)
+    training, training_bf16 = training_phase(fa, ce, card)
     rows.update(int8_kernel_phase(fa, card))
     # the same weights again (seed 0), so the training phases' peak
     # memory holds no serving model
@@ -1087,12 +1292,15 @@ def main():
                                       fp32_tok_s)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
+    bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
+    k1_grad = ("bigdl_tpu/ops/flash_attention.py:63 (its gradient; the TPU "
+               "kernel has no VJP)")
     kernels_of = {
         "flash_attention": (attn, "bigdl_tpu/ops/flash_attention.py:63"),
-        "flash_attention_bwd": (
-            "bigdl_tpu_torch/csrc/flash_attention_bwd.cu",
-            "bigdl_tpu/ops/flash_attention.py:63 (its gradient; the TPU "
-            "kernel has no VJP)"),
+        "flash_attention_bf16": (attn, "bigdl_tpu/ops/flash_attention.py:63"
+                                 " (bf16 inputs, m16n8k16)"),
+        "flash_attention_bwd": (bwd, k1_grad),
+        "flash_attention_bwd_bf16": (bwd, k1_grad + ", bf16"),
         "flash_decode_attention": (attn,
                                    "bigdl_tpu/ops/flash_attention.py:135"),
         "flash_paged_decode_attention": (
@@ -1112,6 +1320,7 @@ def main():
         by_path = {path: counts[name]
                    for path, counts in (("serving", serving),
                                         ("training", training),
+                                        ("training_bf16", training_bf16),
                                         ("int8_serving", int8_serving))
                    if counts.get(name)}
         kernels.append({

@@ -552,6 +552,83 @@ def test_cross_entropy_function_on_the_card(cuda):
     _close(x.grad * 100, xr.grad * 100, torch.float32)
 
 
+# --------------------------------------------------------------------------- #
+# bf16 mixed precision (compute_dtype)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.cuda
+def test_bf16_flash_attention_function_at_the_training_strides(cuda):
+    """The bf16 autograd Function at the training step's layout: q, k, v
+    bf16 views of one (B, T, 3 * 768) projection, H 12, D 64, T 1024,
+    and a bf16 ``dout``; counted as bf16 launches."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    h, d, t = 12, 64, 1024
+    qkv = _rand(g, (2, t, 3 * h * d), torch.bfloat16, cuda)
+    qkv.requires_grad_(True)
+    q, k, v = _qkv_views(qkv, h, d)
+    assert q.stride() == (t * 3 * h * d, 3 * h * d, d, 1)
+    dout = _rand(g, (2, t, h, d), torch.bfloat16, cuda)
+    before, bf16 = dict(fa.LAUNCHES), dict(fa.BF16_LAUNCHES)
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert fa.LAUNCHES[name] == before[name] + 1
+        assert fa.BF16_LAUNCHES[name] == bf16[name] + 1
+    views = _qkv_views(qkv.detach(), h, d)
+    _close(out, fa.flash_attention_reference(*views, True), torch.bfloat16)
+    want = fa.flash_attention_bwd_reference(*views, dout, True)
+    _close(qkv.grad, torch.cat([w.flatten(-2) for w in want], dim=-1),
+           torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_runs_the_bf16_kernels(cuda):
+    """A bf16 step of a 2-layer TransformerLM on the card: fp32 gradients
+    on every fp32 master, the bf16 K1 and K1-bwd once a layer and no fp32
+    launch of them, and a loss within bf16 precision of the fp32 step's
+    (1e-2 relative)."""
+    from bigdl_tpu_torch import nn, optim
+
+    x = torch.randint(0, 256, (2, 64), device=cuda)
+    losses = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = nn.TransformerLM(256, 128, 2, 2, max_len=64, device=cuda)
+        crit = nn.TimeDistributedCriterion(
+            nn.FusedSoftmaxCrossEntropyCriterion())
+        step = optim.make_train_step(model, crit, optim.SGD(0.0),
+                                     compute_dtype=dtype)
+        fa.reset_launch_counts()
+        _, loss = step({"neval": 0}, x, x)
+        torch.cuda.synchronize()
+        losses[dtype] = loss.item()
+        assert all(p.dtype == p.grad.dtype == torch.float32
+                   and p.grad.abs().sum() > 0 for p in model.parameters())
+    assert fa.LAUNCHES["flash_attention"] == \
+        fa.BF16_LAUNCHES["flash_attention"] == 2
+    assert fa.LAUNCHES["flash_attention_bwd"] == \
+        fa.BF16_LAUNCHES["flash_attention_bwd"] == 2
+    assert abs(losses[torch.bfloat16] - losses[torch.float32]) < \
+        1e-2 * losses[torch.float32]
+
+
+@pytest.mark.cuda
+def test_fp16_is_refused_naming_the_roadmap(cuda):
+    """No kernel takes fp16: the wrapper and a fp16 train step raise,
+    naming ROADMAP A1; the plain path never serves it on the card."""
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError, match="A1"):
+        fa.flash_attention(q, q, q)
+    from bigdl_tpu_torch import nn, optim
+
+    model = nn.TransformerLM(64, 32, 2, 1, max_len=8, device=cuda)
+    step = optim.make_train_step(model, nn.CrossEntropyCriterion(),
+                                 optim.SGD(), compute_dtype=torch.float16)
+    x = torch.zeros((1, 8), dtype=torch.long, device=cuda)
+    with pytest.raises(TypeError, match="A1"):
+        step({"neval": 0}, x, x)
+
+
 def test_plain_attention_gradient_by_finite_differences():
     """The gradient K1-bwd is held to (autograd of the plain version),
     checked by finite differences in fp64, causal and full, ragged T."""

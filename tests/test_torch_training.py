@@ -167,9 +167,9 @@ def test_unported_schedules_and_options_raise():
     with pytest.raises(NotImplementedError, match="Default"):
         optim.SGD(learning_rate_schedule=object())
     m = nn.TransformerLM(64, 32, 2, 1, max_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
+    with pytest.raises(NotImplementedError, match="A8"):
         optim.make_train_step(m, nn.CrossEntropyCriterion(), optim.SGD(),
-                              compute_dtype=torch.bfloat16)
+                              health_stats=True)
     ds = array_dataset(np.zeros((4, 8), np.int32), np.zeros((4, 8), np.int32))
     with pytest.raises(NotImplementedError, match="A4"):
         optim.Optimizer(m, ds, nn.CrossEntropyCriterion(), distributed=True,
