@@ -21,15 +21,20 @@ Each wrapper sends a CPU tensor to its ``*_reference`` version and a CUDA
 tensor to its kernel; it raises on anything the kernel does not take
 (there is no fallback).  ``LAUNCHES`` counts kernel launches per wrapper,
 so a run can show that its main path went through the kernels, and
-``BF16_LAUNCHES`` the bf16 share of K1's and K1-bwd's.
+``BF16_LAUNCHES`` the bf16 share of K1's and K1-bwd's.  A CUDA graph
+capture issues no launch: inside ``deferred_launch_counts()`` a thread's
+wrappers record what they would have counted, and every replay of the
+graph adds that record (``add_launch_counts``).
 
 Unlike the TPU kernels, the CUDA kernels mask ragged edges themselves:
 any sequence length, cache length and block size is taken.
 """
 
+import contextlib
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -47,6 +52,10 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+#: per thread: the record that launches go to while a graph is captured
+_deferred = threading.local()
+
+
 def reset_launch_counts():
     for counts in (LAUNCHES, BF16_LAUNCHES):
         for name in counts:
@@ -54,9 +63,32 @@ def reset_launch_counts():
 
 
 def _count_launch(name, dtype):
-    LAUNCHES[name] += 1
+    counts = getattr(_deferred, "record", None) or (LAUNCHES, BF16_LAUNCHES)
+    counts[0][name] = counts[0].get(name, 0) + 1
     if dtype == torch.bfloat16 and name in BF16_LAUNCHES:
-        BF16_LAUNCHES[name] += 1
+        counts[1][name] = counts[1].get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def deferred_launch_counts():
+    """Launches this thread's wrappers make inside the block are recorded
+    in the yielded ``(launches, bf16_launches)`` dicts instead of
+    ``LAUNCHES`` and ``BF16_LAUNCHES``: under CUDA graph capture nothing
+    is launched until the graph is replayed."""
+    record = ({}, {})
+    _deferred.record = record
+    try:
+        yield record
+    finally:
+        _deferred.record = None
+
+
+def add_launch_counts(record):
+    """Count the launches of one replay of a graph whose capture recorded
+    ``record`` (``deferred_launch_counts``)."""
+    for counts, add in zip((LAUNCHES, BF16_LAUNCHES), record):
+        for name, n in add.items():
+            counts[name] += n
 
 
 # --------------------------------------------------------------------------- #
@@ -379,7 +411,7 @@ def flash_decode_attention(q, k, v, pos):
         1.0 / math.sqrt(d), decode_splits(b * h, t, sm_count(q.device)),
         _stream())
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count_launch(name, q.dtype)
     return out
 
 
@@ -429,7 +461,7 @@ def flash_paged_decode_attention(q, k_pool, v_pool, tables, pos,
         decode_splits(b * h, tables.shape[1] * bs, sm_count(q.device)),
         _stream())
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count_launch(name, q.dtype)
     return out
 
 
@@ -465,5 +497,5 @@ def _paged_decode_int8(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
         decode_splits(b * h, tables.shape[1] * bs, sm_count(q.device)),
         _stream())
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count_launch(name, q.dtype)
     return out

@@ -78,7 +78,6 @@ class _LocalEval:
     def precompile(self, sample, buckets):
         for b in buckets:
             self.eval(pad_batch_axis(np.asarray(sample)[None], int(b)))
-        return len(buckets)
 
 
 class ServingEngine:
@@ -205,6 +204,8 @@ class ServingEngine:
         self._running = True
         self._draining = False
         self._in_tick = 0
+        self._tick = 0
+        self._served = 0
         if decode_slots is None:
             decode_slots = 8 if hasattr(model, "init_cache") else 0
         self.decode_slots = int(decode_slots)
@@ -410,17 +411,36 @@ class ServingEngine:
 
     # ----- warmup ----------------------------------------------------------- #
     def precompile(self, example_feature=None) -> int:
-        """Warm-up before traffic: builds the kernels at their first
-        launch and runs every generation rung once; with
-        ``example_feature`` (one request's token ids) also every predict
-        batch rung.  Returns the number of steps run."""
-        runs = 0
+        """Warm-up before traffic: builds every generation step (on the
+        card, one CUDA graph per shape: ``serving/graphs.py``); with
+        ``example_feature`` (one request's token ids) also runs every
+        predict batch rung once, which loads the kernels.  Returns the
+        number of steps built, JAX's "backend compiles performed":
+        ``predict`` runs eagerly and builds none."""
+        built = 0
         if self.decode_slots > 0 and hasattr(self.model, "init_cache"):
-            runs += self._generation().precompile()
+            built += self._generation().precompile()
         if example_feature is not None:
-            runs += self._backend.precompile(example_feature,
-                                             list(self.ladder))
-        return runs
+            self._backend.precompile(example_feature, list(self.ladder))
+        return built
+
+    def stats(self):
+        """Live engine occupancy (JAX ``ServingEngine.stats``): pending
+        queue depth, requests claimed by the in-flight tick, lifetime
+        ticks and requests served, the drain flag; ``"generate"`` is the
+        generation scheduler's ``stats()`` (its ``"graphs"`` counts the
+        steps built, built after ``precompile()``, and run)."""
+        with self._lock:
+            stats = {"pending": len(self._pending),
+                     "in_tick": self._in_tick,
+                     "draining": self._draining,
+                     "running": self._running,
+                     "ticks": self._tick,
+                     "served": self._served,
+                     "queue_capacity": self.queue_capacity}
+        if self._gen is not None:
+            stats["generate"] = self._gen.stats()
+        return stats
 
     # ----- dispatcher ------------------------------------------------------- #
     def _loop(self):
@@ -448,10 +468,12 @@ class ServingEngine:
                        if r[1].set_running_or_notify_cancel()]
             try:
                 if claimed:
+                    self._tick += 1
                     self._run_tick(claimed)
             finally:
                 with self._lock:
                     self._in_tick -= len(reqs)
+                    self._served += len(claimed)
                     if not self._pending and not self._in_tick:
                         self._idle.notify_all()
 

@@ -17,9 +17,13 @@ slot-based continuous-batching scheduler (counterpart of
   with the int8 twin, verify ``k + 1`` tokens in one fp32 forward.
 - ``GenerateFuture`` -- the streaming per-request handle.
 
-The JAX steps are jitted and donate the cache; these run eagerly under
-``torch.no_grad()`` and write the cache in place.  The attention inside
-them goes through the CUDA kernels on the card (``ops/flash_attention``).
+The JAX steps are jitted per shape and donate the cache.  These take and
+return device tensors and write the cache in place; each scheduler builds
+them once per shape key in ``precompile()`` (on the card as CUDA graphs,
+``serving/graphs.py``), so a tick is one host-to-device copy of its
+inputs, one replay (``spec_k + 2`` for a speculative round) and one
+device-to-host copy of its tokens.  The attention inside them goes
+through the CUDA kernels on the card (``ops/flash_attention``).
 """
 
 import collections
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.serving.buckets import BucketLadder
+from bigdl_tpu_torch.serving.graphs import StepGraphs
 from bigdl_tpu_torch.serving.paging import BlockAllocator, BlockPoolExhausted
 from bigdl_tpu_torch.serving.sampling import sample_tokens
 
@@ -45,13 +50,15 @@ log = logging.getLogger("bigdl_tpu_torch.serving")
 _KV_DTYPES = {torch.float32: "fp32", torch.int8: "int8"}
 
 
-def _tensor(x, device, dtype=torch.int32):
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+_I32, _F32 = np.int32, np.float32
 
 
-def _zeros_like(pool):
-    return {name: {kv: torch.zeros_like(t) for kv, t in layer.items()}
-            for name, layer in pool.items()}
+def _zero_(pool):
+    """Zero every leaf of a per-layer pool or cache IN PLACE: the built
+    steps hold its tensors' addresses, so it is never reallocated."""
+    for layer in pool.values():
+        for t in layer.values():
+            t.zero_()
 
 
 def _tree_bytes(pool):
@@ -67,43 +74,40 @@ def _last_valid_row(logits, lengths):
     return logits[torch.arange(n, device=logits.device), idx]
 
 
+def _argmax(logits):
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def generate_steps(model):
-    """The ``(prefill, decode)`` pair over a contiguous slot cache.
+    """The ``(prefill, decode)`` pair over a contiguous slot cache.  Both
+    take int32 device tensors, write the cache in place and return the
+    drawn tokens (int32) and the logits they were drawn from.
 
     - ``prefill(slot_cache, tokens (B, T), lengths (B,), slot_ids (B,))
-      -> first_tokens (B,)``: runs the cached forward over the padded
-      prompt batch, copies its K/V into the slot rows ``slot_ids``
-      (padding rows name the trash row) and reads each row's first
-      token at its true ``length - 1``.
-    - ``decode(slot_cache, tokens (S,), pos (S,)) -> next_tokens (S,)``:
-      one step over the whole pool.
-
-    Inputs are host int arrays, results numpy; the cache is written in
-    place.
+      -> (first (B,), logits (B, V))``: runs the cached forward over the
+      padded prompt batch, copies its K/V into the slot rows
+      ``slot_ids`` (padding rows name the trash row) and reads each
+      row's first token at its true ``length - 1``.
+    - ``decode(slot_cache, tokens (S,), pos (S,)) -> (next (S,), logits
+      (S, V))``: one step over the whole pool.
     """
-    dev = model.device
 
     @torch.no_grad()
     def prefill(slot_cache, tokens, lengths, slot_ids):
-        tok = _tensor(tokens, dev)
-        n, t = tok.shape
+        n, t = tokens.shape
         local = model.init_cache(n, t)
-        logits, frag = model(tok, cache=local)
-        row = _last_valid_row(logits, _tensor(lengths, dev))
-        first = torch.argmax(row, dim=-1)
-        sid = _tensor(slot_ids, dev, torch.int64)
+        logits, frag = model(tokens, cache=local)
+        row = _last_valid_row(logits, lengths)
+        sid = slot_ids.long()
         for name, layer in slot_cache.items():
             for kv in ("k", "v"):
                 layer[kv][sid, :t] = frag[name][kv]
-        return first.cpu().numpy().astype(np.int32)
+        return _argmax(row), row
 
     @torch.no_grad()
     def decode(slot_cache, tokens, pos):
-        tok = _tensor(tokens, dev)
-        logits, _ = model(tok[:, None], cache=slot_cache,
-                          pos=_tensor(pos, dev))
-        return torch.argmax(logits[:, 0], dim=-1).cpu().numpy().astype(
-            np.int32)
+        logits, _ = model(tokens[:, None], cache=slot_cache, pos=pos)
+        return _argmax(logits[:, 0]), logits[:, 0]
 
     return prefill, decode
 
@@ -178,7 +182,14 @@ class GenerateScheduler:
     """Slot-based continuous batching over one model's contiguous KV
     cache: ``slots`` decode slots plus one trash row share one
     ``model.init_cache(slots + 1, max_len)``.  Finished sequences free
-    their slot at once; the next prefill reuses it.  Greedy only."""
+    their slot at once; the next prefill reuses it.  Greedy only.
+
+    Its steps are built once per shape (``serving/graphs.py``): the
+    decode step over ``slots + 1`` rows and one prefill per (admission
+    rung x prompt rung), all in ``precompile()``; a shape outside the
+    ladders is built by the tick that needs it.  Steps are built and run
+    under ``_step_lock``, on the dispatcher thread or in
+    ``precompile()``."""
 
     #: the paged scheduler samples; this one refuses non-greedy requests
     supports_sampling = False
@@ -210,6 +221,7 @@ class GenerateScheduler:
                 f"exceeds the cache max_len {self.max_len}")
         self.batch_ladder = BucketLadder(self.slots)
         self._trash = self.slots
+        self._step_lock = threading.Lock()
         self._setup_steps()
         self._slots = [None] * self.slots
         self._free = collections.deque(range(self.slots))
@@ -232,10 +244,11 @@ class GenerateScheduler:
 
     def _setup_steps(self):
         self._prefill_fn, self._decode_fn = generate_steps(self.model)
-        self._reset_pool()
+        self._graphs = StepGraphs(self.model.device)
+        self._cache = self.model.init_cache(self.slots + 1, self.max_len)
 
     def _reset_pool(self):
-        self._cache = self.model.init_cache(self.slots + 1, self.max_len)
+        _zero_(self._cache)
 
     def cache_bytes(self) -> int:
         """Device bytes the KV cache holds."""
@@ -301,29 +314,56 @@ class GenerateScheduler:
                     "slots": self.slots, "slots_active": len(self._active()),
                     "ticks": self._tick, "served": self._served,
                     "tokens": self._tokens_out,
-                    "running": self._running}
+                    "running": self._running,
+                    "graphs": self._graphs.stats()}
+
+    # ----- the built steps ------------------------------------------------- #
+    def _prefill_step(self, b, t):
+        """The key and static inputs of the prefill at ``(b, t)``, built
+        at first use.  Idle rows name the trash row."""
+        key = ("prefill", b, t)
+        inp = self._graphs.inputs(key, [("tokens", (b, t), _I32),
+                                        ("lengths", (b,), _I32),
+                                        ("slot_ids", (b,), _I32)])
+        self._graphs.ensure(
+            key, lambda: self._prefill_fn(self._cache, **inp.dev),
+            inp, dict(tokens=0, lengths=1, slot_ids=self._trash))
+        return key, inp
+
+    def _decode_step(self):
+        """The decode step over every slot and the trash row.  Idle, each
+        row writes position ``max_len - 1``, which no sequence writes or
+        reads: a request's ``prompt + max_new_tokens <= max_len``, and
+        its last token is never fed back."""
+        s = self.slots + 1
+        key = ("decode", s)
+        inp = self._graphs.inputs(key, [("tokens", (s,), _I32),
+                                        ("pos", (s,), _I32)])
+        self._graphs.ensure(
+            key, lambda: self._decode_fn(self._cache, **inp.dev),
+            inp, dict(tokens=0, pos=self.max_len - 1))
+        return key, inp
+
+    def _run_step(self, key, inp, **values):
+        """One tick's device work: the inputs copied up, the step run,
+        its tokens copied down."""
+        inp.set(**values)
+        inp.upload()
+        return self._graphs.run(key)[0].cpu().numpy()
 
     # ----- warmup ----------------------------------------------------------- #
-    def _dummy_cache(self):
-        return _zeros_like(self._cache)
-
     def precompile(self) -> int:
-        """Warm-up before traffic: builds the kernels (first launch) and
-        runs the decode step and every (admission rung x prompt rung)
-        prefill once, on a zero copy of the cache so live slots are never
-        touched.  Returns the number of steps run."""
-        dummy = self._dummy_cache()
-        s = self.slots + 1
-        self._decode_fn(dummy, np.zeros((s,), np.int32),
-                        np.zeros((s,), np.int32))
-        runs = 1
-        for b in self.batch_ladder:
-            for t in self.prompt_ladder:
-                self._prefill_fn(dummy, np.zeros((b, t), np.int32),
-                                 np.ones((b,), np.int32),
-                                 np.full((b,), self._trash, np.int32))
-                runs += 1
-        return runs
+        """Build every step before traffic, on the live cache through the
+        trash row: the decode step and every (admission rung x prompt
+        rung) prefill.  Returns the number of steps built (on the card,
+        CUDA graphs captured): JAX's "backend compiles performed"."""
+        with self._step_lock, self._graphs.precompiling():
+            before = self._graphs.captured
+            self._decode_step()
+            for b in self.batch_ladder:
+                for t in self.prompt_ladder:
+                    self._prefill_step(b, t)
+            return self._graphs.captured - before
 
     # ----- dispatcher ------------------------------------------------------- #
     def _loop(self):
@@ -337,37 +377,44 @@ class GenerateScheduler:
                         and not self._active():
                     self._idle.notify_all()
                     return
-                admit = []
-                if self._pending and self._free:
-                    take = min(len(self._free), len(self._pending))
-                    admit = [self._pending.popleft() for _ in range(take)]
-                    self._in_flight += len(admit)
-                    self._not_full.notify_all()
-            try:
-                # claiming moves PENDING -> RUNNING so result-setting can't
-                # race a caller's cancel(); a dropped future still gets the
-                # stream sentinel
-                claimed = []
-                for p, f in admit:
-                    if f.set_running_or_notify_cancel():
-                        claimed.append((p, f))
-                    else:
-                        f._stream.put(None)
-                self._sweep_abandoned()
-                if claimed:
-                    self._run_prefill(claimed)
-                if self._active():
-                    self._run_decode()
-            except Exception:
-                # per-tick failures are surfaced on the affected futures;
-                # this keeps a scheduler bug from killing the dispatcher
-                log.exception("generation scheduler tick failed")
-            finally:
-                with self._lock:
-                    self._in_flight -= len(admit)
-                    if not self._pending and not self._in_flight \
-                            and not self._active():
-                        self._idle.notify_all()
+            with self._step_lock:
+                self._iteration()
+
+    def _iteration(self):
+        """One dispatcher iteration: admit what is pending into free
+        slots, then the ticks (under ``_step_lock``)."""
+        with self._lock:
+            admit = []
+            if self._pending and self._free:
+                take = min(len(self._free), len(self._pending))
+                admit = [self._pending.popleft() for _ in range(take)]
+                self._in_flight += len(admit)
+                self._not_full.notify_all()
+        try:
+            # claiming moves PENDING -> RUNNING so result-setting can't
+            # race a caller's cancel(); a dropped future still gets the
+            # stream sentinel
+            claimed = []
+            for p, f in admit:
+                if f.set_running_or_notify_cancel():
+                    claimed.append((p, f))
+                else:
+                    f._stream.put(None)
+            self._sweep_abandoned()
+            if claimed:
+                self._run_prefill(claimed)
+            if self._active():
+                self._run_decode()
+        except Exception:
+            # per-tick failures are surfaced on the affected futures;
+            # this keeps a scheduler bug from killing the dispatcher
+            log.exception("generation scheduler tick failed")
+        finally:
+            with self._lock:
+                self._in_flight -= len(admit)
+                if not self._pending and not self._in_flight \
+                        and not self._active():
+                    self._idle.notify_all()
 
     def _run_prefill(self, reqs):
         t0 = time.perf_counter()
@@ -389,7 +436,9 @@ class GenerateScheduler:
                 slot_ids[i] = self._free.popleft()
                 slots.append(int(slot_ids[i]))
         try:
-            first = self._prefill_fn(self._cache, tokens, lengths, slot_ids)
+            key, inp = self._prefill_step(bucket, t_pad)
+            first = self._run_step(key, inp, tokens=tokens, lengths=lengths,
+                                   slot_ids=slot_ids)
         except Exception as e:
             log.exception("prefill tick failed (%d prompts)", n)
             self._tick_failed(e, [f for _p, f in reqs], slots)
@@ -409,7 +458,8 @@ class GenerateScheduler:
             tokens[i] = slot.last
             pos[i] = slot.pos
         try:
-            nxt = self._decode_fn(self._cache, tokens, pos)
+            key, inp = self._decode_step()
+            nxt = self._run_step(key, inp, tokens=tokens, pos=pos)
         except Exception as e:
             log.exception("decode tick failed (%d slots)", len(active))
             self._tick_failed(e, [], [])
@@ -422,9 +472,9 @@ class GenerateScheduler:
             self._deliver(i, slot)
 
     def _tick_failed(self, e, futs, extra_free):
-        """A failed tick may have written part of the cache: fail the
-        tick's own futures and every active slot, then start from a fresh
-        zero cache so NEW prompts keep being served."""
+        """A failed tick (or a failed build of its step) may have written
+        part of the cache: fail the tick's own futures and every active
+        slot, then zero the cache so NEW prompts keep being served."""
         failed = list(futs)
         for i, slot in self._active():
             failed.append(slot.fut)
@@ -531,59 +581,67 @@ class GenerateScheduler:
         return False
 
 
-def _draw(logits, knobs, position):
+def _draw(logits, knobs, position, sample):
     """Tokens from ``logits`` per the rows' sampling knobs ``(temperature,
     top_k, top_p, seed)``, the draw for a token at ``position`` keyed on
-    ``(seed, position)``; all rows greedy skips the sampler (the result
-    is the same argmax)."""
-    temperature, top_k, top_p, seed = knobs
-    if not (np.asarray(temperature) > 0).any():
-        return torch.argmax(logits, dim=-1)
-    dev = logits.device
-    return sample_tokens(logits, _tensor(temperature, dev, torch.float32),
-                         _tensor(top_k, dev),
-                         _tensor(top_p, dev, torch.float32),
-                         _tensor(seed, dev), position)
+    ``(seed, position)``.  ``sample`` is part of the step's shape key:
+    when every row is greedy the step skips the sampler (the result is
+    the same argmax) and its vocabulary-wide sort."""
+    if not sample:
+        return _argmax(logits)
+    return sample_tokens(logits, *knobs, position)
+
+
+#: the sampling knobs of a paged step: name and dtype, one per row
+_KNOBS = (("temperature", _F32), ("top_k", _I32), ("top_p", _F32),
+          ("seed", _I32))
+#: their values on a greedy row
+_GREEDY = dict(temperature=0.0, top_k=0, top_p=1.0, seed=0)
 
 
 def paged_generate_steps(model):
-    """The step triple for PAGED generation:
+    """The step triple for PAGED generation; the first two take int32
+    (knobs: fp32 temperature and top_p) device tensors, write the pool in
+    place and return the drawn tokens (int32) and the logits they were
+    drawn from:
 
     - ``chunk_prefill(pool, tokens (B, Tc), start (B,), lengths (B,),
-      tables (B, MB), temperature, top_k, top_p, seed) -> first (B,)``:
-      one prompt chunk per row scattered through the tables; row ``i``'s
-      token is drawn from its last valid chunk position (meaningful only
-      for rows whose chunk completes the prompt).
+      tables (B, MB), temperature, top_k, top_p, seed, sample=...) ->
+      (first (B,), logits (B, V))``: one prompt chunk per row scattered
+      through the tables; row ``i``'s token is drawn from its last valid
+      chunk position (meaningful only for rows whose chunk completes the
+      prompt).
     - ``decode(pool, tokens (S,), pos (S,), tables (S, MB), temperature,
-      top_k, top_p, seed) -> next (S,)``: one step over the slot pool.
+      top_k, top_p, seed, sample=...) -> (next (S,), logits (S, V))``:
+      one step over the slot pool.
     - ``copy_block(pool, src, dst)``: the copy-on-write block copy, over
-      every leaf of the pool (an int8 pool's scales included).
+      every leaf of the pool (an int8 pool's scales included), with
+      Python int block ids.
 
     The pool carries its own layout (fp32, or int8 payloads plus
     scales), so one triple serves both.  The draw for the token at
     position ``p`` is keyed on ``(seed, p)``, so a request replays
     identically however it was chunked or slotted.
     """
-    dev = model.device
 
     @torch.no_grad()
-    def chunk_prefill(pool, tokens, start, lengths, tables, *knobs):
-        start_t, len_t = _tensor(start, dev), _tensor(lengths, dev)
-        logits, _ = model.apply_paged(_tensor(tokens, dev), pool,
-                                      _tensor(tables, dev), pos=start_t,
-                                      lengths=len_t)
-        row = _last_valid_row(logits, len_t)
+    def chunk_prefill(pool, tokens, start, lengths, tables, temperature,
+                      top_k, top_p, seed, sample):
+        logits, _ = model.apply_paged(tokens, pool, tables, pos=start,
+                                      lengths=lengths)
+        row = _last_valid_row(logits, lengths)
         # the drawn token OCCUPIES position start + lengths
-        first = _draw(row, knobs, start_t + len_t)
-        return first.cpu().numpy().astype(np.int32)
+        return _draw(row, (temperature, top_k, top_p, seed),
+                     start + lengths, sample), row
 
     @torch.no_grad()
-    def decode(pool, tokens, pos, tables, *knobs):
-        pos_t = _tensor(pos, dev)
-        logits, _ = model.apply_paged(_tensor(tokens, dev)[:, None], pool,
-                                      _tensor(tables, dev), pos=pos_t)
-        nxt = _draw(logits[:, 0], knobs, pos_t + 1)
-        return nxt.cpu().numpy().astype(np.int32)
+    def decode(pool, tokens, pos, tables, temperature, top_k, top_p, seed,
+               sample):
+        logits, _ = model.apply_paged(tokens[:, None], pool, tables,
+                                      pos=pos)
+        row = logits[:, 0]
+        return _draw(row, (temperature, top_k, top_p, seed), pos + 1,
+                     sample), row
 
     @torch.no_grad()
     def copy_block(pool, src, dst):
@@ -633,7 +691,10 @@ class PagedGenerateScheduler(GenerateScheduler):
     - ``cache_dtype=torch.int8`` stores the pool as int8 payloads plus
       one fp32 scale per (position, head) vector, decoded through K3q;
       the allocator namespaces its prefix hashes by the pool's dtype and
-      reports the bytes measured from the pool's tensors.
+      reports the bytes measured from the pool's tensors;
+    - the built steps are the decode step and one chunk prefill per
+      admission rung, each greedy and sampled; the copy-on-write block
+      copy runs eagerly (rare, and its block ids are Python ints).
     """
 
     supports_sampling = True
@@ -678,13 +739,15 @@ class PagedGenerateScheduler(GenerateScheduler):
     def _setup_steps(self):
         self._chunk_fn, self._decode_fn, self._copy_fn = \
             paged_generate_steps(self.model)
-        self._reset_pool()
+        self._graphs = StepGraphs(self.model.device)
+        self._cache = self.model.init_paged_cache(
+            self.num_blocks, self.block_size, self._cache_dtype)
+        self._alloc = self._make_alloc()
 
     def _reset_pool(self):
         # a failed tick may have written part of the pool: every cached
         # prefix block's content goes with it (fresh allocator)
-        self._cache = self.model.init_paged_cache(
-            self.num_blocks, self.block_size, self._cache_dtype)
+        _zero_(self._cache)
         self._alloc = self._make_alloc()
 
     def kv_dtype(self) -> str:
@@ -693,10 +756,10 @@ class PagedGenerateScheduler(GenerateScheduler):
         return _KV_DTYPES[self._cache_dtype]
 
     def _make_alloc(self):
-        """The allocator for the pool just allocated: it learns the
-        pool's storage dtype (prefix hashes never cross formats) and the
-        device bytes behind one addressable block, measured from every
-        leaf of the pool, scales included."""
+        """The allocator for the pool: it learns the pool's storage dtype
+        (prefix hashes never cross formats) and the device bytes behind
+        one addressable block, measured from every leaf of the pool,
+        scales included."""
         return BlockAllocator(
             self.num_blocks, self.block_size, kv_dtype=self.kv_dtype(),
             bytes_per_block=_tree_bytes(self._cache)
@@ -709,29 +772,61 @@ class PagedGenerateScheduler(GenerateScheduler):
         st["prefill_chunk"] = self.prefill_chunk
         return st
 
-    @staticmethod
-    def _knobs(n):
-        return (np.zeros((n,), np.float32), np.zeros((n,), np.int32),
-                np.ones((n,), np.float32), np.zeros((n,), np.int32))
+    # ----- the built steps ------------------------------------------------- #
+    def _paged_inputs(self, key, rows, *fields):
+        """Static inputs of ``rows`` table rows: ``fields`` (name, shape)
+        int32, the tables and the sampling knobs."""
+        mb = self.max_blocks_per_seq
+        return self._graphs.inputs(key, [
+            *((name, shape, _I32) for name, shape in fields),
+            ("tables", (rows, mb), _I32),
+            *((name, (rows,), dt) for name, dt in _KNOBS)])
+
+    def _idle_inputs(self, **values):
+        """Idle inputs: every table entry the trash block, greedy knobs."""
+        return dict(values, tables=self._alloc.trash, **_GREEDY)
+
+    def _chunk_step(self, b, sample):
+        """The chunk prefill of ``b`` rows, built at first use."""
+        tc = self.prefill_chunk
+        inp = self._paged_inputs(("chunk", b, tc), b, ("tokens", (b, tc)),
+                                 ("start", (b,)), ("lengths", (b,)))
+        key = ("chunk", b, tc, "sampled" if sample else "greedy")
+        self._graphs.ensure(key, self._chunk_graph_fn(inp, sample), inp,
+                            self._idle_inputs(tokens=0, start=0, lengths=1))
+        return key, inp
+
+    def _chunk_graph_fn(self, inp, sample):
+        """What the chunk step runs (the speculative scheduler adds its
+        drafter's chunk)."""
+        return lambda: self._chunk_fn(self._cache, **inp.dev, sample=sample)
+
+    def _decode_step(self, sample):
+        s = self.slots
+        inp = self._paged_inputs(("decode", s), s, ("tokens", (s,)),
+                                 ("pos", (s,)))
+        key = ("decode", s, "sampled" if sample else "greedy")
+        self._graphs.ensure(
+            key, lambda: self._decode_fn(self._cache, **inp.dev,
+                                         sample=sample),
+            inp, self._idle_inputs(tokens=0, pos=0))
+        return key, inp
 
     def precompile(self) -> int:
-        """Warm-up: the decode step, one chunk prefill per admission rung
-        and the block copy, on a zero copy of the pool."""
-        dummy = self._dummy_cache()
-        s, mb = self.slots, self.max_blocks_per_seq
-        trash = self._alloc.trash
-        self._decode_fn(dummy, np.zeros((s,), np.int32),
-                        np.zeros((s,), np.int32),
-                        np.full((s, mb), trash, np.int32), *self._knobs(s))
-        runs = 1
-        for b in self.batch_ladder:
-            self._chunk_fn(dummy, np.zeros((b, self.prefill_chunk), np.int32),
-                           np.zeros((b,), np.int32), np.ones((b,), np.int32),
-                           np.full((b, mb), trash, np.int32),
-                           *self._knobs(b))
-            runs += 1
-        self._copy_fn(dummy, 0, 0)
-        return runs + 1
+        """Build every step before traffic, on the live pool with every
+        row on the trash block: the decode step and one chunk prefill
+        per admission rung, each greedy and sampled.  Returns the number
+        of steps built (on the card, CUDA graphs captured)."""
+        with self._step_lock, self._graphs.precompiling():
+            before = self._graphs.captured
+            self._precompile_steps()
+            return self._graphs.captured - before
+
+    def _precompile_steps(self):
+        for sample in (False, True):
+            self._decode_step(sample)
+            for b in self.batch_ladder:
+                self._chunk_step(b, sample)
 
     # ----- dispatcher ticks -------------------------------------------------- #
     def _release_slot(self, index, slot):
@@ -770,16 +865,29 @@ class PagedGenerateScheduler(GenerateScheduler):
             f.prefix_hit_tokens = cached
             self._slots[idx] = _PagedSlot(f, p, seq, cached, seed)
 
-    @staticmethod
-    def _fill_sampling(arrs, r, slot):
+    def _rows(self, n):
+        """Host arrays of one step's tables and knobs, every row idle."""
+        rows = {"tables": np.full((n, self.max_blocks_per_seq),
+                                  self._alloc.trash, np.int32)}
+        for name, dt in _KNOBS:
+            rows[name] = np.full((n,), _GREEDY[name], dt)
+        return rows
+
+    def _fill_row(self, rows, r, slot):
+        """Row ``r`` of ``rows``: the slot's table and sampling knobs."""
+        rows["tables"][r] = self._alloc.table_row(slot.seq,
+                                                  self.max_blocks_per_seq)
         sp = slot.fut.sampling
         if sp is None or sp.greedy:
             return
-        temp, top_k, top_p, seed = arrs
-        temp[r] = sp.temperature
-        top_k[r] = sp.top_k
-        top_p[r] = sp.top_p
-        seed[r] = slot.seed
+        rows["temperature"][r] = sp.temperature
+        rows["top_k"][r] = sp.top_k
+        rows["top_p"][r] = sp.top_p
+        rows["seed"][r] = slot.seed
+
+    @staticmethod
+    def _sampled(rows):
+        return bool((rows["temperature"] > 0).any())
 
     def _run_decode(self):
         """One dispatcher iteration: one chunk for every prefilling
@@ -790,34 +898,31 @@ class PagedGenerateScheduler(GenerateScheduler):
             self._run_decode_tick()
 
     def _run_chunk_tick(self):
-        rows = [(i, s) for i, s in self._active() if s.prefilling]
-        n = len(rows)
+        active = [(i, s) for i, s in self._active() if s.prefilling]
+        n = len(active)
         bucket = self.batch_ladder.bucket_for(n) or self.batch_ladder.add(n)
         tc = self.prefill_chunk
-        mb = self.max_blocks_per_seq
+        rows = self._rows(bucket)
         tokens = np.zeros((bucket, tc), np.int32)
         start = np.zeros((bucket,), np.int32)
         lens = np.zeros((bucket,), np.int32)
-        tables = np.full((bucket, mb), self._alloc.trash, np.int32)
-        knobs = self._knobs(bucket)
-        for r, (i, s) in enumerate(rows):
+        for r, (i, s) in enumerate(active):
             chunk = s.prompt[s.consumed:s.consumed + tc]
             tokens[r, :chunk.size] = chunk
             start[r] = s.consumed
             lens[r] = chunk.size
             self._cow_guard(s, s.consumed, s.consumed + chunk.size - 1)
-            tables[r] = self._alloc.table_row(s.seq, mb)
-            self._fill_sampling(knobs, r, s)
+            self._fill_row(rows, r, s)
         try:
-            first = self._chunk_fn(self._cache, tokens, start, lens, tables,
-                                   *knobs)
-            self._mirror_chunk(tokens, start, lens, tables, knobs)
+            key, inp = self._chunk_step(bucket, self._sampled(rows))
+            first = self._run_step(key, inp, tokens=tokens, start=start,
+                                   lengths=lens, **rows)
         except Exception as e:
             log.exception("chunk prefill tick failed (%d prompts)", n)
             self._tick_failed(e, [], [])
             return
         self._tick += 1
-        for r, (i, s) in enumerate(rows):
+        for r, (i, s) in enumerate(active):
             s.consumed += int(lens[r])
             # full prompt blocks now hold real K/V: register their hashes
             self._alloc.commit_full_blocks(s.seq, s.consumed)
@@ -829,20 +934,18 @@ class PagedGenerateScheduler(GenerateScheduler):
 
     def _run_decode_tick(self):
         s_n = self.slots
-        mb = self.max_blocks_per_seq
+        rows = self._rows(s_n)
         tokens = np.zeros((s_n,), np.int32)
         pos = np.zeros((s_n,), np.int32)
-        tables = np.full((s_n, mb), self._alloc.trash, np.int32)
-        knobs = self._knobs(s_n)
         active = [(i, s) for i, s in self._active() if not s.prefilling]
         for i, s in active:
             self._cow_guard(s, s.pos, s.pos)
             tokens[i] = s.last
             pos[i] = s.pos
-            tables[i] = self._alloc.table_row(s.seq, mb)
-            self._fill_sampling(knobs, i, s)
+            self._fill_row(rows, i, s)
         try:
-            nxt = self._decode_fn(self._cache, tokens, pos, tables, *knobs)
+            key, inp = self._decode_step(self._sampled(rows))
+            nxt = self._run_step(key, inp, tokens=tokens, pos=pos, **rows)
         except Exception as e:
             log.exception("decode tick failed (%d slots)", len(active))
             self._tick_failed(e, [], [])
@@ -853,11 +956,6 @@ class PagedGenerateScheduler(GenerateScheduler):
             s.last = int(nxt[i])
             s.tokens.append(s.last)
             self._deliver(i, s)
-
-    def _mirror_chunk(self, tokens, start, lens, tables, knobs):
-        """Hook for a second pool that must see every prompt chunk: none
-        here; the speculative scheduler replays the chunk through its
-        drafter's pool."""
 
     def _cow_guard(self, slot, first_pos, last_pos):
         """Copy-on-write over the blocks a write will touch: a shared
@@ -880,32 +978,32 @@ def speculative_verify_step(model):
     """The VERIFY step of speculative decoding (counterpart of
     ``speculative_verify_step``, JAX ``serving/generation.py:1263``).
 
-    ``verify(pool, last (S,), drafts (k arrays of (S,)), pos (S,), tables
-    (S, MB), temperature, top_k, top_p, seed) -> sampled (S, k + 1)``:
-    row ``i`` feeds ``[last, d_1 .. d_k]`` at positions ``pos .. pos + k``
-    through the chunk-prefill path (every position's K/V written, every
-    position's logits returned) and draws a token at EVERY position
-    ``pos + 1 .. pos + k + 1`` with the ``(seed, position)`` sampler of
-    plain decode.  Column ``j`` is therefore the token one decode step
-    would have drawn at ``pos + j + 1`` after the fed prefix.
+    ``verify(pool, last (S,), drafts (k, S), pos (S,), tables (S, MB),
+    temperature, top_k, top_p, seed, sample=...) -> (sampled (S, k + 1),
+    logits (S, k + 1, V))``, device tensors in and out: row ``i`` feeds
+    ``[last, d_1 .. d_k]``, assembled on the device as JAX does in-jit,
+    at positions ``pos .. pos + k`` through the chunk-prefill path (every
+    position's K/V written, every position's logits returned) and draws
+    a token at EVERY position ``pos + 1 .. pos + k + 1`` with the
+    ``(seed, position)`` sampler of plain decode.  Column ``j`` is
+    therefore the token one decode step would have drawn at ``pos + j +
+    1`` after the fed prefix.
     """
-    dev = model.device
 
     @torch.no_grad()
-    def verify(pool, last, drafts, pos, tables, *knobs):
-        tokens = np.stack([np.asarray(last)]
-                          + [np.asarray(d) for d in drafts], axis=1)
+    def verify(pool, last, drafts, pos, tables, temperature, top_k, top_p,
+               seed, sample):
+        tokens = torch.cat([last[:, None], drafts.t()], dim=1)
         k1 = tokens.shape[1]
-        pos_t = _tensor(pos, dev)
-        logits, _ = model.apply_paged(_tensor(tokens, dev), pool,
-                                      _tensor(tables, dev), pos=pos_t,
-                                      lengths=torch.full_like(pos_t, k1))
-        positions = pos_t[:, None] + 1 + torch.arange(
-            k1, dtype=torch.int32, device=dev)[None, :]
-        sampled = _draw(logits.reshape(-1, logits.shape[-1]),
-                        [np.repeat(np.asarray(a), k1) for a in knobs],
-                        positions.reshape(-1))
-        return sampled.reshape(tokens.shape).cpu().numpy().astype(np.int32)
+        logits, _ = model.apply_paged(tokens, pool, tables, pos=pos,
+                                      lengths=torch.full_like(pos, k1))
+        positions = pos[:, None] + 1 + torch.arange(
+            k1, dtype=torch.int32, device=pos.device)[None, :]
+        knobs = [a.repeat_interleave(k1)
+                 for a in (temperature, top_k, top_p, seed)]
+        sampled = _draw(logits.reshape(-1, logits.shape[-1]), knobs,
+                        positions.reshape(-1), sample)
+        return sampled.reshape(tokens.shape), logits
 
     return verify
 
@@ -924,13 +1022,20 @@ class SpeculativeScheduler(PagedGenerateScheduler):
     The drafter runs on its OWN pool, of the verifier's dtype, but both
     pools share ONE ``BlockAllocator``: prefix hits, copy-on-write
     detaches and evictions stay single-sourced (a copy-on-write copies
-    the block in both pools; every prompt chunk is mirrored into the
-    drafter's pool).  A rejected draft's K/V lies beyond the committed
-    frontier, masked until the next round overwrites it, and the
-    copy-on-write guard runs over the whole ``pos .. pos + k`` span
+    the block in both pools; every prompt chunk step also runs the chunk
+    through the drafter's pool).  A rejected draft's K/V lies beyond the
+    committed frontier, masked until the next round overwrites it, and
+    the copy-on-write guard runs over the whole ``pos .. pos + k`` span
     first.  Table rows carry ``ceil((spec_k + 1) / block_size)`` extra
     trash entries, so a round that overshoots a finishing sequence's
     reserved blocks writes into the trash block.
+
+    A round is ``spec_k + 2`` built steps on one set of static inputs:
+    draft ``j`` (``0 .. spec_k``) feeds ``last`` or draft ``j - 1`` at
+    ``pos + j``, all on the device, and writes its token into a static
+    ``(spec_k + 1, S)`` buffer; the verify reads the drafts from it and
+    returns them beside its own tokens in one ``(S, 2 spec_k + 1)``
+    tensor, the round's one device-to-host copy.
     """
 
     def __init__(self, model, draft_model, spec_k: int = 4, **kw):
@@ -949,20 +1054,27 @@ class SpeculativeScheduler(PagedGenerateScheduler):
         # no request can arrive before the constructor returns, so the
         # dispatcher never sees the narrower rows
         self.max_blocks_per_seq += -(-(self.spec_k + 1) // self.block_size)
+        self._drafts = torch.zeros((self.spec_k + 1, self.slots),
+                                   dtype=torch.int32,
+                                   device=self.model.device)
 
     def _setup_steps(self):
         super()._setup_steps()
         self._dchunk_fn, self._ddecode_fn, self._dcopy_fn = \
             paged_generate_steps(self.draft_model)
         self._verify_fn = speculative_verify_step(self.model)
+        self._dcache = self.draft_model.init_paged_cache(
+            self.num_blocks, self.block_size, self._cache_dtype)
+        self._alloc.bytes_per_block += self._draft_block_bytes()
+
+    def _draft_block_bytes(self):
+        """One addressable block is backed by both pools."""
+        return _tree_bytes(self._dcache) // (self.num_blocks + 1)
 
     def _reset_pool(self):
         super()._reset_pool()
-        self._dcache = self.draft_model.init_paged_cache(
-            self.num_blocks, self.block_size, self._cache_dtype)
-        # one addressable block is backed by both pools
-        self._alloc.bytes_per_block += _tree_bytes(self._dcache) \
-            // (self.num_blocks + 1)
+        _zero_(self._dcache)
+        self._alloc.bytes_per_block += self._draft_block_bytes()
 
     def cache_bytes(self) -> int:
         """Verifier pool + drafter pool."""
@@ -978,37 +1090,55 @@ class SpeculativeScheduler(PagedGenerateScheduler):
             if drafted else None}
         return st
 
-    def _mirror_chunk(self, tokens, start, lens, tables, knobs):
-        """Replay the verifier's prompt chunk through the drafter's pool
-        (same tables: the allocator is shared), so the drafter holds its
-        own K/V for every prompt position once the sequence decodes."""
-        self._dchunk_fn(self._dcache, tokens, start, lens, tables, *knobs)
+    def _chunk_graph_fn(self, inp, sample):
+        """The verifier's prompt chunk, then the same chunk through the
+        drafter's pool (same tables: the allocator is shared), so the
+        drafter holds its own K/V for every prompt position once the
+        sequence decodes."""
+        def fn():
+            out = self._chunk_fn(self._cache, **inp.dev, sample=sample)
+            self._dchunk_fn(self._dcache, **inp.dev, sample=sample)
+            return out
+        return fn
 
     def _copy_cow_block(self, src, dst):
         super()._copy_cow_block(src, dst)
         self._dcopy_fn(self._dcache, src, dst)
 
-    def precompile(self) -> int:
-        """The verifier's warm-up plus the drafter's decode, chunk rungs
-        and block copy and one verify, on zero copies of the pools."""
-        runs = super().precompile()
-        s, mb = self.slots, self.max_blocks_per_seq
-        tabs = np.full((s, mb), self._alloc.trash, np.int32)
-        zeros = np.zeros((s,), np.int32)
-        ddummy = _zeros_like(self._dcache)
-        self._ddecode_fn(ddummy, zeros, zeros, tabs, *self._knobs(s))
-        for b in self.batch_ladder:
-            self._dchunk_fn(ddummy, np.zeros((b, self.prefill_chunk),
-                                             np.int32),
-                            np.zeros((b,), np.int32), np.ones((b,), np.int32),
-                            np.full((b, mb), self._alloc.trash, np.int32),
-                            *self._knobs(b))
-            runs += 1
-        self._dcopy_fn(ddummy, 0, 0)
-        self._verify_fn(self._dummy_cache(), zeros,
-                        tuple(zeros for _ in range(self.spec_k)), zeros,
-                        tabs, *self._knobs(s))
-        return runs + 3
+    def _decode_step(self, sample):
+        """The keys of one round's ``spec_k + 2`` steps and their shared
+        static inputs, built at first use (the round takes the place of
+        the decode step)."""
+        s = self.slots
+        inp = self._paged_inputs(("round", s), s, ("last", (s,)),
+                                 ("pos", (s,)))
+        variant = "sampled" if sample else "greedy"
+        idle = self._idle_inputs(last=0, pos=0)
+        dev = inp.dev
+        knobs = {name: dev[name] for name, _ in _KNOBS}
+        keys = []
+        for j in range(self.spec_k + 1):
+            def draft(j=j):
+                fed = dev["last"] if j == 0 else self._drafts[j - 1]
+                tok, logits = self._ddecode_fn(
+                    self._dcache, fed, dev["pos"] + j, dev["tables"],
+                    **knobs, sample=sample)
+                self._drafts[j].copy_(tok)
+                return self._drafts[j], logits
+
+            keys.append(("draft", s, j, variant))
+            self._graphs.ensure(keys[-1], draft, inp, idle)
+
+        def verify():
+            drafts = self._drafts[:self.spec_k]
+            tok, logits = self._verify_fn(
+                self._cache, dev["last"], drafts, dev["pos"], dev["tables"],
+                **knobs, sample=sample)
+            return torch.cat([drafts.t(), tok], dim=1), logits
+
+        keys.append(("verify", s, variant))
+        self._graphs.ensure(keys[-1], verify, inp, idle)
+        return keys, inp
 
     def _run_decode_tick(self):
         """One draft/verify round over every decoding slot:
@@ -1022,11 +1152,9 @@ class SpeculativeScheduler(PagedGenerateScheduler):
            token are streamed (EOS or the token budget cut the run)."""
         s_n = self.slots
         k = self.spec_k
-        mb = self.max_blocks_per_seq
+        rows = self._rows(s_n)
         tokens = np.zeros((s_n,), np.int32)
         pos = np.zeros((s_n,), np.int32)
-        tables = np.full((s_n, mb), self._alloc.trash, np.int32)
-        knobs = self._knobs(s_n)
         active = [(i, s) for i, s in self._active() if not s.prefilling]
         for i, s in active:
             # the whole write span, clamped to the sequence's reserved
@@ -1036,24 +1164,20 @@ class SpeculativeScheduler(PagedGenerateScheduler):
             self._cow_guard(s, s.pos, max(s.pos, hi))
             tokens[i] = s.last
             pos[i] = s.pos
-            tables[i] = self._alloc.table_row(s.seq, mb)
-            self._fill_sampling(knobs, i, s)
+            self._fill_row(rows, i, s)
         try:
-            drafts = []
-            cur = tokens
-            for j in range(k + 1):
-                cur = self._ddecode_fn(self._dcache, cur, pos + j, tables,
-                                       *knobs)
-                if j < k:
-                    drafts.append(cur)
-            vtoks = self._verify_fn(self._cache, tokens, tuple(drafts), pos,
-                                    tables, *knobs)
+            keys, inp = self._decode_step(self._sampled(rows))
+            inp.set(last=tokens, pos=pos, **rows)
+            inp.upload()
+            for key in keys[:-1]:
+                self._graphs.run(key)
+            out = self._graphs.run(keys[-1])[0].cpu().numpy()
         except Exception as e:
             log.exception("speculative tick failed (%d slots)", len(active))
             self._tick_failed(e, [], [])
             return
         self._tick += 1
-        dtoks = np.stack(drafts, axis=1)
+        dtoks, vtoks = out[:, :k], out[:, k:]
         drafted = accepted = 0
         for i, s in active:
             drafted += k

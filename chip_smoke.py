@@ -28,14 +28,19 @@ Phases, each printing JSON lines:
 4. end to end: TransformerLM "small" (random weights from a seed) served
    by three engines -- paged (kernels), contiguous (kernels) and paged
    with the plain attention -- on the same greedy prompts, plus sampled
-   requests and ``predict``; every kernel's launch count must rise on
-   this main path, the greedy streams must agree and ``predict`` must
-   match the plain model;
+   requests and ``predict``; each engine builds its generation steps in
+   ``precompile()`` (one CUDA graph per shape) and serves by replaying
+   them; every kernel's launch count (counted through the replays) must
+   rise on this main path, the greedy streams must agree and ``predict``
+   must match the plain model;
 5. served steps: one more greedy burst through the two kernel engines in
-   which every step the model serves is also run by the plain model on a
-   copy of the cache taken before it, logits held to 1e-4.  With random
-   weights the greedy streams repeat a few tokens, so equal streams
-   alone show little; these logits carry the evidence;
+   which every replay of a built step is also run by the plain model's
+   step on a copy of the cache taken just before it, the logits of real
+   rows held to 1e-4.  With random weights the greedy streams repeat a
+   few tokens, so equal streams alone show little; these logits carry
+   the evidence.  Then each engine's graphs row: steps built in
+   ``precompile()`` and after it (held at 0), replays, the host's launch
+   calls per decode tick (profiler), tokens/s, TTFT and peak memory;
 6. training kernels: K4 ``fused_softmax_cross_entropy`` and K5 (its
    backward) at the training step's (8192, 32000) fp32 logits, and
    K1-bwd ``flash_attention_bwd`` at B8 H12 D64 causal, T 1024 and a
@@ -72,12 +77,15 @@ Phases, each printing JSON lines:
    through three engines: (a) ``kv_cache_dtype="int8"``; (b)
    ``quantize=True`` with an ``accuracy_gate``, fp32 KV; (c)
    ``speculative=4`` over int8 KV.  Held: K3q launched by (a) and (c), K3
-   never by (a); every step (a) serves against the plain model on a copy
-   of its int8 pool (1e-4); the int8 pool's allocator-measured bytes per
-   block at 136/512 of the fp32 pool's; the gate's measured agreement and
-   RMSE within the stated tolerances, and a gate at half the measured
-   RMSE refusing the engine; (c)'s greedy streams equal to (a)'s (the
-   fp32 model decoding alone over int8 KV) except at stated near-ties.
+   never by (a), counted through the replays; every replay of (a) and of
+   (c)'s verifier against the plain model on a copy of the pool (1e-4;
+   the twin's steps, in (b) and (c)'s drafter, are not reproducible run
+   to run: ``check_replays``); each engine's graphs row, as phase 5; the
+   int8 pool's allocator-measured bytes per block at 136/512 of the fp32
+   pool's; the gate's measured agreement and RMSE within the stated
+   tolerances, and a gate at half the measured RMSE refusing the engine;
+   (c)'s greedy streams equal to (a)'s (the fp32 model decoding alone
+   over int8 KV) except at stated near-ties.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -455,53 +463,93 @@ def clone_tree(tree):
             for name, layer in tree.items()}
 
 
-def served_step_errors(engines, model, plain, prompts, max_new):
-    """Phase 5: one greedy burst through the paged and the contiguous
-    kernel engines, in which every step the model serves (chunk prefill
-    and decode through the pool, prefill and decode through the cache) is
-    also run by the plain model on a copy of the cache taken just before
-    it.  Only the logits of real tokens are held: a padding row or token
-    reads the trash block or trash row, where duplicate writes land in
-    no set order.  Returns the largest abs logit error of each kind of
-    step and the two engines' streams."""
+#: knob names of a paged step's static inputs
+KNOBS = ("temperature", "top_k", "top_p", "seed")
+
+
+def check_replays(gen, ref, note):
+    """Phases 5 and 9: wrap the scheduler ``gen``'s step runner so that
+    every replay of a built step is also run eagerly by model ``ref``'s
+    own step on a copy of the pool taken just before the replay, on the
+    same static inputs, and the logits of its real rows are passed to
+    ``note(kind, replayed, reference)``.  A padding row reads the trash
+    block or row, where duplicate writes land in no set order, so it is
+    not held.  A speculative scheduler's drafter steps are not held: the
+    int8 twin takes one activation scale over every row of a step, the
+    padding rows' included, so even two eager runs of the same drafter
+    step differ (``max abs`` 0.07-0.39 on "small"; PERF.md, PR 8).
+    Returns the function that unwraps."""
+    from bigdl_tpu_torch.serving import generation as g
+
+    graphs = gen._graphs
+    run = graphs.run
+    paged = hasattr(gen, "block_size")
+    if paged:
+        chunk, decode, _ = g.paged_generate_steps(ref)
+        trash = gen._alloc.trash
+    else:
+        prefill, cdecode = g.generate_steps(ref)
+    if hasattr(gen, "spec_k"):
+        verify = g.speculative_verify_step(ref)
+
+    def checked(key):
+        inp = graphs.step(key).inputs.dev
+        kind, sample = key[0], key[-1] == "sampled"
+        if kind == "draft":
+            return run(key)
+        knobs = {n: inp[n] for n in KNOBS if n in inp}
+        before = clone_tree(gen._cache)
+        out = run(key)
+        with torch.no_grad():
+            if kind == "chunk":
+                want = chunk(before, **inp, sample=sample)[1]
+                real, kind = inp["lengths"] > 0, "paged_chunk_prefill"
+            elif kind == "decode" and paged:
+                want = decode(before, **inp, sample=sample)[1]
+                real, kind = inp["tables"][:, 0] != trash, "paged_decode"
+            elif kind == "prefill":
+                want = prefill(before, **inp)[1]
+                real = inp["slot_ids"] != gen._trash
+                kind = "contiguous_prefill"
+            elif kind == "decode":
+                want = cdecode(before, **inp)[1]
+                real = torch.arange(want.shape[0], device=want.device) \
+                    != gen._trash
+                kind = "contiguous_decode"
+            else:                                   # verify
+                want = verify(before, inp["last"], gen._drafts[:gen.spec_k],
+                              inp["pos"], inp["tables"], **knobs,
+                              sample=sample)[1]
+                real = inp["tables"][:, 0] != trash
+        note(kind, out[1][real], want[real])
+        return out
+
+    graphs.run = checked
+
+    def unwrap():
+        del graphs.run
+    return unwrap
+
+
+def served_step_errors(engines, refs, prompts, max_new):
+    """Phase 5 (and phase 9's check): one greedy burst through each engine
+    of ``engines`` (label -> engine) with ``check_replays`` on its
+    scheduler against ``refs[label]``, the plain model, logits held to
+    1e-4.  With random weights the greedy streams repeat a few tokens, so
+    equal streams alone show little; these logits carry the evidence.
+    Returns the largest abs logit error of each engine's kinds of step
+    and the streams."""
     errs = {}
 
-    def note(kind, got, want):
-        err = check_close(f"served {kind} logits", got, want)
-        errs[kind] = max(errs.get(kind, 0.0), err)
+    def noter(label):
+        def note(kind, got, want):
+            err = check_close(f"{label}: replayed {kind} logits", got, want)
+            errs.setdefault(label, {})
+            errs[label][kind] = max(errs[label].get(kind, 0.0), err)
+        return note
 
-    served_paged, served_forward = model.apply_paged, model.forward
-
-    def apply_paged(input, pool, tables, *, pos, lengths=None):
-        before = clone_tree(pool)
-        logits, pool = served_paged(input, pool, tables, pos=pos,
-                                    lengths=lengths)
-        want, _ = plain.apply_paged(input, before, tables, pos=pos,
-                                    lengths=lengths)
-        trash = next(iter(pool.values()))["k"].shape[0] - 1
-        keep = (tables[:, 0] != trash)[:, None]     # a padding row: all trash
-        if lengths is None:
-            kind = "paged_decode"
-        else:
-            kind = "paged_chunk_prefill"
-            steps = torch.arange(input.shape[1], device=keep.device)
-            keep = keep & (steps[None, :] < lengths[:, None])
-        note(kind, logits[keep], want[keep])
-        return logits, pool
-
-    def forward(input, cache=None, pos=None):
-        if cache is None:
-            return served_forward(input)
-        before = clone_tree(cache)
-        logits, cache = served_forward(input, cache=cache, pos=pos)
-        want, _ = plain(input, cache=before, pos=pos)
-        if pos is None:
-            note("contiguous_prefill", logits, want)
-        else:                           # the last row is the trash row
-            note("contiguous_decode", logits[:-1], want[:-1])
-        return logits, cache
-
-    model.apply_paged, model.forward = apply_paged, forward
+    unwraps = [check_replays(eng._gen, refs[label], noter(label))
+               for label, eng in engines.items()]
     streams = {}
     try:
         for label, eng in engines.items():
@@ -509,14 +557,73 @@ def served_step_errors(engines, model, plain, prompts, max_new):
                     for p in prompts]
             streams[label] = [f.result(600) for f in futs]
     finally:
-        del model.apply_paged, model.forward
-    kinds = [k for eng in engines.values()
-             for k in (("paged_chunk_prefill", "paged_decode")
-                       if eng.kv_cache == "paged"
-                       else ("contiguous_prefill", "contiguous_decode"))]
-    if sorted(errs) != sorted(kinds):
-        raise AssertionError(f"served steps checked: {sorted(errs)}")
+        for unwrap in unwraps:
+            unwrap()
+    for label, eng in engines.items():
+        kinds = {"paged_chunk_prefill", "verify"} \
+            if hasattr(eng._gen, "spec_k") \
+            else {"paged_chunk_prefill", "paged_decode"} \
+            if eng.kv_cache == "paged" \
+            else {"contiguous_prefill", "contiguous_decode"}
+        if set(errs.get(label, ())) != kinds:
+            raise AssertionError(f"{label}: replayed steps checked: "
+                                 f"{sorted(errs.get(label, ()))}, want "
+                                 f"{sorted(kinds)}")
     return errs, streams
+
+
+#: the host's launch calls (CUDA runtime and driver API), as the profiler
+#: names them: kernel launches, cluster launches and graph launches
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def host_calls_per_decode_tick(eng, prompt, new_tokens):
+    """The host's CUDA calls per decode tick (a speculative engine's: per
+    round), from two profiled requests of one prompt shorter than a KV
+    block (no prefix hit): one of ``new_tokens`` tokens less one of a
+    single token (its prefill alone), over their difference in ticks.
+    Returns the calls by name and the decode ticks counted."""
+    gen = eng._gen
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    counts = []
+    for n in (1, new_tokens):
+        ticks = gen.stats()["ticks"]
+        with torch.profiler.profile(activities=acts) as prof:
+            eng.generate(prompt, max_new_tokens=n).result(600)
+            torch.cuda.synchronize()
+        calls = collections.Counter(
+            e.name for e in prof.events()
+            if e.name in LAUNCH_CALLS or e.name.startswith("cudaMemcpy"))
+        counts.append((calls, gen.stats()["ticks"] - ticks))
+    (c1, t1), (cn, tn) = counts
+    ticks = tn - t1
+    per = {name: (cn[name] - c1[name]) / ticks for name in set(cn) | set(c1)}
+    return per, ticks
+
+
+def engine_graph_row(label, eng, built, bursts, card, prompt, **extra):
+    """One engine's row: steps built in ``precompile()`` and after it,
+    replays, the host's launch calls per decode tick, and the bursts'
+    tokens/s, TTFT and peak memory (``bursts``: rows of ``timed_burst``).
+    Fails if anything was built after ``precompile()``."""
+    graphs = eng.stats()["generate"]["graphs"]
+    if graphs["captured_after_precompile"]:
+        raise AssertionError(f"{label}: steps built after precompile(): "
+                             f"{graphs}")
+    calls, ticks = host_calls_per_decode_tick(eng, prompt, 17)
+    row = {"phase": "graphs", "engine": label, "captured_in_precompile":
+           built, **graphs,
+           "host_launches_per_decode_tick": sum(
+               calls.get(n, 0) for n in LAUNCH_CALLS),
+           "host_calls_per_decode_tick": calls, "decode_ticks_profiled":
+           ticks, "tokens_per_s": [b["tokens_per_s"] for b in bursts],
+           "ttft_median_s": [b["ttft_median_s"] for b in bursts],
+           "peak_memory_bytes": [b["peak_memory_bytes"] for b in bursts],
+           **extra, "card": card}
+    emit(row)
+    return row
 
 
 def serving_models():
@@ -547,7 +654,10 @@ def serving_prompts(seed):
 def timed_burst(eng, prompts, max_new, label, card, phase="e2e_generate",
                 **extra):
     """One burst of greedy requests, all submitted at once; emits and
-    returns its streams and tokens/s (host clock)."""
+    returns its streams and its row: tokens/s (host clock), TTFT and the
+    peak memory allocated during the burst."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     futs = [eng.generate(p, max_new_tokens=max_new) for p in prompts]
     out = [f.result(600) for f in futs]
@@ -559,9 +669,10 @@ def timed_burst(eng, prompts, max_new, label, card, phase="e2e_generate",
            "tokens_per_s": n_tok / wall,
            "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
            "prefix_hit_tokens": sum(f.prefix_hit_tokens for f in futs),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "card": card}
     emit(row)
-    return out, row["tokens_per_s"]
+    return out, row
 
 
 def e2e_phase(fa, card, model, plain_model):
@@ -587,19 +698,15 @@ def e2e_phase(fa, card, model, plain_model):
                                      decode_max_len=1024),
     }
     try:
-        for eng in engines.values():
-            eng.precompile()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        streams, sampled = {}, {}
+        built = {label: eng.precompile() for label, eng in engines.items()}
+        streams, sampled, bursts = {}, {}, {}
         fa.reset_launch_counts()
         # ---- the main path: counts read right after it ----------------
         # two rounds in turn (paged, contiguous, plain, paged, ...): the
         # first rounds' numbers carry the first use of each shape
-        tok_s = {}
         for rnd in (0, 1):
             for label, eng in engines.items():
-                streams[(label, rnd)], tok_s[(label, rnd)] = timed_burst(
+                streams[(label, rnd)], bursts[(label, rnd)] = timed_burst(
                     eng, prompts, max_new, label, card, round=rnd)
         eng = engines["paged"]
         for seed in (11, 12):
@@ -614,10 +721,16 @@ def e2e_phase(fa, card, model, plain_model):
         torch.cuda.synchronize()
         launches = {k: fa.LAUNCHES[k] for k in SERVING_KERNELS}
         # -----------------------------------------------------------------
-        peak = torch.cuda.max_memory_allocated()
+        peak = max(torch.cuda.max_memory_allocated(),
+                   *(r["peak_memory_bytes"] for r in bursts.values()))
         step_errs, streams5 = served_step_errors(
-            {k: engines[k] for k in ("paged", "contiguous")}, model,
-            plain_model, prompts5, max_new)
+            {k: engines[k] for k in ("paged", "contiguous")},
+            {"paged": plain_model, "contiguous": plain_model}, prompts5,
+            max_new)
+        for label, eng in engines.items():
+            engine_graph_row(label, eng, built[label],
+                             [bursts[(label, rnd)] for rnd in (0, 1)],
+                             card, prompts5[0][:8])
     finally:
         for e in engines.values():
             e.close()
@@ -656,7 +769,8 @@ def e2e_phase(fa, card, model, plain_model):
           "greedy_streams_equal": True,
           "distinct_greedy_tokens": len({t for s in streams5["paged"]
                                          for t in s}), "card": card})
-    return launches, [tok_s[("paged", rnd)] for rnd in (0, 1)]
+    return launches, [bursts[("paged", rnd)]["tokens_per_s"]
+                      for rnd in (0, 1)]
 
 
 def training_kernel_phase(fa, ce, card):
@@ -1159,7 +1273,7 @@ def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
         "c_speculative4_int8_kv": ServingEngine(
             model, speculative=4, kv_cache_dtype="int8", **kw),
     }
-    streams, tok_s = {}, {}
+    streams, bursts = {}, {}
     launches = {label: collections.Counter() for label in engines}
     try:
         detail = engines["b_int8_twin"]._gate_detail
@@ -1176,28 +1290,34 @@ def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
                 raise
         else:
             raise AssertionError("a gate at half the measured RMSE passed")
-        for eng in engines.values():
-            eng.precompile()
-        torch.cuda.synchronize()
+        built = {label: eng.precompile() for label, eng in engines.items()}
         # ---- the int8 serving path, engine by engine ----------------------
         for rnd in (0, 1):
             for label, eng in engines.items():
                 fa.reset_launch_counts()
-                streams[(label, rnd)], tok_s[(label, rnd)] = timed_burst(
+                streams[(label, rnd)], bursts[(label, rnd)] = timed_burst(
                     eng, prompts, SERVE_NEW, label, card,
                     phase="int8_generate", round=rnd,
                     fp32_paged_tokens_per_s=fp32_tok_s[rnd])
                 torch.cuda.synchronize()
                 launches[label].update(fa.LAUNCHES)
         # -------------------------------------------------------------------
-        peak = torch.cuda.max_memory_allocated()
+        peak = max(torch.cuda.max_memory_allocated(),
+                   *(r["peak_memory_bytes"] for r in bursts.values()))
+        tok_s = {k: r["tokens_per_s"] for k, r in bursts.items()}
         spec = engines["c_speculative4_int8_kv"]._gen.stats()["speculative"]
         ratio = pool_bytes_per_block(engines["a_int8_kv"]) \
             / pool_bytes_per_block(engines["b_int8_twin"])
         twin_bytes = engines["b_int8_twin"].serving_model_bytes()
+        # not the twin's steps: see check_replays
         step_errs, _ = served_step_errors(
-            {"a_int8_kv": engines["a_int8_kv"]}, model, plain_model,
+            {k: engines[k] for k in ("a_int8_kv", "c_speculative4_int8_kv")},
+            {"a_int8_kv": plain_model, "c_speculative4_int8_kv": plain_model},
             prompts_check, SERVE_NEW)
+        for label, eng in engines.items():
+            engine_graph_row(label, eng, built[label],
+                             [bursts[(label, rnd)] for rnd in (0, 1)],
+                             card, prompts_check[0][:8])
     finally:
         for e in engines.values():
             e.close()
