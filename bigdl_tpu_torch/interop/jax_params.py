@@ -2,11 +2,12 @@
 int8-quantized, with numpy leaves (``jax.tree.map(np.asarray,
 params)``), into the port's modules;
 and the optimizer-state bridge, so a JAX run can be carried across
-mid-training.
+mid-training, for every method of ``optim.optim_method``.
 
 Both JAX layouts load: the unrolled ``"block{i}"`` keys map onto the
 port's blocks directly, and the ``scan_layers`` layout's stacked
-``"blocks"`` entry is unstacked first.  Keys and shapes are checked
+``"blocks"`` entry is unstacked first (a ``Fused`` state's flat vectors
+are reordered, given the parameter tree).  Keys and shapes are checked
 leaf by leaf (``Module.load_parameters_tree``).
 """
 
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.nn.attention import unstack_block_params
-from bigdl_tpu_torch.optim.optim_method import SGD, Adam
+from bigdl_tpu_torch.optim.optim_method import (CompositeOptimMethod, Fused,
+                                                ravel_order)
 from bigdl_tpu_torch.utils.device import resolve_device
 
 
@@ -45,35 +47,109 @@ def _flatten(tree, prefix=""):
     return flat
 
 
-def _slots(optim_method):
-    """The per-parameter state trees a method keeps."""
-    if isinstance(optim_method, Adam):
-        return ("m", "v")
-    if isinstance(optim_method, SGD):
-        return ("velocity",) if optim_method.momentum > 0 else ()
-    raise NotImplementedError(
-        f"{type(optim_method).__name__}: only SGD and Adam states carry "
-        f"across so far")
+def _ravel_leaves(tree, path=()):
+    """``(path, leaf)`` in ``jax.flatten_util.ravel_pytree``'s order:
+    dict keys sorted at every level."""
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            yield from _ravel_leaves(val, (*path, key))
+        else:
+            yield (*path, key), val
 
 
-def load_jax_opt_state(optim_method, jax_state, device=None):
-    """A JAX ``Adam`` / ``SGD`` state tree (``neval`` and ``m``/``v`` or
-    ``velocity``, numpy or JAX leaves, either parameter layout) -> the
-    port's state, set as ``optim_method.state`` (where
-    ``Optimizer.optimize()`` starts from) and returned.  ``device=None``
-    means the CUDA card."""
-    device = resolve_device(device)
-    slots = _slots(optim_method)
-    extra = sorted(set(jax_state) - {"neval", *slots})
-    missing = sorted({"neval", *slots} - set(jax_state))
+def _unrolled_ravel(flat, jax_params):
+    """A flat vector that ``ravel_pytree`` laid out over ``jax_params``
+    (either layout), reordered as it lies over the unrolled tree
+    (``ravel_order`` of the port's names).  In the ``scan_layers`` layout
+    each stacked ``blocks`` leaf is one segment holding every layer's
+    values in turn, where the unrolled tree puts ``block{i}`` subtrees
+    apart: the sizes match, the positions do not."""
+    flat = np.asarray(flat)
+    pieces, at = {}, 0
+    for path, leaf in _ravel_leaves(jax_params):
+        shape = tuple(leaf.shape)
+        n = int(np.prod(shape))
+        seg = flat[at:at + n]
+        at += n
+        if path[0] == "blocks":
+            for i, layer in enumerate(seg.reshape(shape[0], -1)):
+                pieces[".".join((f"block{i}", *path[1:]))] = layer
+        else:
+            pieces[".".join(path)] = seg
+    if at != flat.size:
+        raise ValueError(f"Fused state of {flat.size} values against "
+                         f"parameters of {at}")
+    return np.concatenate([pieces[k] for k in ravel_order(pieces)])
+
+
+def _tensor(leaf, dtype, device):
+    return torch.as_tensor(np.array(leaf), dtype=dtype, device=device)
+
+
+def _state(method, jax_state, prefix, device, jax_params=None):
+    """One method's state from its JAX tree; parameter names start with
+    ``prefix`` (a composite's subtree path).  ``jax_params``: the tree a
+    top-level ``Fused`` state was raveled over."""
+    if isinstance(method, CompositeOptimMethod):
+        keys = ["/".join(p) for _, p, _ in method.assignments]
+        _check_keys(method, jax_state, keys)
+        return {"/".join(p): _state(m, jax_state["/".join(p)],
+                                    ".".join(p), device)
+                for _, p, m in method.assignments}
+    keys = ["neval", *method.slots]
+    if getattr(getattr(method, "schedule", None), "stateful", False):
+        keys.append("lr_factor")
+    _check_keys(method, jax_state, keys)
+    schedule = getattr(method, "schedule", None)
+    if schedule is not None:
+        schedule.place(device)
+    state = {"neval": _tensor(jax_state["neval"], torch.int32, device)}
+    if "lr_factor" in jax_state:
+        state["lr_factor"] = _tensor(jax_state["lr_factor"], torch.float32,
+                                     device)
+    for slot in method.slots:
+        tree = jax_state[slot]
+        if isinstance(method, Fused) and jax_params is not None:
+            tree = _unrolled_ravel(tree, jax_params)
+        if isinstance(method, Fused) or not isinstance(tree, dict):
+            # Fused: one flat vector in ravel_pytree's order; a composite
+            # path naming one parameter: that parameter's leaf
+            state[slot] = _tensor(tree, torch.float32, device)
+            continue
+        names = _flatten(to_port_tree(tree) if not prefix else tree)
+        state[slot] = {f"{prefix}.{name}" if prefix else name:
+                       _tensor(leaf, torch.float32, device)
+                       for name, leaf in names.items()}
+    return state
+
+
+def _check_keys(method, jax_state, keys):
+    extra = sorted(set(jax_state) - set(keys))
+    missing = sorted(set(keys) - set(jax_state))
     if extra or missing:
-        raise KeyError(f"{type(optim_method).__name__} state mismatch: "
+        raise KeyError(f"{type(method).__name__} state mismatch: "
                        f"missing {missing}, unexpected {extra}")
-    state = {"neval": int(np.asarray(jax_state["neval"]))}
-    for slot in slots:
-        state[slot] = {
-            name: torch.as_tensor(np.array(leaf), dtype=torch.float32,
-                                  device=device)
-            for name, leaf in _flatten(to_port_tree(jax_state[slot])).items()}
+
+
+def load_jax_opt_state(optim_method, jax_state, device=None,
+                       jax_params=None):
+    """A JAX optimizer state tree (numpy or JAX leaves, either parameter
+    layout) -> the port's state, set as ``optim_method.state`` (where
+    ``Optimizer.optimize()`` starts from) and returned.  Every method
+    loads: its slots by parameter name (``m``/``v``, ``velocity``,
+    ``accum``, ``accum_g``/``accum_dx``, ``m``/``u``,
+    ``accum``/``linear``), ``lr_factor`` under a stateful schedule,
+    ``Fused``'s flat vectors by position and a ``CompositeOptimMethod``'s
+    state per subtree; ``neval`` lands as a device int32.  ``device=None``
+    means the CUDA card.
+
+    A ``Fused`` state's flat vectors do not say which layout they were
+    raveled over, and the ``scan_layers`` layout orders them otherwise:
+    pass that run's parameter tree (any leaves with ``.shape``) as
+    ``jax_params``, and they are reordered to the unrolled layout.
+    Without it they load as the unrolled layout's."""
+    device = resolve_device(device)
+    state = _state(optim_method, jax_state, "", device, jax_params)
     optim_method.state = state
     return state

@@ -8,9 +8,9 @@ device):
 TransformerLM on the synthetic next-token corpus, trained by
 ``Optimizer(...).optimize()`` with
 ``TimeDistributedCriterion(FusedSoftmaxCrossEntropyCriterion())`` and
-Adam.  The flags and defaults are the JAX recipe's, plus ``--device``
-(default: the CUDA card; ``--device cpu`` runs the kernels' plain
-versions).  ``--sp``/``--pp`` above 1 raise: the model-parallel engines
+Adam.  The flags and defaults are the JAX recipe's (``--syncEvery k``:
+read the loss every k-th step only), plus ``--device`` (default: the
+CUDA card; ``--device cpu`` runs the kernels' plain versions).  ``--sp``/``--pp`` above 1 raise: the model-parallel engines
 are not ported yet; the JAX recipe's checkpoint, summary, prefetch,
 scan and remat flags wait with them (ROADMAP A1).
 """
@@ -44,6 +44,8 @@ def cmd_transformer_train(args):
     opt.set_end_when(optim.Trigger.max_epoch(args.max_epoch)
                      if args.max_iteration is None
                      else optim.Trigger.max_iteration(args.max_iteration))
+    if args.sync_every != 1:
+        opt.set_sync_every(args.sync_every)
     opt.optimize()
     return opt
 
@@ -61,6 +63,8 @@ def main(argv=None):
     p.add_argument("--maxIteration", type=int, default=None,
                    dest="max_iteration")
     p.add_argument("--synthN", type=int, default=2048, dest="synth_n")
+    p.add_argument("--syncEvery", type=int, default=1, dest="sync_every",
+                   help="block on the device loss every k-th step only")
     p.add_argument("--vocab", type=int, default=256)
     p.add_argument("--seq-len", type=int, default=64, dest="seq_len")
     p.add_argument("--size", default="tiny",

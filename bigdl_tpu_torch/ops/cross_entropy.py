@@ -19,17 +19,23 @@ Each wrapper sends CPU tensors to its ``*_reference`` version and CUDA
 tensors to its kernel, and raises on anything the kernel does not take.
 Unlike the TPU kernels, the CUDA kernels take any N and V (the ragged
 vocabulary end is masked in the kernel, no padding copy).  ``LAUNCHES``
-counts kernel launches per wrapper.
+counts kernel launches per wrapper, through ``flash_attention``'s
+``count_launch`` (so a graph capture records them, whatever thread
+launches, and each replay adds them).
 """
 
 import torch
 
 from bigdl_tpu_torch.ops import _build
-from bigdl_tpu_torch.ops.flash_attention import _raise_on, _stream
+from bigdl_tpu_torch.ops.flash_attention import (_raise_on, _stream,
+                                                  count_launch,
+                                                  register_launch_table)
 
 #: kernel launches per wrapper since the last ``reset_launch_counts()``
 LAUNCHES = {"fused_softmax_cross_entropy": 0,
             "fused_softmax_cross_entropy_bwd": 0}
+
+register_launch_table("cross_entropy", LAUNCHES)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -129,7 +135,7 @@ def fused_softmax_cross_entropy_fwd(logits, labels):
         logits.data_ptr(), y.data_ptr(), loss.data_ptr(), lse.data_ptr(),
         _DTYPES[logits.dtype], n, v, logits.stride(0), _stream())
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    count_launch("cross_entropy", name)
     return loss, lse
 
 
@@ -156,7 +162,7 @@ def fused_softmax_cross_entropy_bwd(logits, labels, lse, g):
         dx.data_ptr(), _DTYPES[logits.dtype], n, v, logits.stride(0),
         dx.stride(0), _stream())
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    count_launch("cross_entropy", name)
     return dx
 
 

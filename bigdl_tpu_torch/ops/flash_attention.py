@@ -22,9 +22,12 @@ tensor to its kernel; it raises on anything the kernel does not take
 (there is no fallback).  ``LAUNCHES`` counts kernel launches per wrapper,
 so a run can show that its main path went through the kernels, and
 ``BF16_LAUNCHES`` the bf16 share of K1's and K1-bwd's.  A CUDA graph
-capture issues no launch: inside ``deferred_launch_counts()`` a thread's
-wrappers record what they would have counted, and every replay of the
-graph adds that record (``add_launch_counts``).
+capture issues no launch: inside ``deferred_launch_counts()`` every
+launch issued to the capturing stream, from any thread (the autograd
+engine runs a backward on a thread of its own, on the stream its forward
+ran on), is recorded instead of counted, and every replay of the graph
+adds that record (``add_launch_counts``).  ``ops/cross_entropy.py``
+counts through the same machinery (``count_launch``).
 
 Unlike the TPU kernels, the CUDA kernels mask ragged edges themselves:
 any sequence length, cache length and block size is taken.
@@ -34,7 +37,6 @@ import contextlib
 import ctypes
 import functools
 import math
-import threading
 
 import torch
 
@@ -52,8 +54,17 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-#: per thread: the record that launches go to while a graph is captured
-_deferred = threading.local()
+#: count tables by name: a record keeps its launches under these names
+_TABLES = {"flash_attention": LAUNCHES, "flash_attention_bf16": BF16_LAUNCHES}
+#: capturing stream (its ``cuda_stream`` handle) -> the record its
+#: launches go to
+_recording = {}
+
+
+def register_launch_table(table, counts):
+    """Count under the name ``table`` into ``counts``, a dict of kernel
+    name -> launches, for ``count_launch`` and the records."""
+    _TABLES[table] = counts
 
 
 def reset_launch_counts():
@@ -62,33 +73,51 @@ def reset_launch_counts():
             counts[name] = 0
 
 
+def count_launch(table, name):
+    """One launch of kernel ``name`` into count table ``table``, or into
+    the record of the current stream while it is being captured."""
+    counts = _TABLES[table]
+    if _recording:
+        record = _recording.get(torch.cuda.current_stream().cuda_stream)
+        if record is not None:
+            counts = record.setdefault(table, {})
+    counts[name] = counts.get(name, 0) + 1
+
+
 def _count_launch(name, dtype):
-    counts = getattr(_deferred, "record", None) or (LAUNCHES, BF16_LAUNCHES)
-    counts[0][name] = counts[0].get(name, 0) + 1
+    count_launch("flash_attention", name)
     if dtype == torch.bfloat16 and name in BF16_LAUNCHES:
-        counts[1][name] = counts[1].get(name, 0) + 1
+        count_launch("flash_attention_bf16", name)
 
 
 @contextlib.contextmanager
 def deferred_launch_counts():
-    """Launches this thread's wrappers make inside the block are recorded
-    in the yielded ``(launches, bf16_launches)`` dicts instead of
-    ``LAUNCHES`` and ``BF16_LAUNCHES``: under CUDA graph capture nothing
-    is launched until the graph is replayed."""
-    record = ({}, {})
-    _deferred.record = record
+    """Launches issued to the current stream inside the block, by any
+    thread, are recorded in the yielded ``{table: {kernel: launches}}``
+    dict instead of counted: under CUDA graph capture nothing is launched
+    until the graph is replayed."""
+    handle = torch.cuda.current_stream().cuda_stream
+    record = {}
+    outer = _recording.get(handle)
+    _recording[handle] = record
     try:
         yield record
     finally:
-        _deferred.record = None
+        if outer is None:
+            del _recording[handle]
+        else:
+            _recording[handle] = outer
 
 
-def add_launch_counts(record):
-    """Count the launches of one replay of a graph whose capture recorded
-    ``record`` (``deferred_launch_counts``)."""
-    for counts, add in zip((LAUNCHES, BF16_LAUNCHES), record):
+def add_launch_counts(record, into=None):
+    """Add a ``deferred_launch_counts`` record to the count tables (the
+    launches of one replay of the graph whose capture recorded it), or,
+    with ``into``, to another record."""
+    for table, add in record.items():
+        counts = _TABLES[table] if into is None else \
+            into.setdefault(table, {})
         for name, n in add.items():
-            counts[name] += n
+            counts[name] = counts.get(name, 0) + n
 
 
 # --------------------------------------------------------------------------- #

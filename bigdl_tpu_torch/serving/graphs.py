@@ -21,9 +21,9 @@ A step is built against the scheduler's LIVE pool, whose tensors must
 therefore never be reallocated (the schedulers zero them in place).
 Before its capture it runs ``WARMUP_RUNS`` times on the capture stream
 with its inputs at the caller's idle values, which put every row on the
-trash block or trash row: the kernels' libraries, cuBLAS's workspace and
-the allocator's blocks for that stream come into being there, where a
-capture may not make them.
+trash block or trash row.  Capture, warm-up, the graph pool and the
+launch records are ``utils/cuda_graphs.py``'s, shared with the compiled
+training step.
 
 On the CPU, which serves only when the caller asks for it, nothing can be
 captured: a key is built by allocating its static inputs, and each run
@@ -33,24 +33,14 @@ checks hold on both devices.
 """
 
 import contextlib
-import threading
 
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.ops import flash_attention as fa
+from bigdl_tpu_torch.utils.cuda_graphs import (WARMUP_RUNS, Capturer,
+                                               capture_count, note_capture)
 
-#: eager runs of a step on the capture stream before it is captured
-WARMUP_RUNS = 2
-
-_captures = 0
-_captures_lock = threading.Lock()
-
-
-def capture_count() -> int:
-    """Generation steps built in this process (on the card: CUDA graphs
-    captured), the counterpart of JAX's ``backend_compile_count``."""
-    return _captures
+__all__ = ["WARMUP_RUNS", "StepGraphs", "StepInputs", "capture_count"]
 
 
 class StepInputs:
@@ -111,9 +101,7 @@ class StepGraphs:
         self.on_card = self.device.type == "cuda"
         self._inputs = {}
         self._steps = {}
-        self._pool = torch.cuda.graph_pool_handle() if self.on_card else None
-        self._stream = torch.cuda.Stream(self.device) if self.on_card \
-            else None
+        self._capturer = Capturer(self.device) if self.on_card else None
         self._warming = False
         #: shapes built in all, built outside ``precompile()``, and runs
         self.captured = 0
@@ -157,50 +145,17 @@ class StepGraphs:
             step = self._capture(fn, inputs)
         else:
             step = _Step(fn, inputs)
+        if not self.on_card:
+            note_capture()
         self._steps[key] = step
-        global _captures
-        with _captures_lock:
-            _captures += 1
         self.captured += 1
         if not self._warming:
             self.captured_after_precompile += 1
 
     def _capture(self, fn, inputs):
-        side = self._stream
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_RUNS):
-                fn()
-        side.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side), fa.deferred_launch_counts() as rec:
-            graph.capture_begin(pool=self._pool,
-                                capture_error_mode="thread_local")
-            try:
-                outputs = fn()
-            except BaseException:
-                self._abandon(graph)
-                raise
-            graph.capture_end()
+        self._capturer.warm_up(fn)
+        graph, outputs, rec = self._capturer.capture(fn)
         return _Step(fn, inputs, graph, outputs, rec)
-
-    def _abandon(self, graph):
-        """End a capture whose step raised; the step's error propagates.
-        An invalidated capture's ``capture_end`` can raise before the
-        allocator stops routing the pool to it, and the allocator then
-        refuses every later capture into that pool: the routing is ended
-        here and later captures take a fresh pool."""
-        try:
-            graph.capture_end()
-        except Exception:
-            pass
-        index = self.device.index if self.device.index is not None \
-            else torch.cuda.current_device()
-        try:
-            torch._C._cuda_endAllocateToPool(index, self._pool)
-        except Exception:
-            pass                    # capture_end had ended it
-        self._pool = torch.cuda.graph_pool_handle()
 
     def step(self, key) -> _Step:
         return self._steps[key]
@@ -214,6 +169,5 @@ class StepGraphs:
         self.replays += 1
         if step.graph is None:
             return step.fn()
-        step.graph.replay()
-        fa.add_launch_counts(step.launches)
+        Capturer.replay(step.graph, step.launches)
         return step.outputs

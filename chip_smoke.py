@@ -66,7 +66,22 @@ Phases, each printing JSON lines:
    against the fp32 run's, the loss falling, tokens/s and peak memory,
    (c) its launches: the bf16 K1 and K1-bwd 12 a step, K4 and K5 (on
    fp32 logits) one a step, no fp32 K1 and no call of the plain
-   attention (tolerances: ``BF16_*`` below);
+   attention (tolerances: ``BF16_*`` below).  Every step of both runs
+   (and of the plain model's) is one replay of the compiled step, one
+   CUDA graph per batch shape (``optim.CompiledTrainStep``): each run
+   builds one and replays it 8 times, and the kernels' launches are
+   counted through the replays.  For fp32 and for bf16 phase 7 then
+   shows (a) the same 8 batches through the eager ``make_train_step``
+   from the same weights: per-step losses and the parameters after them
+   within ``COMPILED_RTOL``, and whether they are bitwise equal; (b) the
+   host's CUDA calls a step (profiler: one ``cudaGraphLaunch``, no other
+   launch, plus copies) and no capture after a shape's first step; (d)
+   tokens/s and the device's idle share at ``set_sync_every`` 1 and 4;
+   and, in fp32, (e) two more 8-step runs, ``SGD(momentum=0.9)`` under
+   ``SequentialSchedule(Warmup, Poly)`` and a ``CompositeOptimMethod``
+   (SGD for the embedding table, Adam for every other subtree), their
+   ``LearningRate`` scalars held to the same formulas in float64 (1e-6
+   relative);
 8. int8 kernel: K3q, ``flash_paged_decode_attention`` on int8 pools with
    their fp32 scales (``ops.quantization.quantize_blockwise``), at phase
    3's K3 shapes, held against its plain version (1e-4) and timed beside
@@ -144,6 +159,11 @@ BF16_GRAD_REL_L2 = 5e-2
 #: ... and the bf16 losses (one batch, and each of the 8 steps) within
 #: 5e-3 of the fp32 kernel path's at the same weights and batches
 BF16_FP32_LOSS_RTOL = 5e-3
+#: phase 7 (a): the compiled step's per-step losses and its parameters
+#: after 8 steps against the eager step's from the same weights, relative
+#: (the same kernels in the same order; a capture may pick other library
+#: algorithms, which sum in another order)
+COMPILED_RTOL = {None: 1e-6, torch.bfloat16: 1e-5}
 #: phase 9: the accuracy gate of engine (b), the fp32 model against its
 #: int8 twin on 8 held-out sequences of 128 tokens.  Measured on the H100
 #: (PERF.md, the int8 findings): logit RMSE 0.0164, top-1 agreement 0.75
@@ -875,18 +895,294 @@ def training_kernel_phase(fa, ce, card):
 
 
 class _Losses:
-    """Train summary that keeps each step's loss and throughput."""
+    """Train summary that keeps each step's scalars (loss, throughput,
+    learning rates) by tag."""
 
     def __init__(self):
         self.scalars = {"Loss": [], "Throughput": []}
 
     def add_scalar(self, tag, value, step):
-        self.scalars[tag].append(value)
+        self.scalars.setdefault(tag, []).append(value)
+
+
+def union_us(intervals):
+    """Total length of the union of ``(start, end)`` intervals (us)."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def eager_vs_compiled(x, y, dtype, compiled_model, compiled_losses, card):
+    """Phase 7 (a): the main path's 8 batches (the dataset's first epoch,
+    in order) through the eager ``make_train_step`` on a second model
+    from the same weights (seed 0), against the compiled run's per-step
+    losses and its parameters after the 8 steps."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.models import transformer_lm
+
+    model = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                           seed=0)
+    adam = optim.Adam(learning_rate=1e-4)
+    state = adam.init_state(dict(model.named_parameters()))
+    step = optim.make_train_step(
+        model, nn.TimeDistributedCriterion(
+            nn.FusedSoftmaxCrossEntropyCriterion()), adam,
+        compute_dtype=dtype)
+    losses = []
+    for i in range(TRAIN_ITERS):
+        xb = torch.as_tensor(x[i * BATCH:(i + 1) * BATCH], device="cuda")
+        yb = torch.as_tensor(y[i * BATCH:(i + 1) * BATCH], device="cuda")
+        losses.append(step(state, xb, yb)[1].item())
+    step_rel = [abs(a - b) / abs(b) for a, b in zip(compiled_losses, losses)]
+    rel, bitwise = {}, compiled_losses == losses
+    with torch.no_grad():
+        for (name, pc), (_, pe) in zip(compiled_model.named_parameters(),
+                                       model.named_parameters()):
+            rel[name] = rel_l2(pc, pe)
+            bitwise = bitwise and torch.equal(pc, pe)
+    worst = max(rel, key=rel.get)
+    tol = COMPILED_RTOL[dtype]
+    row = {"phase": "train_compiled_vs_eager",
+           "compute_dtype": "bf16" if dtype else "fp32",
+           "eager_losses": losses, "compiled_losses": compiled_losses,
+           "max_step_loss_rel": max(step_rel), "worst_param": worst,
+           "worst_param_rel_l2": rel[worst], "bitwise_equal": bitwise,
+           "tolerance": tol, "card": card}
+    emit(row)
+    if len(compiled_losses) != TRAIN_ITERS or max(step_rel) > tol or \
+            rel[worst] > tol:
+        raise AssertionError(f"compiled step against eager: {row}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return row
+
+
+class StepClock:
+    """An end trigger that also marks ``opt``'s loop: the loop calls it
+    at the top of every step with its own state dict (the staging
+    probe passes a copy, which is not marked), and it ends the run after
+    ``steps`` steps counted from its first call.  At step ``i`` (0 = the
+    first; ``steps`` = the call that ends the run) it syncs the card when
+    ``i`` is in ``sync_at``, records the time and the captures so far in
+    ``marks[i]``, then runs ``then[i]()``.  Each ``optimize()`` builds its
+    compiled step anew, so the marks time and profile the steps after a
+    run's first one (its warm-up and capture) within that run."""
+
+    def __init__(self, opt, steps, sync_at=(), then=None):
+        self.opt, self.steps = opt, steps
+        self.sync_at, self.then = set(sync_at), then or {}
+        self.first, self.marks = None, {}
+
+    def __call__(self, state):
+        if self.first is None:
+            self.first = state["neval"]
+        i = state["neval"] - self.first
+        if state is self.opt.driver_state and i not in self.marks:
+            from bigdl_tpu_torch.utils import cuda_graphs
+
+            if i in self.sync_at:
+                torch.cuda.synchronize()
+            self.marks[i] = (time.perf_counter(),
+                             cuda_graphs.capture_count())
+            if i in self.then:
+                self.then[i]()
+        return i >= self.steps
+
+
+def compiled_step_rates(opt, label, card, steps=8, profiled=3):
+    """Phase 7 (b) and (d), continuing a trained optimizer without a train
+    summary, each run a fresh compiled step: in a run of ``profiled + 3``
+    steps, steps 3 to ``profiled + 2`` under the profiler (the host's CUDA
+    calls by name and the device's busy time, per step; captures after
+    the run's first step: 0; ``compiled``: the graphs each run captured);
+    then runs of ``steps + 1`` steps at
+    ``set_sync_every`` 1 and 4, timed over the ``steps`` after the first
+    (tokens/s, the idle share against the profiled busy time).  At the
+    end of the sync-1 run, with its graph alive, the memory it keeps:
+    the graph pool's bytes, and what the allocator reserves once its
+    cache is emptied, beside the run's peak allocation (its eager warm-up
+    included)."""
+    opt.set_train_summary(None)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
+    clock = StepClock(opt, profiled + 3, sync_at=(2, profiled + 2),
+                      then={2: prof.start, profiled + 2: prof.stop})
+    opt.set_end_when(clock)
+    opt.optimize()
+    torch.cuda.synchronize()
+    captures_after_first = clock.marks[profiled + 2][1] - clock.marks[1][1]
+    compiled = [opt.compiled_stats["captured"]]
+    calls = collections.Counter(
+        e.name for e in prof.events()
+        if e.name in LAUNCH_CALLS or e.name.startswith("cudaMemcpy"))
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = union_us([(e.time_range.start, e.time_range.end)
+                       for e in kernels]) / 1e6 / profiled
+    rates, memory = {}, {}
+
+    def keeps():
+        memory["allocated_bytes"] = torch.cuda.memory_allocated()
+        torch.cuda.empty_cache()
+        memory["reserved_with_graph_bytes"] = torch.cuda.memory_reserved()
+
+    for k in (1, 4):
+        opt.set_sync_every(k)
+        clock = StepClock(opt, steps + 1, sync_at=(1, steps + 1),
+                          then={steps + 1: keeps} if k == 1 else None)
+        opt.set_end_when(clock)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = (clock.marks[steps + 1][0] - clock.marks[1][0]) / steps
+        captures_after_first += clock.marks[steps + 1][1] - clock.marks[1][1]
+        compiled.append(opt.compiled_stats["captured"])
+        rates[k] = {"step_s": wall, "tokens_per_s": BATCH * SEQ / wall,
+                    "device_idle_share": 1.0 - busy_s / wall}
+        if k == 1:
+            memory.update(
+                graph_pool_bytes=opt.compiled_stats["pool_bytes"],
+                peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                peak_reserved_bytes=torch.cuda.max_memory_reserved())
+    opt.set_sync_every(1)
+    row = {"phase": "train_compiled_rates", "path": label,
+           "host_calls_per_step": {n: c / profiled for n, c in calls.items()},
+           "host_launches_per_step": sum(
+               calls.get(n, 0) for n in LAUNCH_CALLS) / profiled,
+           "device_kernels_per_step": len(kernels) / profiled,
+           "device_busy_s_per_step": busy_s,
+           "captures_after_first_step": captures_after_first,
+           "compiled": compiled,
+           "sync_every": {str(k): r for k, r in rates.items()},
+           "memory": memory, "card": card}
+    emit(row)
+    if row["captures_after_first_step"] or set(compiled) != {1} or \
+            calls.get("cudaGraphLaunch", 0) != profiled or any(
+                calls.get(n, 0) for n in LAUNCH_CALLS
+                if n != "cudaGraphLaunch") or not memory["graph_pool_bytes"]:
+        raise AssertionError(f"the compiled step relaunched or recaptured: "
+                             f"{row}")
+    return row
+
+
+def schedule_legs(fa, ce, card, x, y):
+    """Phase 7 (e): 8 compiled fp32 steps of "small" with ``SGD(momentum=
+    0.9)`` under ``SequentialSchedule(Warmup, Poly)``, and 8 with a
+    ``CompositeOptimMethod`` (SGD under ``Exponential`` for the embedding
+    table ``wte``, Adam with ``learning_rate_decay`` for every other
+    subtree).  Each step's ``LearningRate`` scalars against the same
+    formulas in float64 on the host (1e-6 relative), the launches through
+    replays, finite losses.  ``set_optim_methods`` by submodule names
+    refuses this model: ``wte``, ``wpe`` and ``head`` are its own leaves,
+    which no submodule name reaches (the reference's cover rule), so the
+    composite is built from paths."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.utils.errors import ConfigurationError
+
+    lr0, delta, warm, power, horizon = 0.01, 0.002, 3, 2.0, 50
+
+    def scheduled():
+        sched = optim.SequentialSchedule().add(optim.Warmup(delta), warm) \
+            .add(optim.Poly(power, horizon), 1000)
+        want = {"LearningRate": [
+            lr0 + delta * s if s < warm else
+            lr0 * (1.0 - (s - warm) / horizon) ** power
+            for s in range(1, TRAIN_ITERS + 1)]}
+        return optim.SGD(learning_rate=lr0, momentum=0.9,
+                         learning_rate_schedule=sched), want
+
+    def composite():
+        keys = ["wpe", "head", *(f"block{i}" for i in range(12)), "ln_f"]
+        adam = optim.Adam(learning_rate=1e-4, learning_rate_decay=0.01)
+        method = optim.CompositeOptimMethod(
+            [("embedding", ("wte",), optim.SGD(
+                learning_rate=0.05, momentum=0.9,
+                learning_rate_schedule=optim.Exponential(4, 0.5)))]
+            + [(k, (k,), adam) for k in keys])
+        # logged after each step: the rate of the step after it
+        steps = range(1, TRAIN_ITERS + 1)
+        want = {"LearningRate/embedding": [0.05 * 0.5 ** (s / 4)
+                                           for s in steps]}
+        want.update({f"LearningRate/{k}": [1e-4 / (1 + s * 0.01)
+                                           for s in steps] for k in keys})
+        return method, want
+
+    rows = []
+    for label, make in (("sgd_warmup_poly", scheduled),
+                        ("composite_sgd_embedding_adam_rest", composite)):
+        model = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                               seed=0)
+        crit = nn.TimeDistributedCriterion(
+            nn.FusedSoftmaxCrossEntropyCriterion())
+        method, want = make()
+        if label.startswith("composite"):
+            try:
+                optim.build_composite_method(
+                    model, dict(model.named_parameters()),
+                    {str(b.name): method for b in model.blocks})
+                raise AssertionError("set_optim_methods covered the model")
+            except ConfigurationError as e:
+                refusal = str(e)
+        opt = optim.Optimizer(model, array_dataset(x, y)
+                              >> SampleToMiniBatch(BATCH), crit, method)
+        opt.set_end_when(optim.Trigger.max_iteration(TRAIN_ITERS))
+        summary = _Losses()
+        opt.set_train_summary(summary)
+        fa.reset_launch_counts()
+        ce.reset_launch_counts()
+        opt.optimize()
+        torch.cuda.synchronize()
+        launches = {**fa.LAUNCHES, **ce.LAUNCHES}
+        worst = max(abs(g - w) / abs(w) for tag, ws in want.items()
+                    for g, w in zip(summary.scalars[tag], ws))
+        losses = summary.scalars["Loss"]
+        row = {"phase": "train_schedule_leg", "leg": label,
+               "losses": losses, "learning_rates": {
+                   tag: summary.scalars[tag][:TRAIN_ITERS]
+                   for tag in list(want)[:2]},
+               "max_lr_rel_err_vs_float64": worst,
+               "compiled": opt.compiled_stats["captured"],
+               "launches": {k: launches[k] for k in TRAIN_KERNELS},
+               "card": card}
+        if label.startswith("composite"):
+            row["set_optim_methods_refusal"] = refusal
+        emit(row)
+        if worst > 1e-6 or not all(np.isfinite(losses)) or \
+                len(losses) != TRAIN_ITERS or any(
+                    len(summary.scalars[t]) != TRAIN_ITERS for t in want) \
+                or row["launches"] != TRAIN_WANT or row["compiled"] != 1:
+            raise AssertionError(f"schedule leg {label}: {row}")
+        rows.append(row)
+        del model, opt, method
+        torch.cuda.empty_cache()
+    return rows
+
+
+#: the training path's kernels and their launches over phase 7's 8 steps
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd",
+                 "fused_softmax_cross_entropy",
+                 "fused_softmax_cross_entropy_bwd")
+TRAIN_WANT = {"flash_attention": 12 * TRAIN_ITERS,
+              "flash_attention_bwd": 12 * TRAIN_ITERS,
+              "fused_softmax_cross_entropy": TRAIN_ITERS,
+              "fused_softmax_cross_entropy_bwd": TRAIN_ITERS}
 
 
 def training_phase(fa, ce, card):
     """Phase 7: TransformerLM "small" trained through the kernels and
-    through the plain path on the same weights and batches."""
+    through the plain path on the same weights and batches, each step one
+    replay of the compiled step; then the compiled step against the eager
+    one, its host calls, rates and schedule legs."""
     from bigdl_tpu_torch import nn, optim
     from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
     from bigdl_tpu_torch.models import synthetic_corpus, transformer_lm
@@ -939,10 +1235,15 @@ def training_phase(fa, ce, card):
           "card": card})
     for model, _ in models.values():
         model.zero_grad(set_to_none=True)
-    del grads
+    # the last loss holds its autograd graph, whose gradient accumulators
+    # are bound to the stream of that eager forward: a captured backward
+    # would run them there
+    del grads, loss
 
     # (b) Optimizer.optimize() on both; (c) the kernel path's launches
-    runs = {}
+    from bigdl_tpu_torch.utils import cuda_graphs
+
+    runs, kept = {}, {}
     for label, (model, crit) in models.items():
         ds = array_dataset(x, y) >> SampleToMiniBatch(BATCH)
         opt = optim.Optimizer(model, ds, crit,
@@ -954,6 +1255,7 @@ def training_phase(fa, ce, card):
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
         ce.reset_launch_counts()
+        captures = cuda_graphs.capture_count()
         # ---- the training main path: counts read right after it --------
         t0 = time.perf_counter()
         opt.optimize()
@@ -961,6 +1263,9 @@ def training_phase(fa, ce, card):
         wall = time.perf_counter() - t0
         launches = {**fa.LAUNCHES, **ce.LAUNCHES}
         # -----------------------------------------------------------------
+        kept[label] = opt
+        compiled = dict(opt.compiled_stats,
+                        captures=cuda_graphs.capture_count() - captures)
         with torch.no_grad():   # the first batch again, after training
             after = crit.apply(model(xb), yb).item()
         tok_s = sorted(r * SEQ for r in summary.scalars["Throughput"][1:])
@@ -970,9 +1275,19 @@ def training_phase(fa, ce, card):
                            wall_s=wall,
                            tokens_per_s=TRAIN_ITERS * BATCH * SEQ / wall,
                            step_tokens_per_s_median=tok_s[len(tok_s) // 2],
-                           peak_memory_bytes=torch.cuda.max_memory_allocated())
+                           peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                           allocated_after_bytes=torch.cuda.memory_allocated(),
+                           reserved_after_bytes=torch.cuda.memory_reserved(),
+                           captured=compiled["captured"],
+                           replays=compiled["replays"],
+                           graph_pool_bytes=compiled["pool_bytes"],
+                           warmup_launches=compiled["warmup_launches"])
         emit({"phase": "train_run", "path": label, **runs[label],
               "card": card})
+        if compiled["captured"] != 1 or compiled["captures"] != 1 or \
+                compiled["replays"] != TRAIN_ITERS:
+            raise AssertionError(f"{label}: not one graph replayed every "
+                                 f"step: {compiled}")
 
     lk, lp = runs["kernels"]["losses"], runs["plain"]["losses"]
     if len(lk) != TRAIN_ITERS or len(lp) != TRAIN_ITERS:
@@ -991,10 +1306,7 @@ def training_phase(fa, ce, card):
     ak, ap = falls["kernels"][1], falls["plain"][1]
     if abs(ak - ap) > STEP_LOSS_RTOL * abs(ap):
         raise AssertionError(f"losses after training differ: {ak} vs {ap}")
-    want = {"flash_attention": 12 * TRAIN_ITERS,
-            "flash_attention_bwd": 12 * TRAIN_ITERS,
-            "fused_softmax_cross_entropy": TRAIN_ITERS,
-            "fused_softmax_cross_entropy_bwd": TRAIN_ITERS}
+    want = TRAIN_WANT
     got = runs["kernels"]["launches"]
     if any(got[k] != n for k, n in want.items()):
         raise AssertionError(f"training launches {got}, want {want}")
@@ -1003,10 +1315,15 @@ def training_phase(fa, ce, card):
                              f"{runs['plain']['launches']}")
     emit({"phase": "train_check", "first_batch_loss": falls["kernels"],
           "max_step_rel_err": max(step_rel), "launches": got, "card": card})
-    # the loop's last model and optimizer (the plain path's) go too, so
-    # the bf16 leg's peak memory is its own
-    del models, model, crit, opt
+    kmodel = models["kernels"][0]
+    # the plain run and its optimizer go, so what follows has the memory
+    del models, model, crit, opt, kept["plain"]
     torch.cuda.empty_cache()
+    eager_vs_compiled(x, y, None, kmodel, lk, card)         # (a)
+    compiled_step_rates(kept.pop("kernels"), "fp32", card)  # (b), (d)
+    del kmodel
+    torch.cuda.empty_cache()
+    schedule_legs(fa, ce, card, x, y)                       # (e)
     bf16 = training_bf16_phase(fa, ce, card, x, y, losses["kernels"],
                                runs["kernels"])
     return {k: got[k] for k in want}, bf16
@@ -1031,6 +1348,7 @@ def training_bf16_phase(fa, ce, card, x, y, fp32_loss, fp32_run):
     from bigdl_tpu_torch import nn, optim
     from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
     from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.utils import cuda_graphs
 
     bf16 = torch.bfloat16
     models = {
@@ -1048,9 +1366,10 @@ def training_bf16_phase(fa, ce, card, x, y, fp32_loss, fp32_run):
     yb = torch.as_tensor(y[:BATCH], device="cuda")
     losses, grads = {}, {}
     for label, (model, crit) in models.items():
-        step = optim.make_train_step(model, crit, optim.SGD(learning_rate=0.0),
-                                     compute_dtype=bf16)
-        _, loss = step({"neval": 0}, xb, yb)
+        sgd = optim.SGD(learning_rate=0.0)
+        step = optim.make_train_step(model, crit, sgd, compute_dtype=bf16)
+        _, loss = step(sgd.init_state(dict(model.named_parameters())), xb,
+                       yb)
         losses[label] = loss.item()
         grads[label] = {k: p.grad for k, p in model.named_parameters()}
     lk, lp = losses["kernels"], losses["plain"]
@@ -1103,6 +1422,7 @@ def training_bf16_phase(fa, ce, card, x, y, fp32_loss, fp32_run):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     ce.reset_launch_counts()
+    captures = cuda_graphs.capture_count()
     fa.masked_attention = counted
     try:
         # ---- the bf16 training main path: counts read right after it --
@@ -1118,6 +1438,8 @@ def training_bf16_phase(fa, ce, card, x, y, fp32_loss, fp32_run):
         # -----------------------------------------------------------------
     finally:
         fa.masked_attention = masked_attention
+    compiled = dict(opt.compiled_stats,
+                    captures=cuda_graphs.capture_count() - captures)
     peak = torch.cuda.max_memory_allocated()
     with torch.no_grad():   # the first batch again, after training
         after = crit.apply(optim.make_eval_step(model, bf16)(xb), yb).item()
@@ -1133,7 +1455,14 @@ def training_bf16_phase(fa, ce, card, x, y, fp32_loss, fp32_run):
           "fp32_tokens_per_s": fp32_run["tokens_per_s"],
           "peak_memory_bytes": peak,
           "fp32_peak_memory_bytes": fp32_run["peak_memory_bytes"],
+          "captured": compiled["captured"], "replays": compiled["replays"],
+          "graph_pool_bytes": compiled["pool_bytes"],
+          "warmup_launches": compiled["warmup_launches"],
           "launches": launches, "card": card})
+    if compiled["captured"] != 1 or compiled["captures"] != 1 or \
+            compiled["replays"] != TRAIN_ITERS:
+        raise AssertionError(f"bf16: not one graph replayed every step: "
+                             f"{compiled}")
     if len(steps) != TRAIN_ITERS or max(step_rel) > BF16_FP32_LOSS_RTOL:
         raise AssertionError(f"bf16 per-step losses {steps} against fp32 "
                              f"{fp32_steps}")
@@ -1152,6 +1481,8 @@ def training_bf16_phase(fa, ce, card, x, y, fp32_loss, fp32_run):
     emit({"phase": "train_bf16_check", "max_step_rel_to_fp32": max(step_rel),
           "first_batch_loss": [lk, after], "launches": launches,
           "card": card})
+    eager_vs_compiled(x, y, bf16, model, steps, card)      # (a)
+    compiled_step_rates(opt, "bf16", card)                 # (b), (d)
     del model, opt
     torch.cuda.empty_cache()
     return {k: launches[k] for k in ("flash_attention_bf16",

@@ -596,10 +596,10 @@ def test_bf16_train_step_runs_the_bf16_kernels(cuda):
         model = nn.TransformerLM(256, 128, 2, 2, max_len=64, device=cuda)
         crit = nn.TimeDistributedCriterion(
             nn.FusedSoftmaxCrossEntropyCriterion())
-        step = optim.make_train_step(model, crit, optim.SGD(0.0),
-                                     compute_dtype=dtype)
+        sgd = optim.SGD(0.0)
+        step = optim.make_train_step(model, crit, sgd, compute_dtype=dtype)
         fa.reset_launch_counts()
-        _, loss = step({"neval": 0}, x, x)
+        _, loss = step(sgd.init_state(dict(model.named_parameters())), x, x)
         torch.cuda.synchronize()
         losses[dtype] = loss.item()
         assert all(p.dtype == p.grad.dtype == torch.float32
@@ -622,11 +622,12 @@ def test_fp16_is_refused_naming_the_roadmap(cuda):
     from bigdl_tpu_torch import nn, optim
 
     model = nn.TransformerLM(64, 32, 2, 1, max_len=8, device=cuda)
-    step = optim.make_train_step(model, nn.CrossEntropyCriterion(),
-                                 optim.SGD(), compute_dtype=torch.float16)
+    sgd = optim.SGD()
+    step = optim.make_train_step(model, nn.CrossEntropyCriterion(), sgd,
+                                 compute_dtype=torch.float16)
     x = torch.zeros((1, 8), dtype=torch.long, device=cuda)
     with pytest.raises(TypeError, match="A1"):
-        step({"neval": 0}, x, x)
+        step(sgd.init_state(dict(model.named_parameters())), x, x)
 
 
 def test_plain_attention_gradient_by_finite_differences():

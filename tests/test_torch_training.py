@@ -164,8 +164,9 @@ def test_clipping_matches_jax():
 
 
 def test_unported_schedules_and_options_raise():
-    with pytest.raises(NotImplementedError, match="Default"):
-        optim.SGD(learning_rate_schedule=object())
+    # every schedule is ported: SGD takes any (tests/test_torch_optim_methods)
+    step = optim.Step(2, 0.5)
+    assert optim.SGD(learning_rate_schedule=step).schedule is step
     m = nn.TransformerLM(64, 32, 2, 1, max_len=8, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         optim.make_train_step(m, nn.CrossEntropyCriterion(), optim.SGD(),
