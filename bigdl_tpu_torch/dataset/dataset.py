@@ -1,7 +1,10 @@
 """DataSet abstractions (the port's copy of ``bigdl_tpu/dataset/
 dataset.py`` :22-166).  The shuffle draws from the same
 ``np.random.default_rng(seed)`` stream as the JAX package, so both
-packages see the same batches in the same order."""
+packages see the same batches in the same order, and a dataset's
+``position_state`` (its epoch order and the shuffle stream's state, JAX
+:32-48, 93-110, 126-130) is JAX's own dict: a checkpoint's mid-epoch
+position restores in either package."""
 
 from typing import Iterator, Optional, Sequence
 
@@ -20,6 +23,20 @@ class AbstractDataSet:
 
     def shuffle(self):
         pass
+
+    def position_state(self):
+        """Everything a fresh ``data(train=True)`` iterator needs to
+        replay this epoch's order, with the shuffle stream's state so
+        later ``shuffle()`` calls continue it; ``None`` marks a source
+        that cannot restore its position (a resume then restarts the
+        epoch, with a warning)."""
+        return None
+
+    def restore_position(self, state):
+        """Restore a ``position_state()`` snapshot."""
+        raise NotImplementedError(
+            f"{type(self).__name__} produced no position_state to "
+            "restore")
 
     def transform(self, transformer: Transformer) -> "TransformedDataSet":
         return TransformedDataSet(self, transformer)
@@ -54,6 +71,21 @@ class LocalDataSet(AbstractDataSet):
             return gen()
         return (self._data[i] for i in range(len(self._data)))
 
+    def position_state(self):
+        """The epoch's permutation and the shuffle stream's state."""
+        return {"kind": "local", "index": np.asarray(self._index).copy(),
+                "rng_state": self._rng.bit_generator.state}
+
+    def restore_position(self, state):
+        if state.get("kind") != "local" or \
+                len(state["index"]) != len(self._data):
+            raise ValueError(
+                f"dataset position state does not match this dataset "
+                f"({len(state.get('index', ()))} indexed elements vs "
+                f"{len(self._data)} held)")
+        self._index = np.asarray(state["index"]).copy()
+        self._rng.bit_generator.state = state["rng_state"]
+
 
 class TransformedDataSet(AbstractDataSet):
     def __init__(self, base: AbstractDataSet, transformer: Transformer):
@@ -68,6 +100,12 @@ class TransformedDataSet(AbstractDataSet):
 
     def data(self, train: bool):
         return self.transformer.apply(self.base.data(train))
+
+    def position_state(self):
+        return self.base.position_state()
+
+    def restore_position(self, state):
+        self.base.restore_position(state)
 
 
 def array_dataset(features: np.ndarray, labels: Optional[np.ndarray] = None,

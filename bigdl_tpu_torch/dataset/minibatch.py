@@ -1,6 +1,6 @@
 """Sample / MiniBatch (the port's copy of ``bigdl_tpu/dataset/
 minibatch.py``: ``Sample`` :16, ``MiniBatch`` :29, ``PaddingParam`` :101,
-``samples_to_minibatch`` :127).  Host-side data is numpy; the training
+``samples_to_minibatch`` :127; ``MiniBatch.pad_to`` :64).  Host-side data is numpy; the training
 loop moves each batch to the device once."""
 
 from typing import List, Optional, Sequence
@@ -43,6 +43,36 @@ class MiniBatch:
         while isinstance(leaf, (tuple, list)):
             leaf = leaf[0]
         return leaf.shape[0]
+
+    def pad_to(self, batch_to: int, pad_target: bool = True) -> "MiniBatch":
+        """Zero-pad the batch axis up to ``batch_to`` rows (the predict
+        path's bucket): padded rows are inert in eval mode and the
+        caller slices them off the output.  Identity when already sized;
+        a smaller ``batch_to`` raises.  ``pad_target=False`` passes the
+        target through untouched (prediction never reads it)."""
+        n = self.size()
+        if batch_to == n:
+            return self
+        if batch_to < n:
+            raise ValueError(
+                f"pad_to({batch_to}) cannot shrink a batch of {n}")
+        from bigdl_tpu_torch.serving.buckets import pad_batch_axis
+
+        def check(x, label):
+            if isinstance(x, (tuple, list)):
+                for e in x:
+                    check(e, label)
+            elif np.asarray(x).dtype == object:
+                raise TypeError(
+                    f"pad_to cannot zero-pad non-array {label} leaves "
+                    f"({type(x).__name__})")
+
+        check(self.input, "input")
+        target = self.target
+        if pad_target and target is not None:
+            check(target, "target")
+            target = pad_batch_axis(target, batch_to)
+        return MiniBatch(pad_batch_axis(self.input, batch_to), target)
 
 
 class PaddingParam:

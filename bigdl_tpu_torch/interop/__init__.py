@@ -1,6 +1,11 @@
-"""Loading weights and optimizer states from the JAX package's trees."""
+"""Weights and optimizer states between the port and the JAX package's
+trees, both ways."""
 
-from bigdl_tpu_torch.interop.jax_params import (load_jax_opt_state,
-                                                load_jax_params)
+from bigdl_tpu_torch.interop.jax_params import (from_jax_opt_state,
+                                                load_jax_opt_state,
+                                                load_jax_params,
+                                                to_jax_opt_state,
+                                                to_jax_params)
 
-__all__ = ["load_jax_opt_state", "load_jax_params"]
+__all__ = ["from_jax_opt_state", "load_jax_opt_state", "load_jax_params",
+           "to_jax_opt_state", "to_jax_params"]

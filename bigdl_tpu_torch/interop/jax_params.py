@@ -2,7 +2,11 @@
 int8-quantized, with numpy leaves (``jax.tree.map(np.asarray,
 params)``), into the port's modules;
 and the optimizer-state bridge, so a JAX run can be carried across
-mid-training, for every method of ``optim.optim_method``.
+mid-training, for every method of ``optim.optim_method``.  Both go the
+other way too (``to_jax_params``, ``to_jax_opt_state``): numpy trees in
+the JAX keys and the unrolled layout, which is what the port's
+checkpoints hold, so a checkpoint written by either package resumes in
+the other.
 
 Both JAX layouts load: the unrolled ``"block{i}"`` keys map onto the
 port's blocks directly, and the ``scan_layers`` layout's stacked
@@ -132,6 +136,14 @@ def _check_keys(method, jax_state, keys):
                        f"missing {missing}, unexpected {extra}")
 
 
+def from_jax_opt_state(optim_method, jax_state, device=None,
+                       jax_params=None):
+    """``load_jax_opt_state``'s conversion alone: the port's state for
+    ``jax_state``, not set on ``optim_method``."""
+    return _state(optim_method, jax_state, "", resolve_device(device),
+                  jax_params)
+
+
 def load_jax_opt_state(optim_method, jax_state, device=None,
                        jax_params=None):
     """A JAX optimizer state tree (numpy or JAX leaves, either parameter
@@ -149,7 +161,54 @@ def load_jax_opt_state(optim_method, jax_state, device=None,
     pass that run's parameter tree (any leaves with ``.shape``) as
     ``jax_params``, and they are reordered to the unrolled layout.
     Without it they load as the unrolled layout's."""
-    device = resolve_device(device)
-    state = _state(optim_method, jax_state, "", device, jax_params)
+    state = from_jax_opt_state(optim_method, jax_state, device, jax_params)
     optim_method.state = state
     return state
+
+
+def _numpy(t):
+    return t.detach().cpu().numpy().copy()
+
+
+def _nest(flat, prefix=""):
+    """``{"block0.attn.qkv_weight": leaf}`` under ``prefix`` -> the
+    nested dict below it."""
+    tree = {}
+    for name, leaf in flat.items():
+        if prefix:
+            name = name[len(prefix) + 1:]
+        *path, key = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[key] = _numpy(leaf)
+    return tree
+
+
+def to_jax_params(model):
+    """``model``'s parameters as a JAX parameter tree: nested dicts of
+    numpy arrays in the JAX keys, the unrolled ``block{i}`` layout."""
+    return _nest(dict(model.named_parameters()))
+
+
+def _jax_state(method, state, prefix):
+    if isinstance(method, CompositeOptimMethod):
+        return {"/".join(p): _jax_state(m, state["/".join(p)], ".".join(p))
+                for _, p, m in method.assignments}
+    out = {"neval": _numpy(state["neval"])}
+    if "lr_factor" in state:
+        out["lr_factor"] = _numpy(state["lr_factor"])
+    for slot in method.slots:
+        tree = state[slot]
+        out[slot] = _nest(tree, prefix) if isinstance(tree, dict) \
+            else _numpy(tree)
+    return out
+
+
+def to_jax_opt_state(optim_method, state):
+    """The inverse of ``from_jax_opt_state``: a port state as the JAX
+    method's state tree of numpy leaves (``neval`` int32, ``lr_factor``
+    fp32 under a stateful schedule, each slot in the parameter tree's
+    keys, ``Fused``'s flat vectors in ``ravel_pytree``'s order, a
+    composite's states per subtree path)."""
+    return _jax_state(optim_method, state, "")

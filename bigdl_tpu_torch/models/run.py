@@ -9,10 +9,13 @@ TransformerLM on the synthetic next-token corpus, trained by
 ``Optimizer(...).optimize()`` with
 ``TimeDistributedCriterion(FusedSoftmaxCrossEntropyCriterion())`` and
 Adam.  The flags and defaults are the JAX recipe's (``--syncEvery k``:
-read the loss every k-th step only), plus ``--device`` (default: the
-CUDA card; ``--device cpu`` runs the kernels' plain versions).  ``--sp``/``--pp`` above 1 raise: the model-parallel engines
-are not ported yet; the JAX recipe's checkpoint, summary, prefetch,
-scan and remat flags wait with them (ROADMAP A1).
+read the loss every k-th step only; ``--checkpoint DIR``: a snapshot
+under DIR at every epoch's end, ``set_checkpoint(DIR,
+Trigger.every_epoch())``, which the JAX package's recipe also resumes
+from), plus ``--device`` (default: the CUDA card; ``--device cpu`` runs
+the kernels' plain versions).  ``--sp``/``--pp`` above 1 raise: the
+model-parallel engines are not ported yet; the JAX recipe's summary,
+prefetch, scan and remat flags wait with them (ROADMAP A1).
 """
 
 import argparse
@@ -46,6 +49,8 @@ def cmd_transformer_train(args):
                      else optim.Trigger.max_iteration(args.max_iteration))
     if args.sync_every != 1:
         opt.set_sync_every(args.sync_every)
+    if args.checkpoint:
+        opt.set_checkpoint(args.checkpoint, optim.Trigger.every_epoch())
     opt.optimize()
     return opt
 
@@ -65,6 +70,8 @@ def main(argv=None):
     p.add_argument("--synthN", type=int, default=2048, dest="synth_n")
     p.add_argument("--syncEvery", type=int, default=1, dest="sync_every",
                    help="block on the device loss every k-th step only")
+    p.add_argument("--checkpoint", default=None,
+                   help="directory of a snapshot at every epoch's end")
     p.add_argument("--vocab", type=int, default=256)
     p.add_argument("--seq-len", type=int, default=64, dest="seq_len")
     p.add_argument("--size", default="tiny",

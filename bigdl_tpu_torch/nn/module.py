@@ -17,6 +17,7 @@ Names, freezing and regularizers follow the JAX ``Module``: ``name`` /
 tri-state mark (:450-490), ``set_regularizer`` (:517), and the
 ``has_frozen`` / ``frozen_param_mask`` walks (:695-730), which read the
 module tree directly: it already follows the JAX parameter keys.
+``predict`` / ``predict_class`` (:566, 572) run ``optim.Predictor``.
 """
 
 import numpy as np
@@ -156,6 +157,18 @@ class Module(torch.nn.Module):
         for name, p in params.items():
             p.copy_(torch.as_tensor(np.array(flat[name]), dtype=p.dtype))
         return self
+
+    def predict(self, data, batch_size: int = 128):
+        """Batch inference (``optim.Predictor``): one output per sample."""
+        from bigdl_tpu_torch.optim.predictor import Predictor
+
+        return Predictor(self, batch_size).predict(data)
+
+    def predict_class(self, data, batch_size: int = 128):
+        """The argmax class of each sample's output."""
+        from bigdl_tpu_torch.optim.predictor import Predictor
+
+        return Predictor(self, batch_size).predict_class(data)
 
 
 def has_frozen(module) -> bool:

@@ -1,6 +1,7 @@
 """Single-device training orchestration (counterpart of
 ``bigdl_tpu/optim/local_optimizer.py``: ``BaseOptimizer`` :51,
-``_run_driver_loop`` :643, ``LocalOptimizer`` :909, ``Optimizer`` :1029).
+``_run_driver_loop`` :643, ``LocalOptimizer`` :909, ``validate`` :1010,
+``Optimizer`` :1029).
 
 The host loop feeds batches and evaluates triggers; each step runs
 through ``CompiledTrainStep`` (``optim/graphs.py``), on the card one CUDA
@@ -18,13 +19,29 @@ another step, so no copy of it is kept.  The end trigger is evaluated
 once per completed step, and a batch past a predicted end is never
 fetched.
 
-Not ported yet (each raises or is absent): checkpoints, validation (and
-so the feed of a ``Plateau`` schedule), summaries beyond ``Loss``,
-``Throughput`` and ``LearningRate`` scalars, telemetry, the retry loop,
-prefetch workers, ``distributed=True`` (ROADMAP A4) and ``strategy=``
-(ROADMAP A7).
+Validation (``set_validation``) runs ``validate`` through the compiled
+eval step (``optim/validation.py``, one CUDA graph per batch shape on
+the card, reading the live parameters) and feeds a ``Plateau``
+schedule's monitored value into the state's ``lr_factor``.  Checkpoints
+(``set_checkpoint``) hold the parameters, the optimizer state and the
+driver state (with the random stream's and the dataset's mid-epoch
+position) in the JAX package's format and keys (``utils/file_io.py``,
+``interop.to_jax_params``), so either package resumes the other's.  A
+validation or checkpoint firing syncs the loss first, and a checkpoint
+syncs the compute stream before it reads the device state.
+``resume_from_checkpoint`` copies a snapshot into the model's
+parameters and the optimizer state in place, before the step is built.
+``optimize()`` retries a failed run from the newest intact checkpoint,
+at most ``BIGDL_FAILURE_RETRY_TIMES`` times.
+
+Not ported yet (each raises or is absent): sharded (orbax) checkpoints
+(refused, as JAX's ``LocalOptimizer`` refuses them), summaries beyond
+``Loss``, ``Throughput``, ``LearningRate`` and the validation scalars,
+telemetry and health monitoring (ROADMAP A8), prefetch workers,
+``distributed=True`` (ROADMAP A4) and ``strategy=`` (ROADMAP A7).
 """
 
+import gc
 import logging
 import time
 
@@ -34,14 +51,31 @@ import torch
 from bigdl_tpu_torch.optim.graphs import CompiledTrainStep
 from bigdl_tpu_torch.optim.optim_method import SGD, build_composite_method
 from bigdl_tpu_torch.optim.trigger import Trigger
+from bigdl_tpu_torch.utils import config, file_io
 from bigdl_tpu_torch.utils.device import resolve_device, same_device
-from bigdl_tpu_torch.utils.errors import ConfigurationError
+from bigdl_tpu_torch.utils.errors import (CheckpointCorruptionError,
+                                          ConfigurationError,
+                                          TrainingHaltedError,
+                                          UnsupportedFeatureError)
 from bigdl_tpu_torch.utils.random_generator import RNG
 
 log = logging.getLogger("bigdl_tpu_torch.optim")
 
 #: staging sentinel: the end trigger is PREDICTED to fire after this step
 PREDICTED_END = object()
+
+
+def _to_device(x, device, pinned=False):
+    """A host batch leaf (or a tuple of them) as tensors on ``device``;
+    ``pinned``: copied from pinned memory without waiting."""
+    if x is None:
+        return None
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_device(e, device, pinned) for e in x)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if pinned:
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class _Stager:
@@ -54,21 +88,11 @@ class _Stager:
         self.stream = torch.cuda.Stream(device) \
             if device.type == "cuda" else None
 
-    def _move(self, x):
-        if x is None:
-            return None
-        if isinstance(x, (tuple, list)):
-            return type(x)(self._move(e) for e in x)
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.stream is None:
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def stage(self, batch):
         if self.stream is None:
-            return self._move(batch.tree()), None
+            return _to_device(batch.tree(), self.device), None
         with torch.cuda.stream(self.stream):
-            staged = self._move(batch.tree())
+            staged = _to_device(batch.tree(), self.device, pinned=True)
             ready = torch.cuda.Event()
             ready.record(self.stream)
         return staged, ready
@@ -91,10 +115,13 @@ def _leaves(x):
 
 
 class BaseOptimizer:
-    """The optimizer's setters (``set_end_when``, gradient clipping, the
-    compute dtype, a gradient transform, per-submodule methods, the sync
-    cadence, a train summary) and the loop state ``driver_state``
-    (``epoch``, ``neval``, ``record_count``) that the triggers read."""
+    """The optimizer's setters (``set_end_when``, validation,
+    checkpoints, gradient clipping, the compute dtype, a gradient
+    transform, per-submodule methods, the sync cadence, train and
+    validation summaries), resume and the retry loop, and the loop state
+    ``driver_state`` (``epoch``, ``neval``, ``record_count``,
+    ``batches_consumed``, and the validation results by method name)
+    that the triggers read."""
 
     def __init__(self, model, dataset, criterion, optim_method=None,
                  device=None):
@@ -109,6 +136,12 @@ class BaseOptimizer:
         self.criterion = criterion
         self.optim_method = optim_method or SGD()
         self.end_trigger = Trigger.max_epoch(1)
+        self.validation_trigger = None
+        self.validation_dataset = None
+        self.validation_methods = []
+        self.checkpoint_path = None
+        self.checkpoint_trigger = None
+        self.validation_summary = None
         self.clip_value = None
         self.clip_norm = None
         self.compute_dtype = None
@@ -116,10 +149,49 @@ class BaseOptimizer:
         self.train_summary = None
         self.sync_every = 1
         self._optim_methods_map = None
-        self.driver_state = {"epoch": 1, "neval": 1, "record_count": 0}
+        self.driver_state = {"epoch": 1, "neval": 1, "record_count": 0,
+                             "batches_consumed": 0}
+        #: the snapshot ``resume_from_checkpoint`` resolved (loaded by
+        #: every later ``optimize()``, as in JAX) and the mid-epoch
+        #: dataset position it carried (consumed by the next run)
+        self._resume = None
+        self._resume_position = None
+        self._reshuffle_pending = False
 
     def set_end_when(self, trigger):
         self.end_trigger = trigger
+        return self
+
+    def set_validation(self, trigger, dataset, methods):
+        """Run ``methods`` (``optim.validation``) over ``dataset``'s
+        ``data(train=False)`` batches whenever ``trigger`` fires; each
+        result lands in ``driver_state`` under the method's name (and
+        ``"score"`` for the accuracies), where a ``Plateau`` schedule's
+        monitor reads it."""
+        self.validation_trigger = trigger
+        self.validation_dataset = dataset
+        self.validation_methods = methods
+        return self
+
+    def set_checkpoint(self, path, trigger):
+        """Write ``checkpoint.<neval>.pkl`` (and its manifest) under
+        ``path`` whenever ``trigger`` fires."""
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger
+        return self
+
+    def set_sharded_checkpoint(self, path, trigger):
+        """Refused: one device keeps the whole model on one host; sharded
+        (orbax) snapshots are for the distributed layouts."""
+        raise UnsupportedFeatureError(
+            f"{type(self).__name__} keeps whole-model state on one "
+            "host; use set_checkpoint (sharded snapshots are for the "
+            "distributed layouts)")
+
+    def set_validation_summary(self, summary):
+        """Any object with ``add_scalar(tag, value, step)``: it gets each
+        validation method's value under the method's name."""
+        self.validation_summary = summary
         return self
 
     def set_gradient_clipping_by_value(self, min_value, max_value):
@@ -186,8 +258,196 @@ class BaseOptimizer:
             self.model, params, self._optim_methods_map)
         self._optim_methods_map = None      # resolved once, kept
 
+    def resume_from_checkpoint(self, path=None):
+        """Resolve the newest intact snapshot under ``path`` (default: the
+        checkpoint path); the next ``optimize()`` loads it.  Snapshots
+        that fail verification, or verify but do not load, are
+        quarantined and the next one is tried; an empty directory is a
+        fresh start, a directory whose every snapshot failed raises
+        ``CheckpointCorruptionError`` listing them."""
+        base = path or self.checkpoint_path
+        if base is None:
+            raise ConfigurationError(
+                "no checkpoint path: call set_checkpoint first or pass "
+                "path=")
+        snap, quarantined = None, []
+        while True:
+            intact, q = file_io.scan_checkpoints(base)
+            quarantined.extend(q)
+            if not intact:
+                break
+            ckpt_file = intact[0]
+            try:
+                snap = file_io.load(ckpt_file)
+                break
+            except Exception:
+                log.exception("snapshot %s verified but failed to load",
+                              ckpt_file)
+                quarantined.extend(file_io.quarantine_snapshot(ckpt_file))
+        if snap is None:
+            if quarantined:
+                raise CheckpointCorruptionError(
+                    f"every snapshot under {base} failed verification; "
+                    f"quarantined: {quarantined} -- a fresh start here "
+                    "would silently discard the run (move the *.corrupt "
+                    "files away to force one)")
+            return self
+        self._resume = snap
+        self._resume_path = ckpt_file
+        ds = snap["driver_state"]
+        log.info("Resuming from %s (epoch %s, neval %s)", ckpt_file,
+                 ds.get("epoch"), ds.get("neval"))
+        return self
+
+    def _apply_driver_state(self, snap_state):
+        """Restore the loop counters, the random stream's position and
+        the mid-epoch dataset position (consumed by
+        ``_resume_data_stream``).  The snapshot's scalars come back as
+        0-d arrays: they become Python numbers again."""
+        d = dict(snap_state)
+        rng_state = d.pop("rng_state", None)
+        self._resume_position = d.pop("data_position", None)
+        for k, v in d.items():
+            if isinstance(v, (np.ndarray, np.generic)) and \
+                    getattr(v, "ndim", 1) == 0:
+                d[k] = v.item()
+        self.driver_state.update(d)
+        if rng_state is not None:
+            RNG.set_state(rng_state)
+
+    def _resume_data_stream(self, train_iter, first_batch):
+        """After a resume: put the dataset back at the snapshot's
+        mid-epoch position and fast-forward a fresh iterator past the
+        batches the checkpointed steps consumed, so the resumed sample
+        stream is the uninterrupted run's.  A no-op without a restored
+        position; the pre-resume ``first_batch`` is dropped."""
+        pos, self._resume_position = self._resume_position, None
+        if pos is None:
+            return train_iter, first_batch
+        consumed = int(pos.get("batches_consumed", 0))
+        ds_state = pos.get("dataset")
+        if ds_state is None:
+            if consumed or pos.get("reshuffle_pending"):
+                log.warning(
+                    "snapshot carries a mid-epoch position (%d batches "
+                    "into epoch %d) but %s exposes no position_state(); "
+                    "resuming from the top of the epoch -- the resumed "
+                    "sample stream will NOT match the uninterrupted run",
+                    consumed, self.driver_state.get("epoch", 1),
+                    type(self.dataset).__name__)
+            return train_iter, first_batch
+        self.dataset.restore_position(ds_state)
+        if pos.get("reshuffle_pending"):
+            self.dataset.shuffle()
+        train_iter = self.dataset.data(train=True)
+        for i in range(consumed):
+            try:
+                next(train_iter)
+            except StopIteration:
+                raise CheckpointCorruptionError(
+                    f"dataset exhausted {i}/{consumed} batches into the "
+                    "mid-epoch fast-forward: the snapshot's position does "
+                    "not fit this dataset (changed size or batch "
+                    "shape?)") from None
+        log.info("resumed dataset position: epoch %d, fast-forwarded %d "
+                 "consumed batches", self.driver_state.get("epoch", 1),
+                 consumed)
+        return train_iter, next(train_iter)
+
+    def _capture_data_position(self):
+        """The mid-epoch position stamped into every snapshot: batches
+        consumed by completed steps this epoch, whether an epoch-boundary
+        reshuffle is pending, and the dataset's own state (None where it
+        has none)."""
+        pos_fn = getattr(self.dataset, "position_state", None)
+        return {
+            "batches_consumed": int(
+                self.driver_state.get("batches_consumed", 0)),
+            "reshuffle_pending": bool(self._reshuffle_pending),
+            "dataset": pos_fn() if callable(pos_fn) else None,
+        }
+
+    def _check_plateau_monitor(self):
+        """Fail before the retry loop on a ``Plateau`` monitor that the
+        validation methods can never produce (a retry would replay it)."""
+        sched = getattr(self.optim_method, "schedule", None)
+        if (sched is None or not hasattr(sched, "record")
+                or self.validation_trigger is None):
+            return
+        monitor = getattr(sched, "monitor", "score")
+        available = [m.name for m in self.validation_methods]
+        if any(n in ("Top1Accuracy", "Top5Accuracy") for n in available):
+            available.append("score")
+        available.append("loss")      # the training loss is always there
+        if monitor not in available:
+            raise ValueError(
+                f"Plateau schedule requires monitored value {monitor!r}, "
+                f"which the validation methods will never produce "
+                f"(available: {available})")
+
+    def _feed_plateau(self, state, opt_state):
+        """Feed the monitored value to a ``Plateau`` schedule, which
+        writes the state's ``lr_factor`` in place.  Only the named
+        monitor is fed; where this interval produced none, the factor
+        stays."""
+        sched = getattr(self.optim_method, "schedule", None)
+        if sched is None or not hasattr(sched, "record"):
+            return opt_state
+        monitor = getattr(sched, "monitor", "score")
+        value = state.get(monitor)
+        if value is None:
+            log.warning(
+                "Plateau schedule: monitored value %r absent this "
+                "validation interval; LR factor unchanged", monitor)
+            return opt_state
+        return sched.record(value, opt_state)
+
+    def _record_validation(self, results, state):
+        """Log each result and record it in the driver state under the
+        method's name (``"score"`` also takes an accuracy)."""
+        for method, res in zip(self.validation_methods, results):
+            if res is None:
+                log.warning(
+                    "validation dataset produced no full batches; skipping "
+                    "%s (reduce batch size or grow the validation split)",
+                    method.name)
+                continue
+            value, _ = res.result()
+            log.info("Validation %s: %s", method.name, res)
+            state[method.name] = value
+            if method.name in ("Top1Accuracy", "Top5Accuracy"):
+                state["score"] = value
+            if self.validation_summary is not None:
+                self.validation_summary.add_scalar(
+                    method.name, value, state["neval"])
+        return results
+
     def optimize(self):
-        return self._optimize_impl()
+        """Train, with the reference's failure-retry semantics: on an
+        exception, resume from the newest intact checkpoint and go on, at
+        most ``BIGDL_FAILURE_RETRY_TIMES`` times.  Configuration and
+        capability errors, and a halt, are raised at once."""
+        self._check_plateau_monitor()
+        retries_left = config.failure_retry_times()
+        while True:
+            try:
+                return self._optimize_impl()
+            except KeyboardInterrupt:
+                raise
+            except (ConfigurationError, UnsupportedFeatureError,
+                    TrainingHaltedError):
+                raise
+            except Exception:
+                if retries_left <= 0 or self.checkpoint_path is None:
+                    raise
+                retries_left -= 1
+                log.exception(
+                    "training failed; restoring last checkpoint and "
+                    "retrying (%d retries left)", retries_left)
+            # the failed run's compiled step (its graphs and their pool)
+            # goes before the next one is built
+            gc.collect()
+            self.resume_from_checkpoint()
 
     def _log_progress(self, loss, throughput, data_wait_s, sync_skew=0):
         s = self.driver_state
@@ -213,38 +473,47 @@ class BaseOptimizer:
                 state["neval"])
 
     def _effective_sync_every(self):
-        """``sync_every``, or 1 when the end trigger reads step outputs
-        (``min_loss``/``max_score``), which a deferred sync would leave
-        stale."""
+        """``sync_every``, or 1 when a configured trigger reads step
+        outputs (``min_loss``/``max_score``), which a deferred sync would
+        leave stale.  Count-based validation and checkpoint triggers keep
+        the cadence: their firings sync the loss on the spot."""
         k = max(1, int(self.sync_every))
-        if k > 1 and getattr(self.end_trigger, "uses_outputs", False):
-            log.info("sync_every=%d forced to 1: a configured trigger "
-                     "reads step outputs (loss/score) every step", k)
+        if k == 1:
             return 1
+        for t in (self.end_trigger, self.validation_trigger,
+                  self.checkpoint_trigger):
+            if t is not None and getattr(t, "uses_outputs", False):
+                log.info("sync_every=%d forced to 1: a configured trigger "
+                         "reads step outputs (loss/score) every step", k)
+                return 1
         return k
 
-    def _stage_next_batch(self, train_iter, state, n, epoch_size):
+    def _stage_next_batch(self, train_iter, state, n, epoch_size,
+                          force=False):
         """Fetch the next batch while the device runs the current step.
         Returns ``(next_batch, train_iter)``; ``next_batch`` is
         ``PREDICTED_END`` when the end trigger will fire after this step,
         and ``None`` (fetch after the trigger has decided) for triggers
         that cannot be probed with a predicted state (stateful ones, and
-        those that read the step's loss or score)."""
-        if getattr(self.end_trigger, "stateful", False) or \
-                getattr(self.end_trigger, "uses_outputs", False):
-            return None, train_iter
-        predicted = dict(state)
-        predicted["neval"] = state["neval"] + 1
-        predicted["record_count"] = state["record_count"] + n
-        if predicted["record_count"] >= epoch_size:
-            predicted["epoch"] = state["epoch"] + 1
-        if self.end_trigger(predicted):
-            return PREDICTED_END, train_iter
-        return self._fetch(train_iter, state["record_count"] + n >=
-                           epoch_size)
-
-    def _fetch(self, train_iter, epoch_over):
-        if epoch_over:
+        those that read the step's loss or score).  ``force`` is that
+        deferred fetch."""
+        if not force:
+            if getattr(self.end_trigger, "stateful", False) or \
+                    getattr(self.end_trigger, "uses_outputs", False):
+                return None, train_iter
+            predicted = dict(state)
+            predicted["neval"] = state["neval"] + 1
+            predicted["record_count"] = state["record_count"] + n
+            if predicted["record_count"] >= epoch_size:
+                predicted["epoch"] = state["epoch"] + 1
+            if self.end_trigger(predicted):
+                return PREDICTED_END, train_iter
+        if self._reshuffle_pending:
+            # the deferred fetch after an epoch rolled over
+            self._reshuffle_pending = False
+            self.dataset.shuffle()
+            train_iter = self.dataset.data(train=True)
+        elif state["record_count"] + n >= epoch_size:
             self.dataset.shuffle()
             train_iter = self.dataset.data(train=True)
         try:
@@ -256,12 +525,17 @@ class BaseOptimizer:
             return next(train_iter), train_iter
 
     def _run_driver_loop(self, train_iter, first_batch, dispatch,
-                         extra_summaries=None):
+                         extra_summaries=None, validate_cb=None,
+                         feed_plateau=None, checkpoint_cb=None):
         """The driver loop: stage, dispatch, fetch and stage the next
         batch, sync the loss every ``sync_every``-th step, update the
-        driver state, evaluate the end trigger.  ``dispatch(staged) ->
-        device loss``; ``extra_summaries(state)`` adds train-summary
-        scalars after ``Loss`` and ``Throughput``."""
+        driver state, run validation and checkpoints where their triggers
+        fire (each first syncs a deferred loss), evaluate the end
+        trigger.  ``dispatch(staged) -> device loss``;
+        ``extra_summaries(state)`` adds train-summary scalars after
+        ``Loss`` and ``Throughput``; ``validate_cb() -> results``, then
+        ``feed_plateau(state)``; ``checkpoint_cb(state)`` writes one."""
+        self._reshuffle_pending = False
         epoch_size = self.dataset.size()
         state = self.driver_state
         stager = _Stager(self.device)
@@ -272,12 +546,18 @@ class BaseOptimizer:
         sync_skew = sync_every - 1   # steps since the last loss sync
         loss_dev = None
         batch, dev = first_batch, None
+
+        def point_sync():
+            nonlocal loss, sync_skew
+            loss = float(loss_dev)
+            sync_skew = 0
+            state["loss"] = loss
+
         while not self.end_trigger(state):
             t0 = time.perf_counter()
-            if batch is None:            # fetch deferred past the trigger;
-                # a reset record count means the epoch just rolled over
-                batch, train_iter = self._fetch(
-                    train_iter, state["record_count"] == 0)
+            if batch is None:            # fetch deferred past the trigger
+                batch, train_iter = self._stage_next_batch(
+                    train_iter, state, 0, epoch_size, force=True)
             if dev is None:
                 dev = stager.stage(batch)
             data_wait = time.perf_counter() - t0
@@ -298,6 +578,9 @@ class BaseOptimizer:
             wall = time.perf_counter() - t0
             state["loss"] = loss
             state["record_count"] += n
+            # batches of COMPLETED steps this epoch: the staged next batch
+            # is not counted, so a snapshot's position replays it
+            state["batches_consumed"] = state.get("batches_consumed", 0) + 1
             state["throughput"] = n / max(wall, 1e-9)
             self._log_progress(loss, state["throughput"], data_wait,
                                sync_skew)
@@ -311,23 +594,43 @@ class BaseOptimizer:
             if state["record_count"] >= epoch_size:
                 state["epoch"] += 1
                 state["record_count"] = 0
+                state["batches_consumed"] = 0
+                if next_batch is None:   # fetch deferred past the reset
+                    self._reshuffle_pending = True
+
+            if self.validation_trigger is not None and \
+                    self.validation_trigger(state):
+                if sync_skew:
+                    point_sync()
+                self._record_validation(validate_cb(), state)
+                if feed_plateau is not None:
+                    feed_plateau(state)
+            if self.checkpoint_trigger is not None and \
+                    self.checkpoint_trigger(state):
+                if sync_skew:
+                    point_sync()
+                state["rng_state"] = RNG.get_state()
+                state["data_position"] = self._capture_data_position()
+                checkpoint_cb(state)
+
             batch = None if next_batch is PREDICTED_END else next_batch
             dev = next_dev
         if sync_skew and loss_dev is not None:
             # drain: the run's last loss lands in the driver state even
             # when the last steps deferred their sync
-            state["loss"] = float(loss_dev)
+            point_sync()
 
 
 class LocalOptimizer(BaseOptimizer):
     """Training on one device.  Starts from ``optim_method.state`` when it
     is set (for example by ``interop.load_jax_opt_state``), else from
-    ``init_state``, and leaves the final state there.  Each ``optimize()``
-    builds its compiled step anew, as the JAX loop jits a fresh
-    ``make_train_step`` in each: what the step reads when it is built
-    (frozen modules, regularizers, the method's settings) is read again,
-    and the step's graphs and their pool are freed when the call
-    returns."""
+    ``init_state``, and leaves the final state there; a resolved
+    checkpoint is copied into the parameters and that state in place
+    first.  Each ``optimize()`` builds its compiled step anew, as the JAX
+    loop jits a fresh ``make_train_step`` in each: what the step reads
+    when it is built (frozen modules, regularizers, the method's
+    settings) is read again, and the step's graphs and their pool are
+    freed when the call returns."""
 
     #: ``CompiledTrainStep.stats()`` of the last ``optimize()`` (None
     #: before it): keys built, steps run, the graph pool's bytes
@@ -340,6 +643,37 @@ class LocalOptimizer(BaseOptimizer):
             clip_norm=self.clip_norm, compute_dtype=self.compute_dtype,
             grad_transform=self.grad_transform)
 
+    @torch.no_grad()
+    def _load_snapshot(self, snap, opt_state):
+        """Copy a snapshot's parameters and optimizer state into the
+        model's parameters and ``opt_state`` in place (a built step
+        reads them where they lie)."""
+        from bigdl_tpu_torch.interop.jax_params import (from_jax_opt_state,
+                                                        load_jax_params)
+
+        if _has_leaves(snap.get("model_state")):
+            raise UnsupportedFeatureError(
+                "the snapshot carries model state (buffers such as "
+                "BatchNorm statistics), which no module of the port has")
+        load_jax_params(self.model, snap["model_params"])
+        _copy_into(opt_state, from_jax_opt_state(
+            self.optim_method, snap["opt_state"], self.device,
+            jax_params=snap["model_params"]))
+
+    def _checkpoint(self, opt_state):
+        """Write the parameters, the optimizer state and the driver state,
+        in the JAX package's keys, after the compute stream's work."""
+        from bigdl_tpu_torch.interop.jax_params import (to_jax_opt_state,
+                                                        to_jax_params)
+
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return file_io.save_checkpoint(
+            self.checkpoint_path, self.driver_state["neval"],
+            to_jax_params(self.model), (),
+            to_jax_opt_state(self.optim_method, opt_state),
+            self.driver_state)
+
     def _optimize_impl(self):
         train_iter = self.dataset.data(train=True)
         first_batch = next(train_iter)
@@ -348,6 +682,11 @@ class LocalOptimizer(BaseOptimizer):
         opt_state = self.optim_method.state
         if opt_state is None:
             opt_state = self.optim_method.init_state(params)
+        if self._resume is not None:
+            self._load_snapshot(self._resume, opt_state)
+            self._apply_driver_state(self._resume["driver_state"])
+        train_iter, first_batch = self._resume_data_stream(
+            train_iter, first_batch)
         step = self._compiled_step(opt_state)
 
         def dispatch(staged):
@@ -359,11 +698,57 @@ class LocalOptimizer(BaseOptimizer):
             self._run_driver_loop(
                 train_iter, first_batch, dispatch,
                 extra_summaries=lambda state: self._log_learning_rates(
-                    opt_state, state))
+                    opt_state, state),
+                validate_cb=lambda: validate(
+                    self.model, self.validation_dataset,
+                    self.validation_methods, self.compute_dtype),
+                feed_plateau=lambda state: self._feed_plateau(
+                    state, opt_state),
+                checkpoint_cb=lambda state: self._checkpoint(opt_state))
         finally:
             self.compiled_stats = step.stats()
         self.optim_method.state = opt_state
         return self.model
+
+
+def _has_leaves(tree):
+    if isinstance(tree, dict):
+        return any(_has_leaves(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return any(_has_leaves(v) for v in tree)
+    return tree is not None
+
+
+def _copy_into(dst, src):
+    """Copy the tensors of the state tree ``src`` into ``dst``'s, which
+    has the same structure; a key ``dst`` lacks is added."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_into(dst.setdefault(k, {}), v)
+        elif k in dst and dst[k].shape == v.shape:
+            dst[k].copy_(v)
+        else:
+            dst[k] = v
+
+
+def validate(model, dataset, methods, compute_dtype=None):
+    """The evaluation loop: ``methods`` over ``dataset``'s
+    ``data(train=False)`` batches through the model's compiled eval step
+    (``validation.compiled_eval_step``, one graph per batch shape, shared
+    with ``Predictor``), on the model's device and current weights.
+    Returns one merged ``ValidationResult`` per method (None where no
+    batch came)."""
+    from bigdl_tpu_torch.optim.validation import compiled_eval_step
+
+    eval_step = compiled_eval_step(model, compute_dtype)
+    totals = [None] * len(methods)
+    for batch in dataset.data(train=False):
+        out = eval_step(_to_device(batch.get_input(), eval_step.device))
+        target = _to_device(batch.get_target(), eval_step.device)
+        for i, m in enumerate(methods):
+            r = m(out, target)
+            totals[i] = r if totals[i] is None else totals[i] + r
+    return totals
 
 
 class Optimizer:

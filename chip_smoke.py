@@ -47,7 +47,8 @@ Phases, each printing JSON lines:
    ragged T 200, each held to its plain version (1e-4; K5 elementwise
    relative, at an upstream gradient of order 1), and K1-bwd in bf16 at
    T 1024 (2e-2), each timed beside its bound, its plain version and the
-   library call;
+   library call (a backward through autograd by its kernels' device time
+   under the profiler, the CUDA-event wall beside it);
 7. training end to end: TransformerLM "small" (vocab 32000, max_len
    1024, random weights from seed 0) on ``synthetic_corpus(64, 1024,
    32000)``: (a) one batch's loss and the gradient of every parameter
@@ -100,7 +101,40 @@ Phases, each printing JSON lines:
    pool's; the gate's measured agreement and RMSE within the stated
    tolerances, and a gate at half the measured RMSE refusing the engine;
    (c)'s greedy streams equal to (a)'s (the fp32 model decoding alone
-   over int8 KV) except at stated near-ties.
+   over int8 KV) except at stated near-ties;
+10. evaluation, checkpoints and L-BFGS: TransformerLM "small" (seed 0),
+    29 held-out sequences of 1024 tokens (``synthetic_corpus`` seed 1) at
+    batch 8, three full batches and a ragged one of 5: (a) ``validate``
+    with ``Loss`` (K4), ``Top1Accuracy`` and ``Top5Accuracy`` through the
+    compiled eval step, one CUDA graph per batch shape built by the first
+    pass and none by the second, K1 12 and K4 1 a batch counted through
+    the replays, no K1-bwd or K5; each batch held against the plain
+    model's eager eval (Loss 1e-5 relative, a differing top-1 or top-5
+    token only at a near-tie of ``TIE_MARGIN``), eval tokens/s compiled
+    and eager, the pass's wall and the eval pool's bytes; the same in
+    bf16 (K1 bf16, Loss within ``BF16_FP32_LOSS_RTOL``); (b) 8 steps of
+    ``SGD(1e-4, momentum=0.9)`` under ``Plateau(monitor="Loss",
+    patience=1)`` with validation and a checkpoint every 4 iterations
+    (``checkpoint.4.pkl`` and ``checkpoint.8.pkl``: the trigger fires
+    at ``neval`` 4 and 8, after steps 3 and 7, as in the JAX package),
+    each manifest verified, the Plateau fed at each validation, each
+    checkpoint's bytes and write and verify seconds, and the eval graph
+    after training against an eager eval of the trained weights; (c) a
+    fresh model (other weights) and optimizer resumed from
+    ``checkpoint.4.pkl`` alone run to step 8: per-step losses,
+    parameters and ``lr_factor`` within ``RESUME_RTOL`` of the straight
+    run's (bitwise equality printed), its launches counted; then a run
+    whose dataset raises once at the 6th batch, which ``optimize()``
+    restores from its own checkpoint and finishes with the same result;
+    (d) ``Predictor(batch_size=8)`` over the 29 sequences through the
+    same graphs (the tail padded to 8: no graph built), each batch
+    against the step's output on the unpadded batch, and the host's
+    launch calls a batch (one ``cudaGraphLaunch``); (e)
+    ``LBFGS(max_iter=3, n_correction=4)`` on the flat parameters with a
+    ``feval`` through the kernels: its first loss and gradient against
+    the plain model's (``LBFGS_TOL``), the loss falling, the history's
+    bytes, K1, K1-bwd, K4 and K5 once a ``feval`` each (K1 and K1-bwd
+    12).
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -222,10 +256,13 @@ def device_ms(fn, iters=20, reps=7):
 
 
 def backward_ms(out, inputs, grad, iters=20, reps=7):
-    """Device time of one backward of ``out`` alone (autograd, graph
-    retained), timed by CUDA events around ``iters`` calls: a backward
-    through autograd is not captured in a CUDA graph here.  The kernels
-    timed this way take over 0.3 ms a call, so the host stays ahead."""
+    """Time of one backward of ``out`` alone (autograd, graph retained):
+    ``(device ms, wall ms)``.  The device time is the union of the
+    call's kernels' intervals under the profiler, so the host's dispatch
+    between kernels does not count (a backward through autograd is not
+    captured in a CUDA graph here); the wall is the median of ``reps``
+    CUDA-event spans over ``iters`` calls, which includes that dispatch
+    wherever the kernels are shorter than it."""
     def run():
         torch.autograd.grad(out, inputs, grad, retain_graph=True)
     for _ in range(3):
@@ -242,7 +279,16 @@ def backward_ms(out, inputs, grad, iters=20, reps=7):
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     times.sort()
-    return times[len(times) // 2]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    busy = union_us([(e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA])
+    return busy / 1e3 / iters, times[len(times) // 2]
 
 
 def bound(n_bytes, flops, flops_per_s=FP32_FLOPS_PER_S,
@@ -838,13 +884,15 @@ def training_kernel_phase(fa, ce, card):
     plain = device_ms(lambda: ce.fused_softmax_cross_entropy_grad_reference(
         x, y, lse, gr))[0]
     xg = x.detach().requires_grad_(True)
-    lib = backward_ms(F.cross_entropy(xg, yl, reduction="none"), xg, gr)
+    lib, lib_wall = backward_ms(F.cross_entropy(xg, yl, reduction="none"),
+                                xg, gr)
     del xg
     bms, by = bound(2 * n * v * 4 + 3 * n * 4, 4 * n * v)
     rows["fused_softmax_cross_entropy_bwd"] = dict(
         name="fused_softmax_cross_entropy_bwd", case=f"N{n}_V{v}",
         max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain,
-        bound_ms=bms, bound_by=by, library_ms=lib, card=card)
+        bound_ms=bms, bound_by=by, library_ms=lib,
+        library_event_wall_ms=lib_wall, card=card)
     emit({"phase": "kernel", **rows["fused_softmax_cross_entropy_bwd"]})
     del x
 
@@ -871,13 +919,13 @@ def training_kernel_phase(fa, ce, card):
         ms, lo, hi = device_ms(lambda: fa.flash_attention_bwd(
             q, k, v_, out, lse, do, True))
         leaves = [z.detach().requires_grad_(True) for z in (q, k, v_)]
-        plain = backward_ms(fa.flash_attention_reference(*leaves, True),
-                            leaves, do)
+        plain, plain_wall = backward_ms(
+            fa.flash_attention_reference(*leaves, True), leaves, do)
         tr = [z.detach().transpose(1, 2).requires_grad_(True)
               for z in (q, k, v_)]
-        lib = backward_ms(F.scaled_dot_product_attention(*tr,
-                                                         is_causal=True),
-                          tr, do.transpose(1, 2))
+        lib, lib_wall = backward_ms(
+            F.scaled_dot_product_attention(*tr, is_causal=True), tr,
+            do.transpose(1, 2))
         del leaves, tr
         elems = BATCH * t * HEADS * HEAD_DIM
         # q, k, v, out, dout read and dq, dk, dv written; the fp32 lse read
@@ -886,8 +934,9 @@ def training_kernel_phase(fa, ce, card):
                         *tensor_core_rate(dtype))
         row = dict(name="flash_attention_bwd", case=label, dtype=str(dtype),
                    max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,
-                   plain_ms=plain, bound_ms=bms, bound_by=by,
-                   library_ms=lib, card=card)
+                   plain_ms=plain, plain_event_wall_ms=plain_wall,
+                   bound_ms=bms, bound_by=by, library_ms=lib,
+                   library_event_wall_ms=lib_wall, card=card)
         emit({"phase": "kernel", **row})
         rows.setdefault(kernel_key("flash_attention_bwd", dtype), row)
     torch.cuda.empty_cache()
@@ -1704,6 +1753,543 @@ def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
             for k in launches["a_int8_kv"]}
 
 
+#: phase 10: held-out sequences (another seed of the corpus) validated and
+#: predicted at batch 8: three full batches and a ragged one of 5
+EVAL_SEQS, EVAL_BATCH = 29, 8
+#: phase 10: the compiled eval's Loss against the plain model's eager
+#: eval (K1 and K4 against plain attention and the plain cross-entropy,
+#: the same weights), relative
+EVAL_LOSS_RTOL = 1e-5
+#: phase 10 (b)-(c): checkpoints and validations every 4 iterations of an
+#: 8-step run; the resumed run's losses, parameters and Plateau factor
+#: against the straight run's, relative
+CKPT_EVERY, RESUME_RTOL = 4, 1e-6
+#: phase 10 (e): L-BFGS's first loss (absolute) and gradient (relative
+#: L2) through the kernels against the plain model's
+LBFGS_TOL = 1e-4
+
+
+def _eval_methods(nn, optim, criterion):
+    return [optim.Loss(nn.TimeDistributedCriterion(criterion)),
+            optim.Top1Accuracy(), optim.Top5Accuracy()]
+
+
+def _near_tie_violations(out_k, out_p, margin=TIE_MARGIN):
+    """Positions where the kernel path's top-1 or top-5 differ from the
+    plain path's and the plain logits of the tokens at stake lie further
+    apart than ``margin``: a difference is allowed only at a near-tie."""
+    bad = 0
+    pk, pp = out_k.argmax(-1), out_p.argmax(-1)
+    diff = pk != pp
+    if bool(diff.any()):
+        a = out_p.gather(-1, pk[..., None])[..., 0]
+        b = out_p.gather(-1, pp[..., None])[..., 0]
+        bad += int(((a - b).abs() > margin)[diff].sum())
+    top_k = torch.topk(out_k, 6, dim=-1)
+    top_p = torch.topk(out_p, 6, dim=-1)
+    # a token in one top-5 and not the other must sit within the margin
+    # of the plain path's 5th value
+    fifth = top_p.values[..., 4:5]
+    in_p = (top_k.indices[..., :5, None] == top_p.indices[..., None, :5]) \
+        .any(-1)
+    val = out_p.gather(-1, top_k.indices[..., :5])
+    bad += int(((~in_p) & ((val - fifth).abs() > margin)).sum())
+    in_k = (top_p.indices[..., :5, None] == top_k.indices[..., None, :5]) \
+        .any(-1)
+    bad += int(((~in_k) & ((top_p.values[..., :5] - fifth).abs() > margin))
+               .sum())
+    return bad
+
+
+def eval_validation(fa, ce, card, model, plain_model, dataset, dtype):
+    """Phase 10 (a): ``validate`` through the compiled eval step (its
+    first pass builds one graph per batch shape, the second replays
+    them), counted launches, and each batch held against the plain
+    model's eager eval; forward tokens/s compiled and eager."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.optim.local_optimizer import _to_device
+    from bigdl_tpu_torch.utils import cuda_graphs
+
+    methods = _eval_methods(nn, optim,
+                            nn.FusedSoftmaxCrossEntropyCriterion())
+    label = "bf16" if dtype else "fp32"
+    captures = cuda_graphs.capture_count()
+    t0 = time.perf_counter()
+    optim.validate(model, dataset, methods, dtype)          # builds graphs
+    torch.cuda.synchronize()
+    first_pass_s = time.perf_counter() - t0
+    built = cuda_graphs.capture_count() - captures
+    fa.reset_launch_counts()
+    ce.reset_launch_counts()
+    captures = cuda_graphs.capture_count()
+    # ---- the eval main path: counts read right after it --------------
+    t0 = time.perf_counter()
+    results = optim.validate(model, dataset, methods, dtype)
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    launches = {**fa.LAUNCHES, **ce.LAUNCHES}
+    bf16_k1 = fa.BF16_LAUNCHES["flash_attention"]
+    # -----------------------------------------------------------------
+    after = cuda_graphs.capture_count() - captures
+    step = optim.compiled_eval_step(model, dtype)
+    batches = list(dataset.data(train=False))
+    n_batches = len(batches)
+    eager = optim.make_eval_step(model, dtype)
+    plain_methods = _eval_methods(nn, optim, nn.CrossEntropyCriterion())
+    plain_totals, ties = [None] * 3, 0
+    rates = {}
+    with torch.no_grad():
+        for b in batches:
+            x = _to_device(b.get_input(), "cuda")
+            t = _to_device(b.get_target(), "cuda")
+            out_k = step(x)
+            out_p = plain_model(x)
+            ties += _near_tie_violations(out_k, out_p)
+            for i, m in enumerate(plain_methods):
+                r = m(out_p, t)
+                plain_totals[i] = r if plain_totals[i] is None else \
+                    plain_totals[i] + r
+            del out_k, out_p
+        xs = [_to_device(b.get_input(), "cuda") for b in batches]
+        for name, fn in (("compiled", step), ("eager", eager)):
+            fn(xs[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x in xs:
+                fn(x)
+            torch.cuda.synchronize()
+            rates[name] = EVAL_SEQS * SEQ / (time.perf_counter() - t0)
+    got = {m.name: r.result()[0] for m, r in zip(methods, results)}
+    plain = {m.name: r.result()[0] for m, r in zip(plain_methods,
+                                                     plain_totals)}
+    loss_rel = abs(got["Loss"] - plain["Loss"]) / abs(plain["Loss"])
+    stats = step.stats()
+    row = {"phase": "eval_validate", "compute_dtype": label,
+           "results": got, "plain_results": plain,
+           "loss_rel_to_plain": loss_rel,
+           "counts": {m.name: r.numerator for m, r in zip(methods, results)},
+           "plain_counts": {m.name: r.numerator
+                            for m, r in zip(plain_methods, plain_totals)},
+           "near_tie_violations": ties, "graphs_built": built,
+           "graphs_built_after_first_pass": after, "replays":
+           stats["replays"], "eval_pool_bytes": stats["pool_bytes"],
+           "first_pass_s": first_pass_s, "validation_pass_s": pass_s,
+           "batches": n_batches,
+           "eval_tokens_per_s": rates, "launches": launches,
+           "flash_attention_bf16": bf16_k1, "card": card}
+    emit(row)
+    k1 = "flash_attention"
+    want = {k1: 12 * n_batches, "fused_softmax_cross_entropy": n_batches,
+            "flash_attention_bwd": 0, "fused_softmax_cross_entropy_bwd": 0}
+    tol = BF16_FP32_LOSS_RTOL if dtype else EVAL_LOSS_RTOL
+    if built != 2 or after or any(launches[k] != n for k, n in want.items()) \
+            or bf16_k1 != (12 * n_batches if dtype else 0) or \
+            loss_rel > tol or (not dtype and ties):
+        raise AssertionError(f"eval path ({label}): {row}")
+    return row
+
+
+class _FailOnce:
+    """A training dataset whose ``at``-th fetched batch raises, once
+    (a fault the retry loop must survive)."""
+
+    def __init__(self, base, at):
+        self.base, self.at, self.fetched, self.failed = base, at, 0, False
+
+    def size(self):
+        return self.base.size()
+
+    def shuffle(self):
+        self.base.shuffle()
+
+    def position_state(self):
+        return self.base.position_state()
+
+    def restore_position(self, state):
+        self.base.restore_position(state)
+
+    def data(self, train):
+        it = self.base.data(train)
+
+        def gen():
+            for b in it:
+                if train:
+                    self.fetched += 1
+                    if not self.failed and self.fetched == self.at:
+                        self.failed = True
+                        raise RuntimeError("injected fault: batch fetch")
+                yield b
+        return gen()
+
+
+def _sgd_plateau(optim):
+    return optim.SGD(learning_rate=1e-4, momentum=0.9,
+                     learning_rate_schedule=optim.Plateau(monitor="Loss",
+                                                          patience=1))
+
+
+def _checkpoint_run(fa, ce, model, dataset, val_ds, ckpt, resume_from=None):
+    """One run of phase 10 (b)/(c): 8 iterations of SGD(momentum) under
+    Plateau, validation and a checkpoint every 4; returns the optimizer,
+    per-step losses by iteration, the Plateau feeds, the checkpoint
+    writes, the launches and the times (the run's wall; for a resume,
+    resolving and unpickling the snapshot, and copying it in place)."""
+    from bigdl_tpu_torch import nn, optim
+
+    crit = nn.TimeDistributedCriterion(nn.FusedSoftmaxCrossEntropyCriterion())
+    opt = optim.Optimizer(model, dataset, crit, _sgd_plateau(optim))
+    opt.set_end_when(optim.Trigger.max_iteration(TRAIN_ITERS))
+    opt.set_validation(optim.Trigger.several_iteration(CKPT_EVERY), val_ds,
+                       _eval_methods(nn, optim,
+                                     nn.FusedSoftmaxCrossEntropyCriterion()))
+    opt.set_checkpoint(str(ckpt), optim.Trigger.several_iteration(CKPT_EVERY))
+    feeds, writes, losses, times = [], [], {}, {}
+    if resume_from is not None:
+        t0 = time.perf_counter()
+        opt.resume_from_checkpoint(str(resume_from))
+        times["resolve_and_load_s"] = time.perf_counter() - t0
+        load = opt._load_snapshot
+
+        def timed_load(snap, opt_state):
+            t0 = time.perf_counter()
+            load(snap, opt_state)
+            torch.cuda.synchronize()
+            times["copy_in_place_s"] = time.perf_counter() - t0
+
+        opt._load_snapshot = timed_load
+
+    class _Summary:
+        def add_scalar(self, tag, value, step):
+            if tag == "Loss":
+                losses[step] = value
+
+    opt.set_train_summary(_Summary())
+    feed, write = opt._feed_plateau, opt._checkpoint
+
+    def fed(state, opt_state):
+        out = feed(state, opt_state)
+        feeds.append({"neval": state["neval"], "Loss": state.get("Loss"),
+                      "lr_factor": float(opt_state["lr_factor"])})
+        return out
+
+    def timed(opt_state):
+        t0 = time.perf_counter()
+        path = write(opt_state)
+        writes.append((path, time.perf_counter() - t0))
+        return path
+
+    opt._feed_plateau, opt._checkpoint = fed, timed
+    fa.reset_launch_counts()
+    ce.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    times["wall_s"] = time.perf_counter() - t0
+    return opt, losses, feeds, writes, {**fa.LAUNCHES, **ce.LAUNCHES}, times
+
+
+def checkpoint_phase(fa, ce, card, x, y, val_ds):
+    """Phase 10 (b)-(c): the straight run with validation, Plateau's feed
+    and checkpoints; a fresh model and optimizer resumed from the first
+    checkpoint; and a run whose dataset raises once, which the retry
+    loop restores from its checkpoint.  Returns the resumed run's
+    launches."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.utils import file_io
+
+    def ds():
+        return array_dataset(x, y) >> SampleToMiniBatch(BATCH)
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        model = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                               seed=0)
+        straight, s_losses, s_feeds, s_writes, s_launch, s_times = \
+            _checkpoint_run(fa, ce, model, ds(), val_ds, root / "straight")
+        names = sorted(Path(p).name for p, _ in s_writes)
+        want_names = [f"checkpoint.{n}.pkl" for n in
+                      range(CKPT_EVERY, TRAIN_ITERS + 1, CKPT_EVERY)]
+        ckpts = []
+        for path, write_s in s_writes:
+            t0 = time.perf_counter()
+            reason = file_io.verify_snapshot(path)
+            ckpts.append({"name": Path(path).name,
+                          "bytes": file_io.getsize(path),
+                          "write_s": write_s,
+                          "verify_s": time.perf_counter() - t0,
+                          "verified": reason is None})
+        # the eval graph reads the weights training left: its Loss now
+        # equals an eager eval's on them
+        from bigdl_tpu_torch import nn
+        from bigdl_tpu_torch.optim.local_optimizer import _to_device
+        vb = next(val_ds.data(train=False))
+        crit = nn.TimeDistributedCriterion(
+            nn.FusedSoftmaxCrossEntropyCriterion())
+        with torch.no_grad():
+            xv = _to_device(vb.get_input(), "cuda")
+            yv = _to_device(vb.get_target(), "cuda")
+            graph_loss = crit.apply(optim.compiled_eval_step(model)(xv),
+                                    yv).item()
+            eager_loss = crit.apply(optim.make_eval_step(model)(xv),
+                                    yv).item()
+        row = {"phase": "ckpt_straight", "losses": s_losses,
+               "plateau_feeds": s_feeds, "checkpoints": ckpts,
+               "eval_graph_after_training_loss": graph_loss,
+               "eager_loss_same_weights": eager_loss,
+               "wall_s": s_times["wall_s"],
+               "train_pool_bytes": straight.compiled_stats["pool_bytes"],
+               "eval_pool_bytes": optim.compiled_eval_step(model).stats()[
+                   "pool_bytes"],
+               "launches": s_launch, "card": card}
+        emit(row)
+        if names != want_names or not all(c["verified"] for c in ckpts) or \
+                len(s_feeds) != TRAIN_ITERS // CKPT_EVERY or \
+                abs(graph_loss - eager_loss) > RESUME_RTOL * abs(eager_loss):
+            raise AssertionError(f"straight run: {row}")
+
+        # (c) resume: a fresh model (other weights) and optimizer from the
+        # first checkpoint alone
+        first = root / "first"
+        first.mkdir()
+        for suffix in ("", file_io.MANIFEST_SUFFIX):
+            shutil.copy(root / "straight" / (want_names[0] + suffix), first)
+        fresh = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                               seed=1)
+        t0 = time.perf_counter()
+        resumed, r_losses, r_feeds, _, r_launch, r_times = _checkpoint_run(
+            fa, ce, fresh, ds(), val_ds, root / "resumed", resume_from=first)
+        resume_s = time.perf_counter() - t0
+        # (c) the retry loop, from the straight run's weights: the 6th
+        # batch's fetch raises once
+        flaky = _FailOnce(ds(), at=6)
+        retried_model = transformer_lm("small", VOCAB, max_len=SEQ,
+                                       device="cuda", seed=0)
+        retried, t_losses, _, t_writes, t_launch, _ = _checkpoint_run(
+            fa, ce, retried_model, flaky, val_ds, root / "retry")
+
+        def against(run_model, run_losses, run_opt):
+            steps = sorted(run_losses)
+            loss_rel = max(abs(run_losses[s] - s_losses[s]) /
+                           abs(s_losses[s]) for s in steps)
+            rel, bitwise = {}, all(run_losses[s] == s_losses[s]
+                                   for s in steps)
+            with torch.no_grad():
+                for (k, a), (_, b) in zip(run_model.named_parameters(),
+                                          model.named_parameters()):
+                    rel[k] = rel_l2(a, b)
+                    bitwise = bitwise and torch.equal(a, b)
+            fa_ = float(run_opt.optim_method.state["lr_factor"])
+            fb = float(straight.optim_method.state["lr_factor"])
+            worst = max(rel, key=rel.get)
+            return {"steps": steps, "max_step_loss_rel": loss_rel,
+                    "worst_param": worst, "worst_param_rel_l2": rel[worst],
+                    "lr_factor": [fa_, fb], "bitwise_equal": bitwise,
+                    "neval": run_opt.driver_state["neval"]}
+
+        res = against(fresh, r_losses, resumed)
+        ret = against(retried_model, t_losses, retried)
+        row = {"phase": "ckpt_resume", "resumed": res,
+               "resume_wall_s": resume_s, "resume_times": r_times,
+               "plateau_feeds": r_feeds,
+               "retried": ret, "retry_fetches": flaky.fetched,
+               "retry_checkpoints": [Path(p).name for p, _ in t_writes],
+               "launches_resumed": r_launch, "launches_retried": t_launch,
+               "card": card}
+        emit(row)
+        for r, first_step in ((res, CKPT_EVERY), (ret, 1)):
+            if r["steps"] != list(range(first_step, TRAIN_ITERS + 1)) or \
+                    r["max_step_loss_rel"] > RESUME_RTOL or \
+                    r["worst_param_rel_l2"] > RESUME_RTOL or \
+                    r["lr_factor"][0] != r["lr_factor"][1] or \
+                    r["neval"] != TRAIN_ITERS + 1:
+                raise AssertionError(f"resume: {row}")
+        if not flaky.failed:
+            raise AssertionError("the injected fault never fired")
+        steps_resumed = TRAIN_ITERS - CKPT_EVERY + 1
+        want = {"flash_attention": 12 * steps_resumed,
+                "flash_attention_bwd": 12 * steps_resumed,
+                "fused_softmax_cross_entropy": steps_resumed,
+                "fused_softmax_cross_entropy_bwd": steps_resumed}
+        # the resumed run validates once (4 batches): K1 12 and K4 1 a batch
+        n_val = EVAL_SEQS // EVAL_BATCH + 1
+        want["flash_attention"] += 12 * n_val
+        want["fused_softmax_cross_entropy"] += n_val
+        if any(r_launch[k] != n for k, n in want.items()):
+            raise AssertionError(f"resumed run launches {r_launch}, want "
+                                 f"{want}")
+        del straight, resumed, retried, fresh, retried_model, model
+        return {k: r_launch[k] for k in want}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def predict_phase(fa, card, model, xv):
+    """Phase 10 (d): ``Predictor(batch_size=8)`` over the held-out
+    sequences through the model's compiled eval step (the ragged tail
+    padded to 8: no new graph), each batch's rows against the step's own
+    output on the unpadded batch, and the host's launch calls a batch."""
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.utils import cuda_graphs
+
+    step = optim.compiled_eval_step(model)
+    graphs = step.executables()
+    n_batches = -(-EVAL_SEQS // EVAL_BATCH)
+    captures = cuda_graphs.capture_count()
+    pred = optim.Predictor(model, batch_size=EVAL_BATCH)
+    t0 = time.perf_counter()
+    rows = pred.predict(list(xv))
+    wall = time.perf_counter() - t0
+    built = cuda_graphs.capture_count() - captures
+    err = 0.0
+    with torch.no_grad():
+        for i in range(0, EVAL_SEQS, EVAL_BATCH):
+            want = step(torch.as_tensor(xv[i:i + EVAL_BATCH], device="cuda"))
+            got = torch.as_tensor(np.stack(rows[i:i + EVAL_BATCH]),
+                                  device="cuda")
+            err = max(err, check_close("predict", got, want))
+    del rows
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pred.predict(list(xv))
+        torch.cuda.synchronize()
+    calls = collections.Counter(
+        e.name for e in prof.events()
+        if e.name in LAUNCH_CALLS or e.name.startswith("cudaMemcpy"))
+    row = {"phase": "predict", "sequences": EVAL_SEQS,
+           "wall_s_per_batch": wall / n_batches, "graphs_built": built,
+           "graphs": [graphs, step.executables()], "max_abs_err": err,
+           "host_calls_per_batch": {n: c / n_batches
+                                    for n, c in calls.items()},
+           "card": card}
+    emit(row)
+    if built or calls.get("cudaGraphLaunch", 0) != n_batches or any(
+            calls.get(n, 0) for n in LAUNCH_CALLS if n != "cudaGraphLaunch"):
+        raise AssertionError(f"predict: {row}")
+    return row
+
+
+def lbfgs_phase(fa, ce, card, x, y):
+    """Phase 10 (e): ``LBFGS(max_iter=3, n_correction=4)`` on the flat
+    parameters of "small", ``feval`` one forward and backward through the
+    kernels on the first batch; its first loss and gradient against the
+    plain model's ``feval`` at the same point, the loss falling, the
+    history's bytes and the kernels' launches."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.models import transformer_lm
+
+    xb = torch.as_tensor(x[:BATCH], device="cuda")
+    yb = torch.as_tensor(y[:BATCH], device="cuda")
+
+    def make_feval(model, crit, count):
+        params = list(model.parameters())
+        sizes = [p.numel() for p in params]
+
+        def feval(flat):
+            with torch.no_grad():
+                torch._foreach_copy_(params, [s.view(p.shape) for s, p in zip(
+                    torch.split(flat, sizes), params)])
+            model.zero_grad(set_to_none=True)
+            loss = crit.apply(model(xb), yb)
+            loss.backward()
+            count[0] += 1
+            g = torch.cat([p.grad.reshape(-1) for p in params])
+            model.zero_grad(set_to_none=True)
+            return loss.detach(), g
+        return feval, params
+
+    kmodel = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                            seed=0)
+    pmodel = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                            seed=0, use_flash="never")
+    kc, pc = [0], [0]
+    kfeval, kparams = make_feval(kmodel, nn.TimeDistributedCriterion(
+        nn.FusedSoftmaxCrossEntropyCriterion()), kc)
+    pfeval, _ = make_feval(pmodel, nn.TimeDistributedCriterion(
+        nn.CrossEntropyCriterion()), pc)
+    x0 = torch.cat([p.detach().reshape(-1) for p in kparams])
+    fp, gp = pfeval(x0)
+    fp = fp.item()
+    del pmodel, pfeval
+    torch.cuda.empty_cache()
+    lbfgs = optim.LBFGS(max_iter=3, n_correction=4)
+    first = {}
+
+    def kernels_feval(flat):
+        f, g = kfeval(flat)
+        if not first:
+            first["f"], first["g_rel_l2"] = f.item(), rel_l2(g, gp)
+        return f, g
+
+    fa.reset_launch_counts()
+    ce.reset_launch_counts()
+    t0 = time.perf_counter()
+    # ---- the L-BFGS main path: counts read right after it ----------
+    _, hist = lbfgs.optimize(kernels_feval, x0)
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **ce.LAUNCHES}
+    # -----------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    row = {"phase": "lbfgs", "f_history": hist, "fevals": kc[0],
+           "first_f": first["f"], "plain_first_f": fp,
+           "first_g_rel_l2_to_plain": first["g_rel_l2"],
+           "history_bytes": lbfgs.history_bytes(),
+           "params": x0.numel(), "wall_s": wall, "launches": launches,
+           "card": card}
+    emit(row)
+    want = {"flash_attention": 12 * kc[0], "flash_attention_bwd": 12 * kc[0],
+            "fused_softmax_cross_entropy": kc[0],
+            "fused_softmax_cross_entropy_bwd": kc[0]}
+    if abs(first["f"] - fp) > LBFGS_TOL or first["g_rel_l2"] > LBFGS_TOL or \
+            not hist[-1] < hist[0] or \
+            any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"L-BFGS: {row}")
+    del kmodel, lbfgs, gp, x0
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in want}
+
+
+def eval_phase(fa, ce, card):
+    """Phase 10: TransformerLM "small" (seed 0) evaluated, trained with
+    validation and checkpoints, resumed, predicted and minimised by
+    L-BFGS.  Returns each part's launches by the kernels line's names."""
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.models import synthetic_corpus, transformer_lm
+
+    x, y = synthetic_corpus(64, SEQ, VOCAB)
+    xv, yv = synthetic_corpus(EVAL_SEQS, SEQ, VOCAB, seed=1)
+    val_ds = array_dataset(xv, yv, shuffle_on_epoch=False) >> \
+        SampleToMiniBatch(EVAL_BATCH, drop_remainder=False)
+    model = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                           seed=0)
+    plain_model = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                                 seed=0, use_flash="never")
+    paths = {}
+    fp32 = eval_validation(fa, ce, card, model, plain_model, val_ds, None)
+    bf16 = eval_validation(fa, ce, card, model, plain_model, val_ds,
+                           torch.bfloat16)
+    paths["eval"] = {"flash_attention": fp32["launches"]["flash_attention"],
+                     "fused_softmax_cross_entropy":
+                     fp32["launches"]["fused_softmax_cross_entropy"]}
+    paths["eval_bf16"] = {
+        "flash_attention_bf16": bf16["flash_attention_bf16"],
+        "fused_softmax_cross_entropy":
+        bf16["launches"]["fused_softmax_cross_entropy"]}
+    predict_phase(fa, card, model, xv)
+    del model, plain_model
+    torch.cuda.empty_cache()
+    paths["resume"] = checkpoint_phase(fa, ce, card, x, y, val_ds)
+    torch.cuda.empty_cache()
+    paths["lbfgs"] = lbfgs_phase(fa, ce, card, x, y)
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1741,6 +2327,7 @@ def main():
     # memory holds no serving model
     int8_serving = int8_serving_phase(fa, card, *serving_models(),
                                       fp32_tok_s)
+    phase10 = eval_phase(fa, ce, card)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -1772,7 +2359,8 @@ def main():
                    for path, counts in (("serving", serving),
                                         ("training", training),
                                         ("training_bf16", training_bf16),
-                                        ("int8_serving", int8_serving))
+                                        ("int8_serving", int8_serving),
+                                        *phase10.items())
                    if counts.get(name)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
