@@ -20,7 +20,7 @@
 //    fragments, the row max and sum take two quad shuffles, and P is used
 //    in registers as the A operand of P.V (summed over keys in permuted
 //    order, mma.cuh, so no shuffle).  Q's fragments are split once and
-//    held in registers (re-read from shared memory for fp32 at D 128).  K
+//    held in registers (re-read from shared memory for fp32 past D 64).  K
 //    and V tiles are double-buffered in shared memory by cp.async
 //    (16-byte copies where every base and stride allows, else 4-byte, else
 //    plain loads for a 2-byte-aligned bf16 view), so the next tile loads
@@ -159,8 +159,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int NS = kBK / 8;     // n-tiles of S (8 keys each)
   constexpr int ND = D / 8;       // n-tiles of O
   constexpr int PS = kBK / M::K;  // k-steps of P.V
-  // Q's fragments stay in registers for the whole walk, except fp32 at
-  // D 128 (128 registers of hi/lo): re-read from shared memory there
+  // Q's fragments stay in registers for the whole walk, except fp32 past
+  // D 64 (96 or 128 registers of hi/lo): re-read from shared memory there
   constexpr bool kQRegs = sizeof(T) == 2 || D <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // BQ x LDS
@@ -412,7 +412,8 @@ struct Vec16<int8_t> {
   }
 };
 
-// N = 1, 2 or 4 consecutive staged elements (N-element aligned) as fp32
+// N consecutive staged elements (N-element aligned) as fp32: N = 1, 2 or 4
+// as one load, any other N (3 at D 96) element by element
 template <int N>
 __device__ __forceinline__ void load_n(const float* p, float* x) {
   if constexpr (N == 4) {
@@ -422,13 +423,15 @@ __device__ __forceinline__ void load_n(const float* p, float* x) {
     x[0] = r.x;
     x[1] = r.y;
   } else {
-    x[0] = *p;
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = p[i];
   }
 }
 template <int N>
 __device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* x) {
-  if constexpr (N == 1) {
-    x[0] = __bfloat162float(*p);
+  if constexpr (N % 2 != 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = __bfloat162float(p[i]);
   } else {
 #pragma unroll
     for (int i = 0; i < N; i += 2) {
@@ -441,12 +444,15 @@ __device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* x) {
 }
 template <int N>
 __device__ __forceinline__ void load_n(const int8_t* p, float* x) {
-  if constexpr (N == 4)
+  if constexpr (N == 4) {
     i8x4_f32(*reinterpret_cast<const uint32_t*>(p), x);
-  else if constexpr (N == 2)
+  } else if constexpr (N == 2) {
     i8x4_f32(*reinterpret_cast<const uint16_t*>(p), x, 2);
-  else
-    i8x4_f32(*reinterpret_cast<const uint8_t*>(p), x, 1);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      i8x4_f32(*reinterpret_cast<const uint8_t*>(p + i), x + i, 1);
+  }
 }
 
 // one stage of the ring: a K and a V tile, and for K3q their scales
@@ -500,10 +506,13 @@ paged_decode_kernel(const T* __restrict__ q,
   using V16 = Vec16<KV>;
   constexpr int EPV = V16::N;           // elements a 16-byte vector
   constexpr int C = D / EPV;            // vectors a row
-  constexpr int LPK = C < 8 ? C : 8;    // lanes that score one key
+  // lanes that score one key: the largest divisor of both C and 32 up
+  // to 8 (D 96 gives C = 24, 12, 6: LPK 8, 4, 2 for fp32, bf16, int8)
+  constexpr int LPK = C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : C % 2 == 0 ? 2 : 1;
   constexpr int VPL = C / LPK;          // vectors a lane reads of its key
   constexpr int KPP = 32 / LPK;         // keys a warp scores at once
   constexpr int DPL = (D + 31) / 32;    // output columns a lane, adjacent
+                                        // (3 at D 96: loaded one by one)
   // bf16 rows are only 8-byte aligned (the wrapper checks 4 elements)
   constexpr int W = sizeof(KV) == 2 ? 8 : 16;  // bytes a cp.async
   constexpr int EPC = W / static_cast<int>(sizeof(KV));  // elements a copy
@@ -798,6 +807,8 @@ int dispatch_paged(int d, const void* q, const void* k, const void* v,
       return launch_paged<T, 32, QUANT, PAGED>(q, k, v, o, batch, a, stream);
     case 64:
       return launch_paged<T, 64, QUANT, PAGED>(q, k, v, o, batch, a, stream);
+    case 96:
+      return launch_paged<T, 96, QUANT, PAGED>(q, k, v, o, batch, a, stream);
     case 128:
       return launch_paged<T, 128, QUANT, PAGED>(q, k, v, o, batch, a,
                                                 stream);
@@ -832,6 +843,7 @@ int dispatch_attn(int d, const void* q, const void* k, const void* v, void* o,
     case 16: return launch_attn<T, 16, NW>(q, k, v, o, bh, a, stream);
     case 32: return launch_attn<T, 32, NW>(q, k, v, o, bh, a, stream);
     case 64: return launch_attn<T, 64, NW>(q, k, v, o, bh, a, stream);
+    case 96: return launch_attn<T, 96, NW>(q, k, v, o, bh, a, stream);
     case 128: return launch_attn<T, 128, NW>(q, k, v, o, bh, a, stream);
     default: return -1;
   }

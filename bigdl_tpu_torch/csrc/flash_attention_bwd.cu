@@ -63,7 +63,7 @@ struct BwdArgs {
 };
 
 // Two blocks an SM at D <= 64 (2 x 105 KB of shared memory at fp32); at
-// D 128 one block holds 199 KB.
+// D 96 one block holds 152 KB, at D 128 199 KB.
 template <int D>
 constexpr int kMinBlocks = D <= 64 ? 2 : 1;
 
@@ -404,6 +404,7 @@ int dispatch_bwd(int d, const void* q, const void* k, const void* v,
     case 16: return launch_bwd<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, a, st);
     case 32: return launch_bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, a, st);
     case 64: return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, a, st);
+    case 96: return launch_bwd<T, 96>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, a, st);
     case 128: return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, a, st);
     default: return -1;
   }

@@ -4,39 +4,55 @@ params)``), into the port's modules;
 and the optimizer-state bridge, so a JAX run can be carried across
 mid-training, for every method of ``optim.optim_method``.  Both go the
 other way too (``to_jax_params``, ``to_jax_opt_state``): numpy trees in
-the JAX keys and the unrolled layout, which is what the port's
+the JAX keys and the model's own layout, which is what the port's
 checkpoints hold, so a checkpoint written by either package resumes in
 the other.
 
-Both JAX layouts load: the unrolled ``"block{i}"`` keys map onto the
-port's blocks directly, and the ``scan_layers`` layout's stacked
-``"blocks"`` entry is unstacked first (a ``Fused`` state's flat vectors
-are reordered, given the parameter tree).  Keys and shapes are checked
-leaf by leaf (``Module.load_parameters_tree``).
+Both JAX layouts load into both of the port's (``TransformerLM``
+unrolled, ``"block{i}"``, or ``scan_layers``, one stacked ``"blocks"``
+entry): a tree of the model's layout loads as it is, the other layout
+crosses through ``stack_block_params`` / ``unstack_block_params`` (a
+``Fused`` state's flat vectors are reordered, given the parameter tree).
+Keys and shapes are checked leaf by leaf
+(``Module.load_parameters_tree``).
 """
 
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.nn.attention import unstack_block_params
+from bigdl_tpu_torch.nn.attention import (stack_block_params,
+                                          unstack_block_params)
+from bigdl_tpu_torch.nn.containers import ScanLayers
 from bigdl_tpu_torch.optim.optim_method import (CompositeOptimMethod, Fused,
                                                 ravel_order)
 from bigdl_tpu_torch.utils.device import resolve_device
 
 
-def to_port_tree(jax_params):
-    """The JAX tree in the port's (unrolled) layout."""
-    if "blocks" in jax_params:
+def is_scanned(model) -> bool:
+    """Whether ``model`` holds its blocks in the scanned layout."""
+    return isinstance(getattr(model, "_modules", {}).get("blocks"),
+                      ScanLayers)
+
+
+def to_port_tree(jax_params, scanned=False):
+    """The JAX tree in the unrolled layout, or with ``scanned`` the
+    scanned one."""
+    if scanned and any(k.startswith("block") and k != "blocks"
+                       for k in jax_params):
+        return stack_block_params(jax_params)
+    if not scanned and "blocks" in jax_params:
         return unstack_block_params(jax_params)
     return dict(jax_params)
 
 
 def load_jax_params(model, jax_params):
-    """Copy a JAX parameter tree into ``model``; returns ``model``.  A
-    tree from ``bigdl_tpu.nn.quantized.quantize_params`` loads into the
-    port's int8 twin (``nn.quantized.quantize_model``), its int8
-    payloads as int8 and its scales as fp32."""
-    return model.load_parameters_tree(to_port_tree(jax_params))
+    """Copy a JAX parameter tree (either layout) into ``model``;
+    returns ``model``.  A tree from ``bigdl_tpu.nn.quantized.
+    quantize_params`` loads into the port's int8 twin
+    (``nn.quantized.quantize_model``), its int8 payloads as int8 and its
+    scales as fp32."""
+    return model.load_parameters_tree(
+        to_port_tree(jax_params, is_scanned(model)))
 
 
 def _flatten(tree, prefix=""):
@@ -62,14 +78,17 @@ def _ravel_leaves(tree, path=()):
             yield (*path, key), val
 
 
-def _unrolled_ravel(flat, jax_params):
+def _reravel(flat, jax_params, scanned):
     """A flat vector that ``ravel_pytree`` laid out over ``jax_params``
-    (either layout), reordered as it lies over the unrolled tree
-    (``ravel_order`` of the port's names).  In the ``scan_layers`` layout
-    each stacked ``blocks`` leaf is one segment holding every layer's
-    values in turn, where the unrolled tree puts ``block{i}`` subtrees
-    apart: the sizes match, the positions do not."""
+    (either layout), reordered as it lies over the port model's tree
+    (``ravel_order`` of its names; ``scanned``: the scanned layout).  In
+    the ``scan_layers`` layout each stacked ``blocks`` leaf is one
+    segment holding every layer's values in turn, where the unrolled
+    tree puts ``block{i}`` subtrees apart: the sizes match, the positions
+    do not.  Between two trees of one layout nothing moves."""
     flat = np.asarray(flat)
+    if scanned == ("blocks" in jax_params):
+        return flat
     pieces, at = {}, 0
     for path, leaf in _ravel_leaves(jax_params):
         shape = tuple(leaf.shape)
@@ -84,22 +103,37 @@ def _unrolled_ravel(flat, jax_params):
     if at != flat.size:
         raise ValueError(f"Fused state of {flat.size} values against "
                          f"parameters of {at}")
-    return np.concatenate([pieces[k] for k in ravel_order(pieces)])
+    if not scanned:
+        return np.concatenate([pieces[k] for k in ravel_order(pieces)])
+    # unrolled pieces in the stacked order: "blocks.<leaf>" holds
+    # block0's <leaf>, block1's, ... in turn
+    per_layer = {}
+    for name, seg in pieces.items():
+        head, _, rest = name.partition(".")
+        if head.startswith("block"):
+            per_layer.setdefault("blocks." + rest, {})[int(head[5:])] = seg
+        else:
+            per_layer[name] = {0: seg}
+    return np.concatenate([
+        np.concatenate([segs[i] for i in sorted(segs)])
+        for segs in (per_layer[n] for n in ravel_order(per_layer))])
 
 
 def _tensor(leaf, dtype, device):
     return torch.as_tensor(np.array(leaf), dtype=dtype, device=device)
 
 
-def _state(method, jax_state, prefix, device, jax_params=None):
+def _state(method, jax_state, prefix, device, jax_params=None,
+           scanned=False):
     """One method's state from its JAX tree; parameter names start with
     ``prefix`` (a composite's subtree path).  ``jax_params``: the tree a
-    top-level ``Fused`` state was raveled over."""
+    top-level ``Fused`` state was raveled over; ``scanned``: the port
+    model's layout."""
     if isinstance(method, CompositeOptimMethod):
         keys = ["/".join(p) for _, p, _ in method.assignments]
         _check_keys(method, jax_state, keys)
         return {"/".join(p): _state(m, jax_state["/".join(p)],
-                                    ".".join(p), device)
+                                    ".".join(p), device, scanned=scanned)
                 for _, p, m in method.assignments}
     keys = ["neval", *method.slots]
     if getattr(getattr(method, "schedule", None), "stateful", False):
@@ -115,13 +149,14 @@ def _state(method, jax_state, prefix, device, jax_params=None):
     for slot in method.slots:
         tree = jax_state[slot]
         if isinstance(method, Fused) and jax_params is not None:
-            tree = _unrolled_ravel(tree, jax_params)
+            tree = _reravel(tree, jax_params, scanned)
         if isinstance(method, Fused) or not isinstance(tree, dict):
             # Fused: one flat vector in ravel_pytree's order; a composite
             # path naming one parameter: that parameter's leaf
             state[slot] = _tensor(tree, torch.float32, device)
             continue
-        names = _flatten(to_port_tree(tree) if not prefix else tree)
+        names = _flatten(to_port_tree(tree, scanned) if not prefix
+                         else tree)
         state[slot] = {f"{prefix}.{name}" if prefix else name:
                        _tensor(leaf, torch.float32, device)
                        for name, leaf in names.items()}
@@ -137,15 +172,15 @@ def _check_keys(method, jax_state, keys):
 
 
 def from_jax_opt_state(optim_method, jax_state, device=None,
-                       jax_params=None):
+                       jax_params=None, model=None):
     """``load_jax_opt_state``'s conversion alone: the port's state for
     ``jax_state``, not set on ``optim_method``."""
     return _state(optim_method, jax_state, "", resolve_device(device),
-                  jax_params)
+                  jax_params, model is not None and is_scanned(model))
 
 
 def load_jax_opt_state(optim_method, jax_state, device=None,
-                       jax_params=None):
+                       jax_params=None, model=None):
     """A JAX optimizer state tree (numpy or JAX leaves, either parameter
     layout) -> the port's state, set as ``optim_method.state`` (where
     ``Optimizer.optimize()`` starts from) and returned.  Every method
@@ -156,12 +191,15 @@ def load_jax_opt_state(optim_method, jax_state, device=None,
     state per subtree; ``neval`` lands as a device int32.  ``device=None``
     means the CUDA card.
 
-    A ``Fused`` state's flat vectors do not say which layout they were
-    raveled over, and the ``scan_layers`` layout orders them otherwise:
-    pass that run's parameter tree (any leaves with ``.shape``) as
-    ``jax_params``, and they are reordered to the unrolled layout.
-    Without it they load as the unrolled layout's."""
-    state = from_jax_opt_state(optim_method, jax_state, device, jax_params)
+    The state loads into the layout of ``model`` (the port model it
+    trains; without it, the unrolled layout).  A ``Fused`` state's flat
+    vectors do not say which layout they were raveled over, and the
+    ``scan_layers`` layout orders them otherwise: pass that run's
+    parameter tree (any leaves with ``.shape``) as ``jax_params``, and
+    they are reordered to the model's layout where the two differ.
+    Without it they load as they lie."""
+    state = from_jax_opt_state(optim_method, jax_state, device, jax_params,
+                               model)
     optim_method.state = state
     return state
 
@@ -187,7 +225,8 @@ def _nest(flat, prefix=""):
 
 def to_jax_params(model):
     """``model``'s parameters as a JAX parameter tree: nested dicts of
-    numpy arrays in the JAX keys, the unrolled ``block{i}`` layout."""
+    numpy arrays in the JAX keys and the model's own layout (``block{i}``
+    unrolled, stacked ``blocks`` scanned)."""
     return _nest(dict(model.named_parameters()))
 
 

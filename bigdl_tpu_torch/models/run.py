@@ -13,15 +13,26 @@ read the loss every k-th step only; ``--checkpoint DIR``: a snapshot
 under DIR at every epoch's end, ``set_checkpoint(DIR,
 Trigger.every_epoch())``, which the JAX package's recipe also resumes
 from), plus ``--device`` (default: the CUDA card; ``--device cpu`` runs
-the kernels' plain versions).  ``--sp``/``--pp`` above 1 raise: the
-model-parallel engines are not ported yet; the JAX recipe's summary,
-prefetch, scan and remat flags wait with them (ROADMAP A1).
+the kernels' plain versions).  ``--scanLayers auto|on|off`` holds the
+blocks scanned (auto: "medium" and "large", as in JAX) and
+``--rematPolicy NAME`` rematerialises each block in training under a
+JAX policy name (checked before any data is built).  ``--sp``/``--pp``
+above 1 raise: the model-parallel engines are not ported yet; the JAX
+recipe's summary and prefetch flags wait for ROADMAP A1.
 """
 
 import argparse
 import logging
 import os
 import sys
+
+
+def _validate_remat_policy(args):
+    """Fail on an unknown ``--rematPolicy`` NAME before any data is built,
+    with the list of valid names."""
+    from bigdl_tpu_torch.nn.containers import resolve_checkpoint_policy
+
+    return resolve_checkpoint_policy(getattr(args, "remat_policy", None))
 
 
 def cmd_transformer_train(args):
@@ -31,13 +42,16 @@ def cmd_transformer_train(args):
     from bigdl_tpu_torch.models.transformer import (synthetic_corpus,
                                                     transformer_lm)
 
+    remat_policy = _validate_remat_policy(args)
     if args.sp > 1 or args.pp > 1:
         raise NotImplementedError(
             "--sp/--pp: the sequence- and pipeline-parallel engines are not "
             "ported yet (ROADMAP A7)")
+    scan = {"auto": None, "on": True, "off": False}[args.scan_layers]
     x, y = synthetic_corpus(args.synth_n, args.seq_len, args.vocab)
     model = transformer_lm(args.size, args.vocab, max_len=args.seq_len,
-                           device=args.device)
+                           device=args.device, scan_layers=scan,
+                           remat_policy=remat_policy)
     crit = nn.TimeDistributedCriterion(
         nn.FusedSoftmaxCrossEntropyCriterion())
     dataset = array_dataset(x, y) >> SampleToMiniBatch(args.batch)
@@ -76,6 +90,15 @@ def main(argv=None):
     p.add_argument("--seq-len", type=int, default=64, dest="seq_len")
     p.add_argument("--size", default="tiny",
                    choices=["tiny", "small", "medium", "large"])
+    p.add_argument("--scanLayers", default="auto",
+                   choices=["auto", "on", "off"], dest="scan_layers",
+                   help="hold the blocks scanned, one stacked 'blocks' "
+                        "entry (auto: on for medium/large)")
+    p.add_argument("--rematPolicy", default=None, dest="remat_policy",
+                   metavar="NAME",
+                   help="remat policy applied per transformer block (a "
+                        "jax.checkpoint_policies name, e.g. dots_saveable, "
+                        "nothing_saveable)")
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--pp", type=int, default=1)
     p.add_argument("--device", default=None,

@@ -17,14 +17,24 @@ CONFIGS = {
 
 def transformer_lm(size: str = "tiny", vocab_size: int = 32000,
                    max_len: int = 2048, use_flash: str = "auto",
-                   device=None, seed: int = 0) -> TransformerLM:
+                   device=None, seed: int = 0, scan_layers=None,
+                   remat_policy=None) -> TransformerLM:
     """A named config with random weights drawn from ``seed``, placed on
-    ``device`` (``None`` means the CUDA card)."""
+    ``device`` (``None`` means the CUDA card).
+
+    ``scan_layers=None`` is the JAX package's AUTO rule: "medium" and
+    "large" hold their blocks scanned (one stacked ``"blocks"`` entry,
+    every layer rematerialised in training), "tiny" and "small"
+    unrolled; True or False forces the layout.  ``remat_policy`` names
+    a ``nn.containers`` remat policy applied per block in training."""
     if size not in CONFIGS:
         raise ValueError(f"unknown size {size!r}; pick from {list(CONFIGS)}")
     hidden, heads, layers = CONFIGS[size]
+    if scan_layers is None:
+        scan_layers = size in ("medium", "large")
     return TransformerLM(vocab_size, hidden, heads, layers, max_len=max_len,
-                         use_flash=use_flash, device=device, seed=seed)
+                         use_flash=use_flash, device=device, seed=seed,
+                         scan_layers=scan_layers, remat_policy=remat_policy)
 
 
 def synthetic_corpus(n_seq: int, seq_len: int, vocab_size: int, seed=0):

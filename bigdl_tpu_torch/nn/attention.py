@@ -30,7 +30,10 @@ import re
 import torch
 import torch.nn.functional as F
 
-from bigdl_tpu_torch.nn.containers import (stack_layer_trees,
+from bigdl_tpu_torch.nn import dropout as _dropout
+from bigdl_tpu_torch.nn.containers import (ScanLayers, remat,
+                                           resolve_checkpoint_policy,
+                                           stack_layer_trees,
                                            unstack_layer_trees)
 from bigdl_tpu_torch.nn.initialization import Xavier, normal
 from bigdl_tpu_torch.nn.linear import Linear
@@ -58,10 +61,14 @@ def _int32(x, device):
 
 
 class MultiHeadAttention(Module):
-    """Self-attention with a fused qkv projection."""
+    """Self-attention with a fused qkv projection.  ``dropout`` applies
+    to the projected output in training (``nn.dropout``: the mask is a
+    hash of the step's key, ``dropout_salt`` -- the layer index in a
+    ``TransformerLM`` -- and the element index); eval is the identity."""
 
     def __init__(self, hidden_size: int, num_heads: int, causal: bool = False,
-                 use_flash: str = "auto", generator=None):
+                 use_flash: str = "auto", generator=None,
+                 dropout: float = 0.0):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
@@ -74,6 +81,8 @@ class MultiHeadAttention(Module):
         self.head_dim = hidden_size // num_heads
         self.causal = causal
         self.use_flash = use_flash
+        self.dropout = float(dropout)
+        self.dropout_salt = 0
         d = hidden_size
         init = Xavier()
         self.qkv_weight = torch.nn.Parameter(
@@ -118,7 +127,10 @@ class MultiHeadAttention(Module):
             y = fa.flash_attention(q, k, v, causal=self.causal)
         else:
             y = dot_product_attention(q, k, v, causal=self.causal)
-        return self._project_out(y)
+        y = self._project_out(y)
+        if self.training and self.dropout > 0:
+            y = _dropout.dropout(y, self.dropout, self.dropout_salt)
+        return y
 
     # ----- contiguous KV cache ---------------------------------------------- #
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32):
@@ -305,11 +317,11 @@ class TransformerBlock(Container):
     defaults to the tanh approximation, and so does this block."""
 
     def __init__(self, hidden_size, num_heads, mlp_ratio=4, causal=True,
-                 use_flash="auto", generator=None):
+                 use_flash="auto", generator=None, dropout=0.0):
         super().__init__()
         self.ln1 = LayerNorm(hidden_size)
         self.attn = MultiHeadAttention(hidden_size, num_heads, causal,
-                                       use_flash, generator)
+                                       use_flash, generator, dropout)
         self.ln2 = LayerNorm(hidden_size)
         self.fc1 = Linear(hidden_size, mlp_ratio * hidden_size,
                           generator=generator)
@@ -342,30 +354,59 @@ class TransformerLM(Container):
     """Decoder-only LM: embed + blocks + LN + untied head.
 
     Parameters: ``wte (V, d)``, ``wpe (max_len, d)``, ``head (V, d)``,
-    ``block{i}`` and ``ln_f`` -- the JAX unrolled layout.  A JAX model
-    built with ``scan_layers=True`` loads through the bridge, which
-    unstacks its ``"blocks"`` entry.  Weights are drawn on the CPU from
+    ``ln_f`` and the blocks in one of JAX's two layouts:
+
+    - unrolled (``scan_layers=False``): ``block{i}``, each block a child;
+    - scanned (``scan_layers=True``): one ``blocks`` entry
+      (``nn.ScanLayers``) whose every leaf has a leading layer axis.
+
+    Both layouts draw the same initial weights from one seed (the blocks
+    are built alike, then stacked), and either loads a JAX tree of
+    either layout through the bridge.  ``remat_policy`` (a
+    ``nn.containers`` policy name) rematerialises the blocks in
+    training: in the scanned layout every layer always (``None`` keeps
+    each layer's input only), in the unrolled one each block when a
+    policy is named, as the JAX model does.  The KV caches and pools
+    follow the parameters' layout: ``{"block{i}": ...}`` or
+    ``{"blocks": ...}`` with a leading layer axis, whose layer views are
+    contiguous.  Weights are drawn on the CPU from
     ``torch.Generator().manual_seed(seed)`` and then moved to ``device``
     (``None`` means the CUDA card)."""
 
     def __init__(self, vocab_size, hidden_size, num_heads, num_layers,
                  max_len=2048, mlp_ratio=4, use_flash="auto", device=None,
-                 seed=0):
+                 seed=0, scan_layers=False, remat_policy=None):
         super().__init__()
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.max_len = max_len
+        self.scan_layers = bool(scan_layers)
+        self.remat_policy = resolve_checkpoint_policy(remat_policy)
         d = hidden_size
         self.wte = torch.nn.Parameter(normal(gen, (vocab_size, d), 0.02))
         self.wpe = torch.nn.Parameter(normal(gen, (max_len, d), 0.01))
         self.head = torch.nn.Parameter(normal(gen, (vocab_size, d), 0.02))
-        self.blocks = [self.add(f"block{i}", TransformerBlock(
-            hidden_size, num_heads, mlp_ratio, use_flash=use_flash,
-            generator=gen)) for i in range(num_layers)]
+        blocks = [TransformerBlock(hidden_size, num_heads, mlp_ratio,
+                                   use_flash=use_flash, generator=gen)
+                  for _ in range(num_layers)]
+        if self.scan_layers:
+            # model.blocks is the ScanLayers: blocks[i] is layer i
+            self.add("blocks", ScanLayers(blocks, remat_policy))
+        else:
+            self.blocks = blocks
+            for i, b in enumerate(blocks):
+                b.attn.dropout_salt = i
+                self.add(f"block{i}", b)
         self.ln_f = LayerNorm(hidden_size)
         self.to(device)
+
+    @property
+    def scan(self):
+        """The ``ScanLayers`` of the scanned layout, else None."""
+        blocks = self._modules.get("blocks")
+        return blocks if isinstance(blocks, ScanLayers) else None
 
     @property
     def device(self):
@@ -374,6 +415,25 @@ class TransformerLM(Container):
     def _logits(self, x):
         return F.linear(self.ln_f(x), self.head.to(x.dtype))
 
+    def _layers(self, tree):
+        """``(block, its part of tree)`` per layer: the blocks, or the
+        scanned stack's layer views with views of the stacked tree."""
+        if self.scan is None:
+            return [(b, tree[f"block{i}"])
+                    for i, b in enumerate(self.blocks)]
+        stacked = tree["blocks"]
+        return [(view, {k: t[i] for k, t in stacked.items()})
+                for i, view in enumerate(self.scan.layer_views())]
+
+    def _stacked_cache(self, per_layer):
+        """One layer's cache leaves -> zeros of the model's layout."""
+        if self.scan is None:
+            return {f"block{i}": per_layer() for i in range(len(self.blocks))}
+        one = per_layer()
+        return {"blocks": {k: torch.zeros((len(self.blocks), *t.shape),
+                                          dtype=t.dtype, device=t.device)
+                           for k, t in one.items()}}
+
     def forward(self, input, cache=None, pos=None):
         """Full forward ``(N, T)`` token ids -> logits ``(N, T, V)``; with
         ``cache`` the cached prefill/decode of ``_apply_cached``."""
@@ -381,20 +441,27 @@ class TransformerLM(Container):
             return self._apply_cached(input, cache, pos)
         t = input.shape[1]
         x = self.wte[input.long()] + self.wpe[:t][None]
-        for b in self.blocks:
-            x = b(x)
+        if self.scan is not None:
+            x = self.scan(x)
+        else:
+            for b in self.blocks:
+                if self.training and self.remat_policy is not None:
+                    x = remat(b, x, policy=self.remat_policy)
+                else:
+                    x = b(x)
         return self._logits(x)
 
     # ----- contiguous KV cache ---------------------------------------------- #
     def init_cache(self, batch: int, max_len=None, dtype=torch.float32):
         """``{"block{i}": {"k", "v"}}`` of ``(batch, max_len, H, Dh)``
-        zeros; ``max_len`` defaults to the positional table's."""
+        zeros, or ``{"blocks": ...}`` with a leading layer axis when
+        scanned; ``max_len`` defaults to the positional table's."""
         max_len = self.max_len if max_len is None else int(max_len)
         if max_len > self.max_len:
             raise ValueError(f"cache max_len {max_len} exceeds the model's "
                              f"positional table ({self.max_len})")
-        return {f"block{i}": b.attn.init_cache(batch, max_len, dtype)
-                for i, b in enumerate(self.blocks)}
+        return self._stacked_cache(
+            lambda: self.blocks[0].attn.init_cache(batch, max_len, dtype))
 
     def _apply_cached(self, input, cache, pos):
         """Prefill (``pos=None``: whole padded prompt) or one-token decode
@@ -409,20 +476,19 @@ class TransformerLM(Container):
             # jnp.take clips: an inactive slot's position stays in range
             at = pos.long().clamp(0, self.max_len - 1)
             x = x + self.wpe[at][:, None, :]
-        for i, b in enumerate(self.blocks):
-            x, cache[f"block{i}"] = b.apply_cached(x, cache[f"block{i}"],
-                                                   pos)
+        for b, c in self._layers(cache):
+            x, _ = b.apply_cached(x, c, pos)
         return self._logits(x), cache
 
     # ----- paged KV pool ---------------------------------------------------- #
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          dtype=torch.float32):
-        """Per-layer pools of ``num_blocks + 1`` blocks: the extra one, id
-        ``num_blocks``, is the trash block.  ``dtype=torch.int8`` gives
-        the quantized layout (``MultiHeadAttention.init_paged_cache``)."""
-        return {f"block{i}": b.init_paged_cache(int(num_blocks) + 1,
-                                                block_size, dtype)
-                for i, b in enumerate(self.blocks)}
+        """Per-layer pools of ``num_blocks + 1`` blocks (the layout of
+        ``init_cache``): the extra one, id ``num_blocks``, is the trash
+        block.  ``dtype=torch.int8`` gives the quantized layout
+        (``MultiHeadAttention.init_paged_cache``)."""
+        return self._stacked_cache(lambda: self.blocks[0].init_paged_cache(
+            int(num_blocks) + 1, block_size, dtype))
 
     def apply_paged(self, input, pool, tables, *, pos, lengths=None):
         """Chunk prefill (``lengths`` given, ``input`` ``(N, Tc)`` starting
@@ -440,9 +506,8 @@ class TransformerLM(Container):
             x = x + self.wpe[gpos.long().clamp(0, self.max_len - 1)]
         else:
             x = x + self.wpe[pos.long().clamp(0, self.max_len - 1)][:, None]
-        for i, b in enumerate(self.blocks):
-            x, pool[f"block{i}"] = b.apply_paged(x, pool[f"block{i}"],
-                                                 tables, pos, lengths)
+        for b, p in self._layers(pool):
+            x, _ = b.apply_paged(x, p, tables, pos, lengths)
         return self._logits(x), pool
 
 

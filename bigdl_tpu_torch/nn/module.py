@@ -79,7 +79,7 @@ class Module(torch.nn.Module):
         None inherits); without, clears every mark on and below this
         module."""
         if names is None:
-            for m in self.modules():
+            for m in all_modules(self):
                 if isinstance(m, Module):
                     m._frozen = None
         else:
@@ -88,7 +88,7 @@ class Module(torch.nn.Module):
 
     def _freeze_named(self, names, value):
         found = set()
-        for m in self.modules():
+        for m in all_modules(self):
             if isinstance(m, Module) and str(m.name) in names:
                 m._frozen = value
                 found.add(str(m.name))
@@ -125,7 +125,9 @@ class Module(torch.nn.Module):
         like ``parameters_tree()``) into the matching parameter.  Keys
         and shapes must match exactly, and an int8 leaf (a quantized
         payload) loads only into an int8 parameter: a missing, extra,
-        misshapen or mistyped leaf raises before anything is copied."""
+        misshapen or mistyped leaf raises before anything is copied.  An
+        empty entry (JAX's ``()`` for a layer without parameters) holds
+        nothing to load."""
         flat = {}
 
         def walk(node, prefix):
@@ -133,7 +135,7 @@ class Module(torch.nn.Module):
                 name = f"{prefix}{key}"
                 if isinstance(val, dict):
                     walk(val, name + ".")
-                else:
+                elif not (isinstance(val, (tuple, list)) and not val):
                     flat[name] = val
 
         walk(tree, "")
@@ -171,20 +173,40 @@ class Module(torch.nn.Module):
         return Predictor(self, batch_size).predict_class(data)
 
 
+def all_modules(module):
+    """``module.modules()`` and the layers that hold no parameters of
+    their own in the registered tree (``ScanLayers``' layers, whose
+    stacked parameters live in its children), each once: the modules
+    that names and freezing reach."""
+    seen = set()
+    stack = [module]
+    while stack:
+        for m in stack.pop().modules():
+            if id(m) not in seen:
+                seen.add(id(m))
+                yield m
+                stack.extend(getattr(m, "hidden_layers", ()))
+
+
 def has_frozen(module) -> bool:
     """Whether this module or a descendant was ``freeze()``-d."""
-    return any(getattr(m, "_frozen", None) is True for m in module.modules())
+    return any(getattr(m, "_frozen", None) is True
+               for m in all_modules(module))
 
 
 def frozen_param_mask(module):
     """``{parameter name: trainable}`` over ``named_parameters()``: False
     under a frozen module, where an explicit ``unfreeze(names)`` (a False
-    mark) overrides a frozen ancestor."""
+    mark) overrides a frozen ancestor.  A ``ScanLayers`` routes its whole
+    stacked subtree through its first layer's mark (``mark_route``), as
+    the JAX walk routes it to child 0."""
     mask = {}
 
     def walk(m, prefix, inherited):
-        own = getattr(m, "_frozen", None)
-        frozen = inherited if own is None else own
+        frozen = inherited
+        for marked in (m, getattr(m, "mark_route", None)):
+            own = getattr(marked, "_frozen", None)
+            frozen = frozen if own is None else own
         for key, _ in m.named_parameters(recurse=False):
             mask[prefix + key] = not frozen
         for key, child in m.named_children():
@@ -196,9 +218,16 @@ def frozen_param_mask(module):
 
 class Container(Module):
     """A module built from child modules, each registered under the key
-    its parameters take in the JAX tree (``"ln1"``, ``"block3"`` ...)."""
+    its parameters take in the JAX tree (``"ln1"``, ``"block3"`` ...).
+    ``add(key, module)`` registers under ``key`` and returns the module;
+    ``add(module)`` takes the next index, ``"0"``, ``"1"``, ... (the JAX
+    ``Container`` keying invariant) and returns the container, as JAX's
+    ``add`` does, so table containers chain like JAX's."""
 
-    def add(self, key: str, module: torch.nn.Module):
+    def add(self, key, module=None):
+        if module is None:
+            self.add_module(str(len(self._modules)), key)
+            return self
         self.add_module(key, module)
         return module
 
@@ -221,9 +250,15 @@ class Criterion:
         return self.output
 
     def backward(self, input, target):
+        """The gradient of the loss with respect to ``input`` (a tensor,
+        or a table: a tuple or list of them), in ``input``'s structure."""
+        table = isinstance(input, (tuple, list))
         with torch.enable_grad():
-            x = input.detach().requires_grad_(True)
-            self.grad_input, = torch.autograd.grad(self.apply(x, target), x)
+            xs = [x.detach().requires_grad_(True)
+                  for x in (input if table else [input])]
+            grads = torch.autograd.grad(
+                self.apply(type(input)(xs) if table else xs[0], target), xs)
+        self.grad_input = type(input)(grads) if table else grads[0]
         return self.grad_input
 
     def __call__(self, input, target):

@@ -111,10 +111,13 @@ _MHA_SITES = (("qkv_weight", "qkv_weight_q", "qkv_scale"),
               ("out_weight", "out_weight_q", "out_scale"))
 
 
-def _quantize_sites(params, sites, device):
+def _quantize_sites(params, sites, device, lead):
+    """``lead``: stacked leading axes (1 inside ``ScanLayers``), each
+    layer quantized per output channel on its own."""
     out = {k: _to_tensor(v, device) for k, v in params.items()}
     for fp_key, q_key, s_key in sites:
-        out[q_key], out[s_key] = quantize_channelwise(out.pop(fp_key), 0)
+        out[q_key], out[s_key] = quantize_channelwise(out.pop(fp_key), lead,
+                                                      lead)
     return out
 
 
@@ -133,11 +136,14 @@ def quantize_params(model: Module, params=None,
     model's own ``parameters_tree()``) and rewrites each quantizable
     site: ``Linear`` (``weight`` -> ``weight_q`` + ``scale``) and
     ``MultiHeadAttention`` (``qkv_weight`` and ``out_weight``).
-    Everything else passes through fp32.  ``select(path, module) ->
-    bool`` keeps a site fp32 when it returns False (paths like
-    ``"block0.fc1"`` or ``"block0.attn"``)."""
+    Everything else passes through fp32.  Inside ``ScanLayers`` the
+    stacked leaves quantize per layer and per output channel (one more
+    leading axis), as the JAX walk's ``lead_axes`` do.  ``select(path,
+    module) -> bool`` keeps a site fp32 when it returns False (paths
+    like ``"block0.fc1"``, ``"block0.attn"`` or ``"blocks.attn"``)."""
     # the layers import this module for int8_matmul
     from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+    from bigdl_tpu_torch.nn.containers import ScanLayers
     from bigdl_tpu_torch.nn.linear import Linear
 
     sites_of = {Linear: _LINEAR_SITES, MultiHeadAttention: _MHA_SITES}
@@ -145,20 +151,21 @@ def quantize_params(model: Module, params=None,
         params = model.parameters_tree()
     device = next(model.parameters()).device
 
-    def walk(m, p, path):
+    def walk(m, p, path, lead):
         if not isinstance(p, dict):
             return p
         sites = sites_of.get(type(m))
         if sites is not None and sites[0][0] in p:
             if select is None or select(path, m):
-                return _quantize_sites(p, sites, device)
+                return _quantize_sites(p, sites, device, lead)
             return p
+        lead += isinstance(m, ScanLayers)
         # the module's OWN leaves (wte, wpe, head) stay fp32
         return {k: v if k not in m._modules else
-                walk(m._modules[k], v, f"{path}.{k}" if path else k)
+                walk(m._modules[k], v, f"{path}.{k}" if path else k, lead)
                 for k, v in p.items()}
 
-    return walk(model, params, "")
+    return walk(model, params, "", 0)
 
 
 def _bind(module, tree):

@@ -50,7 +50,7 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
 #: of ``LAUNCHES``, those with bf16 inputs (the m16n8k16 instantiations)
 BF16_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -393,12 +393,13 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
-        if len(ctx.saved_tensors) == 3:
-            q, k, v = ctx.saved_tensors
-            grads = flash_attention_bwd_reference(q, k, v, dout, ctx.causal)
+        # read once: under a non-reentrant checkpoint each read unpacks
+        # (recomputes) the saved tensors
+        saved = ctx.saved_tensors
+        if len(saved) == 3:
+            grads = flash_attention_bwd_reference(*saved, dout, ctx.causal)
         else:
-            q, k, v, out, lse = ctx.saved_tensors
-            grads = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal)
+            grads = flash_attention_bwd(*saved, dout, ctx.causal)
         return (*grads, None)
 
 

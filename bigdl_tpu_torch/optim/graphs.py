@@ -127,9 +127,11 @@ class CompiledTrainStep:
         return k
 
     def _live(self):
-        """Everything a step writes: parameters, buffers, state tensors."""
+        """Everything a step writes: parameters, buffers, state tensors
+        and the dropout key."""
+        key = self.step_fn.dropout_key
         return [*self.model.parameters(), *self.model.buffers(),
-                *_tensors(self.opt_state)]
+                *_tensors(self.opt_state), *([] if key is None else [key])]
 
     def _capture(self, k):
         live = self._live()

@@ -658,7 +658,7 @@ class LocalOptimizer(BaseOptimizer):
         load_jax_params(self.model, snap["model_params"])
         _copy_into(opt_state, from_jax_opt_state(
             self.optim_method, snap["opt_state"], self.device,
-            jax_params=snap["model_params"]))
+            jax_params=snap["model_params"], model=self.model))
 
     def _checkpoint(self, opt_state):
         """Write the parameters, the optimizer state and the driver state,

@@ -20,7 +20,8 @@ import numpy as np
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.minibatch import (MiniBatch, Sample,
                                                samples_to_minibatch)
-from bigdl_tpu_torch.optim.validation import compiled_eval_step
+from bigdl_tpu_torch.optim.validation import (_tree_clone,
+                                               compiled_eval_step)
 
 
 def _host(y):
@@ -43,6 +44,14 @@ class Predictor:
         self._eval = compiled_eval_step(model, compute_dtype)
 
     def predict_minibatch(self, batch):
+        """The model's output on one batch, a tensor of its own: on the
+        card the eval step returns its graph's static output, which the
+        next batch of the shape overwrites, so this returns a copy."""
+        return _tree_clone(self._run(batch))
+
+    def _run(self, batch):
+        """The eval step's own output (``predict`` reads it before the
+        next batch runs)."""
         from bigdl_tpu_torch.optim.local_optimizer import _to_device
 
         return self._eval(_to_device(batch.get_input(), self._eval.device))
@@ -72,7 +81,7 @@ class Predictor:
             except TypeError:          # leaves that cannot be zero-padded
                 staged, bucket = batch, n
             run_max = max(run_max, bucket)
-            y = self.predict_minibatch(staged)
+            y = self._run(staged)
             next_batch = next(it, None)
             y = _host(y)
             if isinstance(y, (tuple, list)):

@@ -23,6 +23,7 @@ import copy
 import torch
 from torch.func import functional_call
 
+from bigdl_tpu_torch.nn import dropout as _dropout
 from bigdl_tpu_torch.nn.module import frozen_param_mask, has_frozen
 from bigdl_tpu_torch.optim.optim_method import (clip_by_global_norm,
                                                 clip_by_value)
@@ -92,6 +93,12 @@ def make_train_step(model, criterion, optim_method, clip_value=None,
     tensor on the device (reading it syncs).  ``generator`` is the step's
     random stream (TransformerLM draws none).
 
+    A model with attention dropout draws its masks from
+    ``train_step.dropout_key`` (``nn.dropout``: a 0-d int64 device
+    tensor, seeded once from the port's random stream and advanced by one
+    on the device after every step, so a captured step draws new masks
+    at every replay); None for a model without dropout.
+
     ``compute_dtype=torch.bfloat16``: fp32 master parameters, bf16
     forward and backward, fp32 loss and update.  ``grad_transform``
     maps the ``{name: fp32 gradient}`` dict before freezing and clipping.
@@ -105,15 +112,26 @@ def make_train_step(model, criterion, optim_method, clip_value=None,
     use_reg = has_regularizers(model)
     frozen = [k for k, keep in frozen_param_mask(model).items()
               if not keep] if has_frozen(model) else []
+    key = None
+    if _dropout.uses_dropout(model):
+        from bigdl_tpu_torch.utils.random_generator import RNG
+
+        key = _dropout.new_step_key(RNG.next_generator(),
+                                    next(model.parameters()).device)
 
     def train_step(opt_state, input, target, generator=None):
         model.train()
         model.zero_grad(set_to_none=True)
-        loss = criterion.apply(_forward(model, params, input, compute_dtype),
-                               target)
-        total = loss + regularization_loss(model, params) if use_reg \
-            else loss
-        total.backward()
+        # the key stays set through backward: a rematerialised layer
+        # redraws its mask there
+        with _dropout.step_key(key):
+            loss = criterion.apply(
+                _forward(model, params, input, compute_dtype), target)
+            total = loss + regularization_loss(model, params) if use_reg \
+                else loss
+            total.backward()
+        if key is not None:
+            key.add_(1)
         grads = {k: p.grad.float() if p.grad is not None
                  else torch.zeros_like(p) for k, p in params.items()}
         if grad_transform is not None:
@@ -131,6 +149,7 @@ def make_train_step(model, criterion, optim_method, clip_value=None,
                 params[k].copy_(p)
         return opt_state, loss.detach()
 
+    train_step.dropout_key = key
     return train_step
 
 

@@ -101,7 +101,10 @@ def generate_steps(model):
         sid = slot_ids.long()
         for name, layer in slot_cache.items():
             for kv in ("k", "v"):
-                layer[kv][sid, :t] = frag[name][kv]
+                # the batch axis sits at ndim - 4: the scanned layout's
+                # leaves have a leading layer axis
+                rows = (slice(None),) * (layer[kv].dim() - 4)
+                layer[kv][(*rows, sid, slice(0, t))] = frag[name][kv]
         return _argmax(row), row
 
     @torch.no_grad()
@@ -647,7 +650,10 @@ def paged_generate_steps(model):
     def copy_block(pool, src, dst):
         for layer in pool.values():
             for t in layer.values():
-                t[dst].copy_(t[src])
+                # the block axis sits at ndim - 4 (a leading layer axis
+                # in the scanned layout)
+                lead = (slice(None),) * (t.dim() - 4)
+                t[(*lead, dst)].copy_(t[(*lead, src)])
 
     return chunk_prefill, decode, copy_block
 

@@ -128,13 +128,34 @@ Phases, each printing JSON lines:
     restores from its own checkpoint and finishes with the same result;
     (d) ``Predictor(batch_size=8)`` over the 29 sequences through the
     same graphs (the tail padded to 8: no graph built), each batch
-    against the step's output on the unpadded batch, and the host's
-    launch calls a batch (one ``cudaGraphLaunch``); (e)
+    against the step's output on the unpadded batch, the host's launch
+    calls a batch (one ``cudaGraphLaunch``), and two
+    ``predict_minibatch`` results of one shape, the first kept after the
+    second call, with the time of the copy that keeps it; (e)
     ``LBFGS(max_iter=3, n_correction=4)`` on the flat parameters with a
     ``feval`` through the kernels: its first loss and gradient against
     the plain model's (``LBFGS_TOL``), the loss falling, the history's
     bytes, K1, K1-bwd, K4 and K5 once a ``feval`` each (K1 and K1-bwd
     12).
+11. "large": first the head_dim 96 kernel rows (H 16): K1 and K1-bwd at
+    B8 T1024 in fp32 and bf16, K2 at B9 T1024, K3 and K3q at B8 bs16,
+    each held to its plain version (fp32 1e-4, bf16 2e-2) beside its
+    bound and library time; then TransformerLM "large" (1536 wide, 16
+    heads of 96, 36 layers, vocab 32000, random weights from seed 0) at
+    B8 x T1024 through ``Optimizer(...).optimize()`` and the compiled
+    step, 4 steps a leg: (a) fp32, scanned (the recipe's default, every
+    layer rematerialised), its first loss against plain attention on the
+    same weights (``LARGE_LOSS_RTOL``) and its compiled steps against the
+    eager step bit for bit; (b) bf16 scanned with the policy unset; (c)
+    bf16 scanned under ``dots_saveable``, losses bitwise (b)'s; (d) bf16
+    unrolled without remat, losses within ``LARGE_BF16_LAYOUT_RTOL`` of
+    (b)'s and peak memory above (b)'s.  Each leg prints tokens/s, peak
+    allocated and reserved memory, the graph pool and K1's and K1-bwd's
+    launches a step through the replays (72 and 36 under remat, 36 and 36
+    without).  Then 4 prompts of 16 new tokens through the fp32 paged
+    engine by the scanned and the unrolled model (equal greedy streams,
+    K3 at D 96 launched), and by the scanned model through the contiguous
+    (K2) and int8-KV (K3q) engines.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -2162,15 +2183,42 @@ def predict_phase(fa, card, model, xv):
     calls = collections.Counter(
         e.name for e in prof.events()
         if e.name in LAUNCH_CALLS or e.name.startswith("cudaMemcpy"))
+    # predict_minibatch returns a copy of the graph's static output: two
+    # results of one shape, the first kept after the second call; the
+    # copy's time (CUDA events around one clone of the B8 logits)
+    from bigdl_tpu_torch.dataset import MiniBatch
+    from bigdl_tpu_torch.optim.validation import _tree_clone
+
+    first = pred.predict_minibatch(MiniBatch(xv[:EVAL_BATCH]))
+    second = pred.predict_minibatch(MiniBatch(xv[EVAL_BATCH:2 * EVAL_BATCH]))
+    static = step(torch.as_tensor(xv[:EVAL_BATCH], device="cuda"))
+    kept = torch.equal(first, static) and not torch.equal(first, second)
+    clone_ms = []
+    for _ in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        copy = _tree_clone(static)
+        end.record()
+        end.synchronize()
+        clone_ms.append(start.elapsed_time(end))
+        del copy
+    clone_ms.sort()
     row = {"phase": "predict", "sequences": EVAL_SEQS,
            "wall_s_per_batch": wall / n_batches, "graphs_built": built,
            "graphs": [graphs, step.executables()], "max_abs_err": err,
            "host_calls_per_batch": {n: c / n_batches
                                     for n, c in calls.items()},
+           "minibatch_results_kept": kept,
+           "minibatch_copy_bytes": static.numel() * static.element_size(),
+           "minibatch_copy_ms": clone_ms[len(clone_ms) // 2],
+           "minibatch_copy_ms_range": [clone_ms[0], clone_ms[-1]],
            "card": card}
     emit(row)
-    if built or calls.get("cudaGraphLaunch", 0) != n_batches or any(
-            calls.get(n, 0) for n in LAUNCH_CALLS if n != "cudaGraphLaunch"):
+    del first, second, static
+    if not kept or built or calls.get("cudaGraphLaunch", 0) != n_batches \
+            or any(calls.get(n, 0) for n in LAUNCH_CALLS
+                   if n != "cudaGraphLaunch"):
         raise AssertionError(f"predict: {row}")
     return row
 
@@ -2290,6 +2338,418 @@ def eval_phase(fa, ce, card):
     return paths
 
 
+# --------------------------------------------------------------------------- #
+# Phase 11: TransformerLM "large" (head_dim 96), scanned and rematerialised
+# --------------------------------------------------------------------------- #
+
+#: "large": 1536 wide, 16 heads of 96, 36 layers, at the training shape
+LARGE_HEADS, LARGE_HEAD_DIM, LARGE_LAYERS = 16, 96, 36
+LARGE_STEPS = 4
+#: (a)'s first loss through the kernels against plain attention, relative
+LARGE_LOSS_RTOL = 1e-4
+#: (d)'s per-step losses (bf16, unrolled, no remat) against (b)'s
+LARGE_BF16_LAYOUT_RTOL = 1e-4
+LARGE_PROMPTS, LARGE_NEW = 4, 16
+
+
+def large_kernel_rows(fa, card):
+    """Phase 11's kernel rows: K1 and K1-bwd at B8 T1024 (fp32 and bf16),
+    K2 at B9 T1024, K3 and K3q at B8 bs16, all at H 16 D 96 ("large"),
+    each against its plain version, timed beside its bound and library
+    call.  Returns the rows by the kernels line's names."""
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops.quantization import quantize_blockwise
+
+    h, d = LARGE_HEADS, LARGE_HEAD_DIM
+    g = torch.Generator(device="cuda").manual_seed(11)
+    dev = "cuda"
+    rows = {}
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def keep(name, row):
+        row = dict(name=name, head_dim=d, heads=h, card=card, **row)
+        emit({"phase": "kernel_d96", **row})
+        rows[name] = row
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "_bf16" if dtype == torch.bfloat16 else ""
+        tol = BF16_TOL if tag else ATOL
+        b, t = BATCH, SEQ
+        qkv = rand(b, t, 3 * h * d).to(dtype)
+        q, k, v = (x.unflatten(-1, (h, d)) for x in qkv.split(h * d, -1))
+        got = fa.flash_attention(q, k, v, causal=True)
+        err = check_close(f"flash_attention d96{tag}", got,
+                          fa.flash_attention_reference(q, k, v, True),
+                          tol, tol)
+        ms, lo, hi = device_ms(lambda: fa.flash_attention(q, k, v, True))
+        plain = device_ms(lambda: fa.flash_attention_reference(
+            q, k, v, True))[0]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))[0]
+        n = b * t * h * d
+        bms, by = bound(4 * n * q.element_size(),
+                        4 * b * h * d * t * (t + 1) / 2,
+                        *tensor_core_rate(dtype))
+        keep(f"flash_attention{tag}_d96",
+             dict(case=f"causal_B{b}_T{t}", dtype=str(dtype),
+                  max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,
+                  plain_ms=plain, bound_ms=bms, bound_by=by,
+                  library_ms=lib))
+        do = rand(b, t, h, d).to(dtype)
+        out, lse = fa._flash_forward(q, k, v, True, with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        want = fa.flash_attention_bwd_reference(q, k, v, do, True)
+        err = max(check_close(f"flash_attention_bwd d96{tag} d{w}", x, y,
+                              tol, tol) for w, x, y in zip("qkv", got, want))
+        del got, want
+        ms, lo, hi = device_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, True))
+        leaves = [z.detach().requires_grad_(True) for z in (q, k, v)]
+        plain, _ = backward_ms(fa.flash_attention_reference(*leaves, True),
+                               leaves, do)
+        tr = [z.detach().transpose(1, 2).requires_grad_(True)
+              for z in (q, k, v)]
+        lib, _ = backward_ms(F.scaled_dot_product_attention(
+            *tr, is_causal=True), tr, do.transpose(1, 2))
+        del leaves, tr
+        bms, by = bound(8 * n * q.element_size() + b * h * t * 4,
+                        10 * b * h * d * t * (t + 1) / 2,
+                        *tensor_core_rate(dtype))
+        keep(f"flash_attention_bwd{tag}_d96",
+             dict(case=f"causal_B{b}_T{t}", dtype=str(dtype),
+                  max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,
+                  plain_ms=plain, bound_ms=bms, bound_by=by,
+                  library_ms=lib))
+        del qkv, q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+
+    sms = fa.sm_count(dev)
+    row_bytes = h * d * 4
+    # K2: 8 slots and the trash row against a 1024-position cache
+    b, t = 9, 1024
+    q = rand(b, 1, h, d)
+    k, v = rand(b, t, h, d), rand(b, t, h, d)
+    pos = torch.randint(0, t, (b,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos[0], pos[1] = 0, t - 1
+    err = check_close("flash_decode_attention d96",
+                      fa.flash_decode_attention(q, k, v, pos),
+                      fa.flash_decode_attention_reference(q, k, v, pos))
+    ms, lo, hi = device_ms(lambda: fa.flash_decode_attention(q, k, v, pos))
+    plain = device_ms(lambda: fa.flash_decode_attention_reference(
+        q, k, v, pos))[0]
+    mask = (torch.arange(t, device=dev)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))[0]
+    vis = int((pos.long() + 1).clamp(max=t).sum())
+    bms, by = bound(2 * vis * row_bytes + 2 * b * row_bytes + 4 * b,
+                    4 * vis * h * d)
+    keep("flash_decode_attention_d96",
+         dict(case="B9_T1024", max_abs_err=err, ms=ms, ms_min=lo, ms_max=hi,
+              plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+              splits=fa.decode_splits(b * h, t, sms)))
+
+    # K3 and K3q: 8 rows through shuffled tables of 16-position blocks
+    b, bs, max_len = 8, 16, 1024
+    mb = max_len // bs
+    nb = b * mb + 1
+    perm = torch.randperm(nb - 1, generator=g, device=dev)
+    tables = perm.reshape(b, mb).to(torch.int32)
+    pos = torch.randint(0, max_len, (b,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos[0] = 0
+    used = (pos.long() // bs + 1)[:, None]
+    tables = torch.where(torch.arange(mb, device=dev)[None, :] < used,
+                         tables, torch.full_like(tables, nb - 1))
+    q = rand(b, 1, h, d)
+    kp, vp = rand(nb, bs, h, d), rand(nb, bs, h, d)
+    vis = int((pos.long() + 1).sum())
+    splits = fa.decode_splits(b * h, mb * bs, sms)
+    for quant in (False, True):
+        if quant:
+            pools = []
+            for x in (kp, vp):
+                q8, sc = quantize_blockwise(x.reshape(-1), d,
+                                            scale_dtype=torch.float32)
+                pools += [q8.reshape(x.shape), sc.reshape(nb, bs, h, 1)]
+            k8, ks, v8, vs = pools
+            args = (q, k8, v8, tables, pos)
+            kw = dict(k_scale=ks, v_scale=vs)
+            name = "flash_paged_decode_attention_int8_d96"
+            n_bytes = 2 * vis * h * (d + 4)
+        else:
+            args, kw = (q, kp, vp, tables, pos), {}
+            name = "flash_paged_decode_attention_d96"
+            n_bytes = 2 * vis * row_bytes
+        err = check_close(name, fa.flash_paged_decode_attention(*args, **kw),
+                          fa.flash_paged_decode_attention_reference(
+                              *args, *kw.values()))
+        ms, lo, hi = device_ms(lambda: fa.flash_paged_decode_attention(
+            *args, **kw))
+        plain = device_ms(lambda: fa.flash_paged_decode_attention_reference(
+            *args, *kw.values()))[0]
+        bms, by = bound(n_bytes + 2 * b * row_bytes + 4 * b
+                        + 4 * int(used.sum()), 4 * vis * h * d)
+        # no PyTorch call reads (int8) K/V through block tables
+        keep(name, dict(case="B8_bs16", max_abs_err=err, ms=ms, ms_min=lo,
+                        ms_max=hi, plain_ms=plain, bound_ms=bms,
+                        bound_by=by, library_ms=None, splits=splits))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _restore(model, saved):
+    """Copy ``saved`` (name -> host tensor) into ``model``'s parameters."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(saved[name], non_blocking=True)
+    torch.cuda.synchronize()
+
+
+def large_leg(fa, ce, card, label, model, x, y, dtype):
+    """One ``optimize()`` of ``LARGE_STEPS`` steps of "large" with Adam
+    from the model's current weights: per-step losses, tokens/s over the
+    steps after the first (its warm-up and capture), peak allocated and
+    reserved memory, the graph pool, and K1's and K1-bwd's launches a
+    step counted through the replays (in ``dtype``'s count table)."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+
+    ds = array_dataset(x, y, shuffle_on_epoch=False) >> \
+        SampleToMiniBatch(BATCH)
+    opt = optim.Optimizer(model, ds, nn.TimeDistributedCriterion(
+        nn.FusedSoftmaxCrossEntropyCriterion()),
+        optim.Adam(learning_rate=1e-4))
+    if dtype is not None:
+        opt.set_compute_dtype(dtype)
+    summary = _Losses()
+    opt.set_train_summary(summary)
+    clock = StepClock(opt, LARGE_STEPS, sync_at=(1, LARGE_STEPS))
+    opt.set_end_when(clock)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    ce.reset_launch_counts()
+    # ---- the main path: counts read right after it ------------------------
+    opt.optimize()
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **ce.LAUNCHES}
+    bf16 = dict(fa.BF16_LAUNCHES)
+    # ---------------------------------------------------------------------
+    steps = LARGE_STEPS - 1
+    wall = (clock.marks[LARGE_STEPS][0] - clock.marks[1][0]) / steps
+    table = bf16 if dtype == torch.bfloat16 else launches
+    row = {"phase": "large_leg", "leg": label,
+           "compute_dtype": "bf16" if dtype else "fp32",
+           "layout": "scanned" if model.scan is not None else "unrolled",
+           "remat_policy": model.remat_policy,
+           "losses": summary.scalars["Loss"], "step_s": wall,
+           "tokens_per_s": BATCH * SEQ / wall,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "graph_pool_bytes": opt.compiled_stats["pool_bytes"],
+           "captured": opt.compiled_stats["captured"],
+           "replays": opt.compiled_stats["replays"],
+           "k1_per_step": table["flash_attention"] / LARGE_STEPS,
+           "k1_bwd_per_step": table["flash_attention_bwd"] / LARGE_STEPS,
+           "launches": launches, "bf16_launches": bf16, "card": card}
+    emit(row)
+    remat = model.scan is not None or model.remat_policy is not None
+    want_k1 = 2 * LARGE_LAYERS if remat and \
+        model.remat_policy != "everything_saveable" else LARGE_LAYERS
+    if len(row["losses"]) != LARGE_STEPS or row["captured"] != 1 or \
+            row["replays"] != LARGE_STEPS or \
+            row["k1_per_step"] != want_k1 or \
+            row["k1_bwd_per_step"] != LARGE_LAYERS or \
+            not all(np.isfinite(row["losses"])):
+        raise AssertionError(f"large leg {label}: {row}")
+    del opt
+    torch.cuda.empty_cache()
+    return row
+
+
+def large_serving(fa, card, scanned, unrolled):
+    """Phase 11's serving: 4 prompts of 16 new tokens through the fp32
+    paged engine by the scanned model and by the unrolled one (the same
+    weights): equal greedy streams, K3 launched at D 96; then the scanned
+    model through the contiguous engine (K2) and the int8-KV engine
+    (K3q).  Returns the launches by the kernels line's names."""
+    from bigdl_tpu_torch.models import synthetic_corpus
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    toks, _ = synthetic_corpus(LARGE_PROMPTS, 200, VOCAB, seed=5)
+    prompts = [toks[i, :n] for i, n in
+               enumerate(np.linspace(17, 200, LARGE_PROMPTS).astype(int))]
+    runs, counts = {}, {}
+    for label, model, kw in (
+            ("paged_scanned", scanned, {}),
+            ("paged_unrolled", unrolled, {}),
+            ("contiguous_scanned", scanned, {"kv_cache": "contiguous"}),
+            ("int8_kv_scanned", scanned, {"kv_cache_dtype": "int8"})):
+        with ServingEngine(model, decode_slots=LARGE_PROMPTS,
+                           decode_max_len=256, **kw) as eng:
+            fa.reset_launch_counts()
+            out, row = timed_burst(eng, prompts, LARGE_NEW, label, card,
+                                   phase="large_generate")
+            torch.cuda.synchronize()
+            counts[label] = dict(fa.LAUNCHES)
+        bad = [s for s in out if len(s) != LARGE_NEW
+               or not all(0 <= t < VOCAB for t in s)]
+        if bad:
+            raise AssertionError(f"{label}: malformed streams {out}")
+        runs[label] = out
+    same = runs["paged_scanned"] == runs["paged_unrolled"]
+    emit({"phase": "large_serving_check",
+          "scanned_equals_unrolled": same,
+          "contiguous_equals_paged":
+          runs["contiguous_scanned"] == runs["paged_scanned"],
+          "launches": counts, "card": card})
+    if not same:
+        raise AssertionError(f"scanned and unrolled greedy streams differ: "
+                             f"{runs}")
+    need = {"paged_scanned": "flash_paged_decode_attention",
+            "paged_unrolled": "flash_paged_decode_attention",
+            "contiguous_scanned": "flash_decode_attention",
+            "int8_kv_scanned": "flash_paged_decode_attention_int8"}
+    if any(not counts[k].get(n) for k, n in need.items()):
+        raise AssertionError(f"a decode kernel was not launched: {counts}")
+    return {"flash_attention_d96": sum(c["flash_attention"]
+                                       for c in counts.values()),
+            "flash_paged_decode_attention_d96":
+            counts["paged_scanned"]["flash_paged_decode_attention"]
+            + counts["paged_unrolled"]["flash_paged_decode_attention"],
+            "flash_decode_attention_d96":
+            counts["contiguous_scanned"]["flash_decode_attention"],
+            "flash_paged_decode_attention_int8_d96":
+            counts["int8_kv_scanned"]["flash_paged_decode_attention_int8"]}
+
+
+def large_phase(fa, ce, card):
+    """Phase 11: TransformerLM "large" (1536 wide, 16 heads of 96, 36
+    layers, vocab 32000, seed 0) at B8 x T1024: (a) fp32 scanned (the
+    recipe's default, every layer rematerialised), its first loss against
+    plain attention on the same weights and its compiled steps against
+    eager ones; (b) bf16 scanned, policy unset; (c) bf16 scanned under
+    ``dots_saveable``, losses bitwise (b)'s; (d) bf16 unrolled without
+    remat, losses within ``LARGE_BF16_LAYOUT_RTOL`` of (b)'s; then
+    serving.  Returns the main path's launches by the kernels line's
+    names."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.interop import load_jax_params, to_jax_params
+    from bigdl_tpu_torch.models import synthetic_corpus, transformer_lm
+
+    x, y = synthetic_corpus(BATCH * LARGE_STEPS, SEQ, VOCAB, seed=11)
+    t0 = time.perf_counter()
+    model = transformer_lm("large", VOCAB, max_len=SEQ, device="cuda",
+                           seed=0)
+    init = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    emit({"phase": "large_setup", "layout": "scanned",
+          "params": sum(p.numel() for p in model.parameters()),
+          "stacked_leaves": sum(1 for k, _ in model.named_parameters()
+                                if k.startswith("blocks.")),
+          "init_s": time.perf_counter() - t0, "card": card})
+    if model.scan is None or model.blocks[0].attn.head_dim != 96:
+        raise AssertionError("'large' is not the scanned, head_dim 96 model")
+
+    # (a) the first batch's loss through the kernels and through plain
+    # attention (the layers' shared attention module switched), no grad
+    crit = nn.TimeDistributedCriterion(nn.FusedSoftmaxCrossEntropyCriterion())
+    xb = torch.as_tensor(x[:BATCH], device="cuda")
+    yb = torch.as_tensor(y[:BATCH], device="cuda")
+    first = {}
+    with torch.no_grad():
+        for use in ("never", "auto"):
+            model.blocks[0].attn.use_flash = use
+            first[use] = crit.apply(model(xb), yb).item()
+    rel = abs(first["auto"] - first["never"]) / abs(first["never"])
+    emit({"phase": "large_first_loss", "kernels": first["auto"],
+          "plain_attention": first["never"], "rel": rel,
+          "tolerance": LARGE_LOSS_RTOL, "card": card})
+    if rel > LARGE_LOSS_RTOL:
+        raise AssertionError(f"large first loss: {first}")
+
+    paths = {}
+    legs = {"a": large_leg(fa, ce, card, "a_fp32_scanned", model, x, y,
+                           None)}
+    if abs(legs["a"]["losses"][0] - first["auto"]) > \
+            LARGE_LOSS_RTOL * abs(first["auto"]):
+        raise AssertionError(f"the compiled step's first loss "
+                             f"{legs['a']['losses'][0]} against {first}")
+    paths["large_fp32"] = {
+        "flash_attention_d96": legs["a"]["launches"]["flash_attention"],
+        "flash_attention_bwd_d96": legs["a"]["launches"]
+        ["flash_attention_bwd"]}
+    # (a) the same 4 batches through the eager step from the same weights
+    trained = {k: p.detach().clone() for k, p in model.named_parameters()}
+    _restore(model, init)
+    adam = optim.Adam(learning_rate=1e-4)
+    state = adam.init_state(dict(model.named_parameters()))
+    step = optim.make_train_step(model, crit, adam)
+    eager = []
+    for i in range(LARGE_STEPS):
+        eager.append(step(state, torch.as_tensor(
+            x[i * BATCH:(i + 1) * BATCH], device="cuda"), torch.as_tensor(
+            y[i * BATCH:(i + 1) * BATCH], device="cuda"))[1].item())
+    bitwise = eager == legs["a"]["losses"] and all(
+        torch.equal(p, trained[k]) for k, p in model.named_parameters())
+    emit({"phase": "large_compiled_vs_eager", "eager_losses": eager,
+          "compiled_losses": legs["a"]["losses"], "bitwise_equal": bitwise,
+          "card": card})
+    if not bitwise:
+        raise AssertionError("large: the compiled steps are not the eager "
+                             "steps bit for bit")
+    del trained, state, step, adam
+    torch.cuda.empty_cache()
+
+    # (b), (c): bf16, scanned, the policy unset and dots_saveable
+    for leg, policy in (("b", None), ("c", "dots_saveable")):
+        _restore(model, init)
+        # the policy is read at each forward: one model serves both legs
+        model.remat_policy = model.scan.policy = policy
+        legs[leg] = large_leg(fa, ce, card, f"{leg}_bf16_scanned_{policy}",
+                              model, x, y, torch.bfloat16)
+    model.remat_policy = model.scan.policy = None
+    _restore(model, init)
+    # (d): bf16, unrolled (the same seed draws the same weights), no remat
+    unrolled = transformer_lm("large", VOCAB, max_len=SEQ, device="cuda",
+                              seed=0, scan_layers=False)
+    legs["d"] = large_leg(fa, ce, card, "d_bf16_unrolled", unrolled, x, y,
+                          torch.bfloat16)
+    rel = [abs(a - b) / abs(b) for a, b in zip(legs["d"]["losses"],
+                                               legs["b"]["losses"])]
+    check = {"b_equals_c_bitwise": legs["b"]["losses"] == legs["c"]["losses"],
+             "d_vs_b_max_rel": max(rel),
+             "peak_allocated_gb": {k: r["peak_allocated_bytes"] / 1e9
+                                   for k, r in legs.items()},
+             "remat_below_no_remat":
+             legs["b"]["peak_allocated_bytes"]
+             < legs["d"]["peak_allocated_bytes"]}
+    emit({"phase": "large_check", **check, "card": card})
+    if not check["b_equals_c_bitwise"] or max(rel) > LARGE_BF16_LAYOUT_RTOL \
+            or not check["remat_below_no_remat"]:
+        raise AssertionError(f"large legs: {check}")
+    paths["large_bf16"] = {
+        "flash_attention_bf16_d96": sum(legs[k]["bf16_launches"]
+                                        ["flash_attention"] for k in "bcd"),
+        "flash_attention_bwd_bf16_d96": sum(
+            legs[k]["bf16_launches"]["flash_attention_bwd"]
+            for k in "bcd")}
+    # the unrolled model takes the scanned one's weights through the
+    # bridge, which unstacks them
+    load_jax_params(unrolled, to_jax_params(model))
+    paths["large_serving"] = large_serving(fa, card, model.eval(),
+                                           unrolled.eval())
+    del model, unrolled, init
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2328,6 +2788,8 @@ def main():
     int8_serving = int8_serving_phase(fa, card, *serving_models(),
                                       fp32_tok_s)
     phase10 = eval_phase(fa, ce, card)
+    rows.update(large_kernel_rows(fa, card))
+    phase11 = large_phase(fa, ce, card)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -2352,6 +2814,13 @@ def main():
             "bigdl_tpu_torch/csrc/cross_entropy.cu",
             "bigdl_tpu/ops/cross_entropy.py:126"),
     }
+    # the head_dim 96 instantiations ("large"), launched by phase 11 only
+    for name in ("flash_attention", "flash_attention_bf16",
+                 "flash_attention_bwd", "flash_attention_bwd_bf16",
+                 "flash_decode_attention", "flash_paged_decode_attention",
+                 "flash_paged_decode_attention_int8"):
+        source, replaces = kernels_of[name]
+        kernels_of[f"{name}_d96"] = (source, replaces + ", head_dim 96")
     kernels = []
     for name, (source, replaces) in kernels_of.items():
         row = rows[name]
@@ -2360,7 +2829,7 @@ def main():
                                         ("training", training),
                                         ("training_bf16", training_bf16),
                                         ("int8_serving", int8_serving),
-                                        *phase10.items())
+                                        *phase10.items(), *phase11.items())
                    if counts.get(name)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -17,6 +17,7 @@ plain TF32 (one product) is shown to miss them.
 """
 
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -36,7 +37,8 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 @pytest.mark.parametrize("b,h,t,rows", [(1, 12, 200, 16), (2, 12, 1024, 64),
                                         (8, 12, 1024, 64), (1, 1, 1, 16),
                                         (11, 12, 1, 64), (1, 12, 640, 16),
-                                        (1, 12, 700, 64)])
+                                        (1, 12, 700, 64), (8, 16, 1024, 64),
+                                        (1, 16, 200, 16), (1, 16, 576, 64)])
 def test_query_tile_rows(b, h, t, rows):
     """16 rows where b * h * ceil(t / 64) < 132 blocks, else 64."""
     assert fa.query_tile_rows(b, h, t) == rows
@@ -85,9 +87,9 @@ def emulated_attention(q, k, v, dout, causal, mm=mm3):
     return [x.transpose(1, 2) for x in (out, dq, dk, dv)]
 
 
-def _inputs(seed):
+def _inputs(seed, d=D):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((B, T, H, D)).astype(np.float32)
+    return [rng.standard_normal((B, T, H, d)).astype(np.float32)
             for _ in range(4)]
 
 
@@ -97,9 +99,10 @@ def _jax_grads(q, k, v, dout, causal):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
 
 
+@pytest.mark.parametrize("d", [D, 96])
 @pytest.mark.parametrize("causal", [True, False])
-def test_3xtf32_forward_matches_pallas_interpret(causal):
-    q, k, v, dout = _inputs(1)
+def test_3xtf32_forward_matches_pallas_interpret(causal, d):
+    q, k, v, dout = _inputs(1, d)
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                      causal=causal, block_q=32, block_k=32, interpret=True)
     out = emulated_attention(*map(torch.from_numpy, (q, k, v, dout)),
@@ -107,9 +110,10 @@ def test_3xtf32_forward_matches_pallas_interpret(causal):
     np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("d", [D, 96])
 @pytest.mark.parametrize("causal", [True, False])
-def test_3xtf32_gradient_matches_jax_grad(causal):
-    q, k, v, dout = _inputs(2)
+def test_3xtf32_gradient_matches_jax_grad(causal, d):
+    q, k, v, dout = _inputs(2, d)
     want = _jax_grads(q, k, v, dout, causal)
     got = emulated_attention(*map(torch.from_numpy, (q, k, v, dout)),
                              causal)[1:]
@@ -134,3 +138,40 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     x = torch.tensor([one, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
                       1.0 + 2.0 ** -11 - 2.0 ** -23, 3.0], dtype=torch.float32)
     assert tf32(x).tolist() == [one, one, -one, 1.0, 3.0]
+
+
+#: the opt-in shared memory of a block on the H100 (sm_90): 227 KB
+SMEM_PER_BLOCK = 232448
+SOURCES = pathlib.Path(fa.__file__).resolve().parent.parent / "csrc"
+
+
+def _padded(elt, d):
+    """``kPadded<T, D>`` (csrc/mma.cuh): rows padded by 16 bytes."""
+    return d + 16 // elt
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("elt", [4, 2], ids=["fp32", "bf16"])
+def test_head_dims_fit_the_k_steps_and_shared_memory(elt, d):
+    """Every instantiated head_dim divides into the products' k-steps (8
+    for 3xTF32, 16 for m16n8k16) and n-tiles (8), and K1's and K1-bwd's
+    tiles fit a block's shared memory at it (D 96: 128,000 / 154,624
+    bytes fp32); the formulas are read against the sources."""
+    k_step = 8 if elt == 4 else 16
+    assert d % k_step == 0 and d % 8 == 0
+    fwd = SOURCES.joinpath("flash_attention.cu").read_text()
+    bwd = SOURCES.joinpath("flash_attention_bwd.cu").read_text()
+    assert "return (16 * NW + 4 * kBK) * kPadded<T, D>" in fwd
+    assert "return 6 * kB * kPadded<T, D> * static_cast<int>(sizeof(T)) " \
+        "+ 4 * kB * 4;" in bwd
+    assert "constexpr int kPadded = D + 16 / static_cast<int>(sizeof(T));" \
+        in SOURCES.joinpath("mma.cuh").read_text()
+    for nw in (1, 4):
+        assert (16 * nw + 4 * 64) * _padded(elt, d) * elt <= SMEM_PER_BLOCK
+    bwd_bytes = 6 * 64 * _padded(elt, d) * elt + 4 * 64 * 4
+    assert bwd_bytes <= SMEM_PER_BLOCK
+    if d == 96:
+        assert ((16 * 4 + 256) * _padded(elt, d) * elt, bwd_bytes) == (
+            (128000, 154624) if elt == 4 else (66560, 80896))
+    for case in (16, 32, 64, 96, 128):
+        assert f"case {case}:" in fwd and f"case {case}:" in bwd

@@ -625,8 +625,10 @@ def test_fused_state_bridge_on_transformer_lm_continues_like_jax(
     JAX's laid out over the unrolled tree.  In the ``scan_layers`` layout
     the flat order differs from the unrolled one, so loading by position
     alone would pair the moments with the wrong parameters."""
-    from bigdl_tpu_torch.interop.jax_params import (_unrolled_ravel,
-                                                     to_port_tree)
+    from bigdl_tpu_torch.interop.jax_params import _reravel, to_port_tree
+
+    def _unrolled_ravel(flat, tree):
+        return _reravel(flat, tree, scanned=False)
 
     jm = JaxLM(64, 16, 2, 3, max_len=8, scan_layers=scan_layers)
     jm.build(jax.ShapeDtypeStruct((2, 8), jnp.int32),

@@ -34,6 +34,7 @@ The kernel itself is tested on the card by
 ``tests/test_torch_cuda_kernels.py``.
 """
 
+import collections
 import functools
 import math
 import pathlib
@@ -229,12 +230,12 @@ def _frontiers(bs, limit):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(bs, quant):
-    """One numpy-seeded batch for block size ``bs``: rows at every
-    frontier of ``_frontiers``, tables into a shared pool whose entries
-    past each row's frontier name the trash block, and the JAX gather
-    path's output on it."""
-    rng = np.random.default_rng(bs + 1000 * quant)
+def _case(bs, quant, D=D):
+    """One numpy-seeded batch for block size ``bs`` and head_dim ``D``:
+    rows at every frontier of ``_frontiers``, tables into a shared pool
+    whose entries past each row's frontier name the trash block, and the
+    JAX gather path's output on it."""
+    rng = np.random.default_rng(bs + 1000 * quant + D)
     mb = -(-300 // bs) if bs < 128 else 3
     limit = mb * bs
     pos = _frontiers(bs, limit)
@@ -279,9 +280,10 @@ def _case(bs, quant):
 
 @pytest.mark.parametrize("splits", range(1, fa.DECODE_MAX_SPLITS + 1))
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
-@pytest.mark.parametrize("bs", [1, 5, 16, 128])
-def test_split_and_merge_match_the_jax_gather_path(bs, quant, splits):
-    q, pools, tables, pos, want = _case(bs, quant)
+@pytest.mark.parametrize("bs,d", [(1, D), (5, D), (16, D), (128, D),
+                                  (16, 96)])
+def test_split_and_merge_match_the_jax_gather_path(bs, d, quant, splits):
+    q, pools, tables, pos, want = _case(bs, quant, d)
     t = torch.from_numpy
     if quant:
         k8, v8, ks, vs = (t(x) for x in pools)
@@ -448,3 +450,86 @@ def test_k2_wrapper_passes_the_card_split_count(monkeypatch):
     fa.flash_decode_attention(q, k, k, torch.zeros(b, dtype=torch.int32))
     assert len(seen) == 1 and fa.LAUNCHES["flash_decode_attention"] == 1
     assert seen[0][9] == t and seen[0][-2] == 3     # 4 on 132 SMs
+
+
+# --------------------------------------------------------------------------- #
+# The row layout of a K row (LPK lanes a key), at every head_dim
+# --------------------------------------------------------------------------- #
+
+#: the kernel's pool element sizes: fp32 and bf16 K/V (K2, K3), int8 (K3q)
+ELEMENT_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
+
+
+def row_layout(elem_bytes, d):
+    """``paged_decode_kernel``'s constants for a row of ``d`` elements:
+    EPV elements a 16-byte vector, C vectors a row, LPK lanes that score
+    one key (the largest divisor of both C and 32 up to 8), VPL vectors a
+    lane reads, KPP keys a warp scores at once, DPL output columns a
+    lane."""
+    epv = 16 // elem_bytes
+    c = d // epv
+    lpk = max(n for n in (1, 2, 4, 8) if c % n == 0)
+    return dict(epv=epv, c=c, lpk=lpk, vpl=c // lpk, kpp=32 // lpk,
+                dpl=(d + 31) // 32)
+
+
+def test_row_layout_formula_is_the_kernel_s():
+    src = re.sub(r"\s+", " ", SOURCE.read_text())
+    assert "LPK = C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : C % 2 == 0 ? 2 : 1;" \
+        in src
+    assert "constexpr int DPL = (D + 31) / 32;" in src
+    assert int(re.search(r"kPgKeys = kPgTile / kPgWarps", src) is not None)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", list(ELEMENT_BYTES))
+def test_row_layout_covers_every_row_key_and_column(dtype, d):
+    """Every vector of a K row is read by exactly one lane of its key's
+    group, every key of a warp's 8 by exactly LPK lanes, and every output
+    column by exactly one lane; D 96 gives LPK 8, 4 and 2 for fp32, bf16
+    and int8, where ``C < 8 ? C : 8`` broke bf16 (C 12) and idled lanes
+    on int8 (C 6)."""
+    lay = row_layout(ELEMENT_BYTES[dtype], d)
+    assert d % lay["epv"] == 0 and lay["c"] % lay["lpk"] == 0
+    vectors = sorted(sub + lay["lpk"] * u for sub in range(lay["lpk"])
+                     for u in range(lay["vpl"]))
+    assert vectors == list(range(lay["c"]))
+    keys = TILE // WARPS
+    scored = collections.Counter(
+        j0 + lane // lay["lpk"] for j0 in range(0, keys, lay["kpp"])
+        for lane in range(32) if j0 + lane // lay["lpk"] < keys)
+    assert scored == {j: lay["lpk"] for j in range(keys)}
+    cols = sorted(lane * lay["dpl"] + jj for lane in range(32)
+                  if lane * lay["dpl"] < d for jj in range(lay["dpl"]))
+    assert cols == list(range(d))
+    if d == 96:
+        assert lay["lpk"] == {"fp32": 8, "bf16": 4, "int8": 2}[dtype]
+
+
+@pytest.mark.parametrize("dtype", list(ELEMENT_BYTES))
+def test_lane_partial_sums_give_the_dot_product_at_d96(dtype):
+    """A key's score as the kernel sums it at D 96: each of the LPK lanes
+    keeps four partial sums over its vectors (element e into sum e % 4),
+    adds them pairwise, and xor shuffles finish the group's sum; held
+    within 1e-5 of the plain dot product for 8 keys."""
+    d = 96
+    lay = row_layout(ELEMENT_BYTES[dtype], d)
+    rng = np.random.default_rng(96)
+    q = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((8, d)).astype(np.float32))
+    for j in range(8):
+        lanes = []
+        for sub in range(lay["lpk"]):
+            d4 = [torch.zeros(()) for _ in range(4)]
+            for u in range(lay["vpl"]):
+                base = (sub + lay["lpk"] * u) * lay["epv"]
+                for e in range(lay["epv"]):
+                    d4[e & 3] = d4[e & 3] + q[base + e] * k[j, base + e]
+            lanes.append((d4[0] + d4[1]) + (d4[2] + d4[3]))
+        off = lay["lpk"] // 2
+        while off:
+            lanes = [lanes[i] + lanes[i ^ off] for i in range(len(lanes))]
+            off //= 2
+        assert all(torch.equal(x, lanes[0]) for x in lanes)
+        np.testing.assert_allclose(float(lanes[0]), float(q @ k[j]),
+                                   rtol=1e-5, atol=1e-5)
