@@ -15,6 +15,12 @@ crosses through ``stack_block_params`` / ``unstack_block_params`` (a
 ``Fused`` state's flat vectors are reordered, given the parameter tree).
 Keys and shapes are checked leaf by leaf
 (``Module.load_parameters_tree``).
+
+Model state (BatchNorm's running statistics, JAX's ``model.state()``)
+crosses with ``load_jax_state`` / ``to_jax_state``.  A JAX container
+keys every child, one without parameters (or state) by ``()``: the trees
+this module writes carry those entries, so JAX's step, which walks the
+tree it is given, takes them as they are; the loads skip them.
 """
 
 import numpy as np
@@ -22,7 +28,7 @@ import torch
 
 from bigdl_tpu_torch.nn.attention import (stack_block_params,
                                           unstack_block_params)
-from bigdl_tpu_torch.nn.containers import ScanLayers
+from bigdl_tpu_torch.nn.containers import Remat, ScanLayers, Sequential
 from bigdl_tpu_torch.optim.optim_method import (CompositeOptimMethod, Fused,
                                                 ravel_order)
 from bigdl_tpu_torch.utils.device import resolve_device
@@ -55,14 +61,25 @@ def load_jax_params(model, jax_params):
         to_port_tree(jax_params, is_scanned(model)))
 
 
+def load_jax_state(model, jax_state):
+    """Copy a JAX model-state tree (``model.state()``, numpy or JAX
+    leaves; ``()`` where a layer has none) into ``model``'s buffers in
+    place; returns ``model``."""
+    return model.load_state_tree(jax_state)
+
+
+def _empty(tree):
+    return isinstance(tree, (tuple, list)) and not tree
+
+
 def _flatten(tree, prefix=""):
     """Nested dict -> ``{"block0.attn.qkv_weight": leaf}``, the names of
-    ``named_parameters()``."""
+    ``named_parameters()``; JAX's ``()`` entries hold nothing."""
     flat = {}
     for key, val in tree.items():
         if isinstance(val, dict):
             flat.update(_flatten(val, f"{prefix}{key}."))
-        else:
+        elif not _empty(val):
             flat[f"{prefix}{key}"] = val
     return flat
 
@@ -74,7 +91,7 @@ def _ravel_leaves(tree, path=()):
         val = tree[key]
         if isinstance(val, dict):
             yield from _ravel_leaves(val, (*path, key))
-        else:
+        elif not _empty(val):
             yield (*path, key), val
 
 
@@ -223,31 +240,83 @@ def _nest(flat, prefix=""):
     return tree
 
 
+def _keyed(module):
+    """A container whose JAX counterpart keys every child, an empty one
+    included (``Sequential``, the table containers built on it,
+    ``Remat``)."""
+    return isinstance(module, (Sequential, Remat))
+
+
+def _with_empties(module, tree, empty):
+    """``tree`` (the nested leaves below ``module``) with JAX's entries
+    for the children of keyed containers that hold none: ``()`` (or the
+    layer's ``jax_empty_params`` for parameters), ``{}`` for an empty
+    keyed container.  A module without leaves outside a keyed container
+    is ``empty(module)`` at the top only."""
+    for key, child in module.named_children():
+        if key in tree or _keyed(module):
+            tree[key] = _with_empties(child, tree.get(key, {}), empty)
+    if not tree and not _keyed(module):
+        return empty(module)
+    return tree
+
+
+def _params_empty(module):
+    return getattr(module, "jax_empty_params", ())
+
+
 def to_jax_params(model):
     """``model``'s parameters as a JAX parameter tree: nested dicts of
     numpy arrays in the JAX keys and the model's own layout (``block{i}``
-    unrolled, stacked ``blocks`` scanned)."""
-    return _nest(dict(model.named_parameters()))
+    unrolled, stacked ``blocks`` scanned), with JAX's empty entries."""
+    return _with_empties(model, _nest(dict(model.named_parameters())),
+                         _params_empty)
 
 
-def _jax_state(method, state, prefix):
+def to_jax_state(model):
+    """``model``'s buffers as the JAX ``model.state()`` tree (numpy
+    leaves, ``()`` for a layer without state; ``()`` for a model with
+    none outside a keyed container, as JAX's ``TransformerLM``)."""
+    return _with_empties(model, _nest(dict(model.named_buffers())),
+                         lambda m: ())
+
+
+def _jax_state(method, state, prefix, model):
     if isinstance(method, CompositeOptimMethod):
-        return {"/".join(p): _jax_state(m, state["/".join(p)], ".".join(p))
+        return {"/".join(p): _jax_state(m, state["/".join(p)], ".".join(p),
+                                        _submodule(model, ".".join(p)))
                 for _, p, m in method.assignments}
     out = {"neval": _numpy(state["neval"])}
     if "lr_factor" in state:
         out["lr_factor"] = _numpy(state["lr_factor"])
     for slot in method.slots:
         tree = state[slot]
-        out[slot] = _nest(tree, prefix) if isinstance(tree, dict) \
-            else _numpy(tree)
+        if not isinstance(tree, dict):
+            out[slot] = _numpy(tree)
+            continue
+        tree = _nest(tree, prefix)
+        out[slot] = tree if model is None else \
+            _with_empties(model, tree, _params_empty)
     return out
 
 
-def to_jax_opt_state(optim_method, state):
+def _submodule(model, path):
+    """The submodule at ``path``, or None (no model, or a path that
+    names a parameter)."""
+    if model is None:
+        return None
+    try:
+        return model.get_submodule(path)
+    except AttributeError:
+        return None
+
+
+def to_jax_opt_state(optim_method, state, model=None):
     """The inverse of ``from_jax_opt_state``: a port state as the JAX
     method's state tree of numpy leaves (``neval`` int32, ``lr_factor``
     fp32 under a stateful schedule, each slot in the parameter tree's
     keys, ``Fused``'s flat vectors in ``ravel_pytree``'s order, a
-    composite's states per subtree path)."""
-    return _jax_state(optim_method, state, "")
+    composite's states per subtree path).  With ``model`` (the model it
+    trains) each slot also carries JAX's empty entries, as the JAX
+    method's state over that model's tree does."""
+    return _jax_state(optim_method, state, "", model)

@@ -29,6 +29,9 @@ recompute restores no random state (``preserve_rng_state=False``):
 nothing in a checkpointed layer draws from a torch generator, and the
 attention dropout's mask is a pure function of the step's key
 (``nn.dropout``), so the recompute draws the mask the forward drew.
+The recompute runs under ``nn.module.frozen_state``: a layer with state
+(BatchNorm) updates its running statistics once a step, in the forward,
+as JAX's functional state is taken from the forward only.
 
 ``ScanLayers`` holds N structurally identical layers as ONE set of
 parameters stacked on a leading layer axis (the JAX ``"blocks"``
@@ -48,7 +51,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from bigdl_tpu_torch.nn.module import Container, Module
+from bigdl_tpu_torch.nn.module import Container, Module, frozen_state
 
 _aten = torch.ops.aten
 
@@ -349,7 +352,19 @@ def remat(fn, *args, policy=None):
             _keep_products, _SAVED_PRODUCTS[policy])
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, policy_fn)
-    return checkpoint(fn, *args, use_reentrant=False,
+    calls = []
+
+    def run(*a):
+        # the first call is the forward; a later one is the recompute in
+        # backward, which must leave state buffers (BatchNorm's running
+        # statistics) as the forward left them, as JAX's remat does
+        if calls:
+            with frozen_state():
+                return fn(*a)
+        calls.append(1)
+        return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=False, **kw)
 
 

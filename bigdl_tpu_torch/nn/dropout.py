@@ -25,6 +25,7 @@ drawn, as the JAX layer draws none without an ``rng``.
 """
 
 import contextlib
+import zlib
 
 import torch
 
@@ -84,6 +85,16 @@ def step_key(key):
 def uses_dropout(model) -> bool:
     """Whether a module of ``model`` draws a dropout mask."""
     return any(getattr(m, "dropout", 0) > 0 for m in model.modules())
+
+
+def salt_by_path(model):
+    """Give every ``Dropout`` layer of ``model`` (a module with
+    ``salt_by_path``) the salt of its path in the model, so two models
+    built alike draw the same masks from one key whatever order they
+    were built in."""
+    for path, m in model.named_modules():
+        if getattr(m, "salt_by_path", False):
+            m.dropout_salt = zlib.crc32(path.encode())
 
 
 def new_step_key(generator, device):

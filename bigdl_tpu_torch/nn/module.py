@@ -10,7 +10,17 @@ trees map onto each other key by key:
     port ``model.block0.attn.qkv_weight``
 
 ``parameters_tree()`` / ``load_parameters_tree()`` convert between the
-module and that nested-dict form.
+module and that nested-dict form.  A module's state (JAX's ``state``
+tree: BatchNorm's ``running_mean`` / ``running_var``) lives in registered
+buffers under the JAX state keys, read and loaded by ``state_tree()`` /
+``load_state_tree()`` with the same checks.  Both loads copy in place:
+captured CUDA graphs hold the tensors' addresses.
+
+JAX's state is functional: ``jax.checkpoint`` recomputes a block's
+forward in backward but keeps the state its forward returned.  Here a
+layer writes its buffers in ``forward``, so a recompute runs under
+``frozen_state()``, in which ``state_updates()`` is False and no buffer
+is written.
 
 Names, freezing and regularizers follow the JAX ``Module``: ``name`` /
 ``set_name`` (:86-101, :145), ``freeze`` / ``unfreeze`` with the
@@ -20,10 +30,33 @@ module tree directly: it already follows the JAX parameter keys.
 ``predict`` / ``predict_class`` (:566, 572) run ``optim.Predictor``.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
 _name_counters = {}
+#: set while a rematerialised forward is recomputed (``frozen_state``); a
+#: module-level slot, not thread-local, because the autograd engine
+#: recomputes on a thread of its own
+_state_frozen = False
+
+
+def state_updates() -> bool:
+    """Whether a layer in training mode may write its state buffers now
+    (False while a rematerialised forward is recomputed)."""
+    return not _state_frozen
+
+
+@contextlib.contextmanager
+def frozen_state():
+    """Within the block no layer writes its state buffers."""
+    global _state_frozen
+    outer, _state_frozen = _state_frozen, True
+    try:
+        yield
+    finally:
+        _state_frozen = outer
 
 
 class _Name(str):
@@ -110,14 +143,12 @@ class Module(torch.nn.Module):
 
     def parameters_tree(self):
         """Nested dict of this module's parameters (detached tensors)."""
-        tree = {}
-        for name, p in self.named_parameters():
-            *path, leaf = name.split(".")
-            node = tree
-            for key in path:
-                node = node.setdefault(key, {})
-            node[leaf] = p.detach()
-        return tree
+        return _nest(self.named_parameters())
+
+    def state_tree(self):
+        """Nested dict of this module's state buffers (detached tensors),
+        keyed like the JAX ``state`` tree."""
+        return _nest(self.named_buffers())
 
     @torch.no_grad()
     def load_parameters_tree(self, tree):
@@ -128,36 +159,15 @@ class Module(torch.nn.Module):
         misshapen or mistyped leaf raises before anything is copied.  An
         empty entry (JAX's ``()`` for a layer without parameters) holds
         nothing to load."""
-        flat = {}
+        _load_in_place(dict(self.named_parameters()), tree, "parameter")
+        return self
 
-        def walk(node, prefix):
-            for key, val in node.items():
-                name = f"{prefix}{key}"
-                if isinstance(val, dict):
-                    walk(val, name + ".")
-                elif not (isinstance(val, (tuple, list)) and not val):
-                    flat[name] = val
-
-        walk(tree, "")
-        params = dict(self.named_parameters())
-        missing = sorted(set(params) - set(flat))
-        extra = sorted(set(flat) - set(params))
-        if missing or extra:
-            raise KeyError(f"parameter tree mismatch: missing {missing}, "
-                           f"unexpected {extra}")
-        for name, p in params.items():
-            shape = tuple(np.shape(flat[name]))
-            if shape != tuple(p.shape):
-                raise ValueError(f"{name}: tree leaf has shape {shape}, "
-                                 f"parameter has {tuple(p.shape)}")
-            leaf_int8 = str(getattr(flat[name], "dtype", "")) in (
-                "int8", "torch.int8")
-            if leaf_int8 != (p.dtype == torch.int8):
-                # an int8 payload never loads as a float and back
-                raise TypeError(f"{name}: tree leaf is "
-                                f"{flat[name].dtype}, parameter is {p.dtype}")
-        for name, p in params.items():
-            p.copy_(torch.as_tensor(np.array(flat[name]), dtype=p.dtype))
+    @torch.no_grad()
+    def load_state_tree(self, tree):
+        """Copy a state tree (JAX's ``model.state()`` with numpy or JAX
+        leaves, or ``state_tree()``) into the buffers, in place, with
+        ``load_parameters_tree``'s checks; ``()`` is an empty tree."""
+        _load_in_place(dict(self.named_buffers()), tree, "state")
         return self
 
     def predict(self, data, batch_size: int = 128):
@@ -171,6 +181,55 @@ class Module(torch.nn.Module):
         from bigdl_tpu_torch.optim.predictor import Predictor
 
         return Predictor(self, batch_size).predict_class(data)
+
+
+def _nest(named):
+    tree = {}
+    for name, t in named:
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach()
+    return tree
+
+
+def _load_in_place(targets, tree, what):
+    """Copy ``tree``'s leaves into ``targets`` (name -> tensor) in place
+    after checking keys, shapes and int8-ness of every leaf."""
+    flat = {}
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            name = f"{prefix}{key}"
+            if isinstance(val, dict):
+                walk(val, name + ".")
+            elif not (isinstance(val, (tuple, list)) and not val):
+                flat[name] = val
+
+    if isinstance(tree, dict):
+        walk(tree, "")
+    missing = sorted(set(targets) - set(flat))
+    extra = sorted(set(flat) - set(targets))
+    if missing or extra:
+        raise KeyError(f"{what} tree mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    for name, t in targets.items():
+        shape = tuple(np.shape(flat[name]))
+        if shape != tuple(t.shape):
+            raise ValueError(f"{name}: tree leaf has shape {shape}, "
+                             f"{what} has {tuple(t.shape)}")
+        leaf_int8 = str(getattr(flat[name], "dtype", "")) in (
+            "int8", "torch.int8")
+        if leaf_int8 != (t.dtype == torch.int8):
+            # an int8 payload never loads as a float and back
+            raise TypeError(f"{name}: tree leaf is "
+                            f"{flat[name].dtype}, {what} is {t.dtype}")
+    for name, t in targets.items():
+        leaf = flat[name]
+        if not isinstance(leaf, torch.Tensor):
+            leaf = torch.as_tensor(np.array(leaf))
+        t.copy_(leaf.to(dtype=t.dtype))
 
 
 def all_modules(module):
@@ -230,6 +289,13 @@ class Container(Module):
             return self
         self.add_module(key, module)
         return module
+
+
+class Identity(Module):
+    """The input, unchanged (JAX ``nn/module.py:767``)."""
+
+    def forward(self, x):
+        return x
 
 
 class Criterion:

@@ -19,6 +19,11 @@ another step, so no copy of it is kept.  The end trigger is evaluated
 once per completed step, and a batch past a predicted end is never
 fetched.
 
+Module state (BatchNorm's running statistics, the model's buffers) is
+updated in place by the step, in the graph on the card, and travels with
+the parameters through checkpoints and resume (``model_state``, JAX's
+``model.state()`` tree).
+
 Validation (``set_validation``) runs ``validate`` through the compiled
 eval step (``optim/validation.py``, one CUDA graph per batch shape on
 the card, reading the live parameters) and feeds a ``Plateau``
@@ -645,33 +650,34 @@ class LocalOptimizer(BaseOptimizer):
 
     @torch.no_grad()
     def _load_snapshot(self, snap, opt_state):
-        """Copy a snapshot's parameters and optimizer state into the
-        model's parameters and ``opt_state`` in place (a built step
-        reads them where they lie)."""
+        """Copy a snapshot's parameters, model state (BatchNorm's running
+        statistics) and optimizer state into the model's parameters and
+        buffers and ``opt_state``, in place (a built step reads them
+        where they lie)."""
         from bigdl_tpu_torch.interop.jax_params import (from_jax_opt_state,
-                                                        load_jax_params)
+                                                        load_jax_params,
+                                                        load_jax_state)
 
-        if _has_leaves(snap.get("model_state")):
-            raise UnsupportedFeatureError(
-                "the snapshot carries model state (buffers such as "
-                "BatchNorm statistics), which no module of the port has")
         load_jax_params(self.model, snap["model_params"])
+        load_jax_state(self.model, snap.get("model_state", ()))
         _copy_into(opt_state, from_jax_opt_state(
             self.optim_method, snap["opt_state"], self.device,
             jax_params=snap["model_params"], model=self.model))
 
     def _checkpoint(self, opt_state):
-        """Write the parameters, the optimizer state and the driver state,
-        in the JAX package's keys, after the compute stream's work."""
+        """Write the parameters, the model state, the optimizer state and
+        the driver state, in the JAX package's keys and tree layout,
+        after the compute stream's work."""
         from bigdl_tpu_torch.interop.jax_params import (to_jax_opt_state,
-                                                        to_jax_params)
+                                                        to_jax_params,
+                                                        to_jax_state)
 
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         return file_io.save_checkpoint(
             self.checkpoint_path, self.driver_state["neval"],
-            to_jax_params(self.model), (),
-            to_jax_opt_state(self.optim_method, opt_state),
+            to_jax_params(self.model), to_jax_state(self.model),
+            to_jax_opt_state(self.optim_method, opt_state, self.model),
             self.driver_state)
 
     def _optimize_impl(self):
@@ -709,14 +715,6 @@ class LocalOptimizer(BaseOptimizer):
             self.compiled_stats = step.stats()
         self.optim_method.state = opt_state
         return self.model
-
-
-def _has_leaves(tree):
-    if isinstance(tree, dict):
-        return any(_has_leaves(v) for v in tree.values())
-    if isinstance(tree, (tuple, list)):
-        return any(_has_leaves(v) for v in tree)
-    return tree is not None
 
 
 def _copy_into(dst, src):

@@ -15,7 +15,14 @@ Mixed precision (``compute_dtype=torch.bfloat16``) never casts the
 module in place: the forward runs through
 ``torch.func.functional_call`` on cast copies of the rank >= 2
 parameters, so autograd through ``.to(bf16)`` lands fp32 gradients on
-the fp32 masters, as ``jax.grad`` through ``astype`` does.
+the fp32 masters, as ``jax.grad`` through ``astype`` does.  The buffers
+(model state) and the rank-1 parameters (BatchNorm's affine) stay fp32,
+as JAX leaves ``mstate`` and its vectors uncast.
+
+Model state: the JAX step returns a new ``mstate``; here a layer in
+training mode writes its buffers in place during the forward (BatchNorm's
+running statistics), once a step, a rematerialised recompute included.
+The eval step reads the buffers as they are.
 """
 
 import copy
@@ -58,12 +65,15 @@ def _cast_params(params, dtype):
 
 def compute_copy(model, dtype):
     """A copy of ``model`` in eval mode holding ``_cast_params``'s
-    parameters (fresh tensors, no gradient; it shares none with
-    ``model``).  ``functional_call`` swaps a module's parameters in
-    place for the length of a call, which another thread running the
-    same module would see: a caller that evaluates in ``dtype`` beside
-    such a thread evaluates this copy instead."""
+    parameters (fresh tensors, no gradient; it shares no parameter with
+    ``model``) and ``model``'s own buffers, so it reads the current
+    model state (BatchNorm's running statistics) as JAX's eval step
+    reads the current ``mstate``.  ``functional_call`` swaps a module's
+    parameters in place for the length of a call, which another thread
+    running the same module would see: a caller that evaluates in
+    ``dtype`` beside such a thread evaluates this copy instead."""
     memo = {id(p): None for p in model.parameters()}
+    memo.update({id(b): b for b in model.buffers()})
     twin = copy.deepcopy(model, memo)
     for name, p in _cast_params(dict(model.named_parameters()),
                                 dtype).items():
@@ -116,6 +126,7 @@ def make_train_step(model, criterion, optim_method, clip_value=None,
     if _dropout.uses_dropout(model):
         from bigdl_tpu_torch.utils.random_generator import RNG
 
+        _dropout.salt_by_path(model)
         key = _dropout.new_step_key(RNG.next_generator(),
                                     next(model.parameters()).device)
 

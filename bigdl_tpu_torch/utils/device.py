@@ -23,14 +23,19 @@ def resolve_device(device=None) -> torch.device:
 def require_fp32_matmul():
     """The port computes in fp32, as the JAX reference does, so TF32
     matrix products (``torch.set_float32_matmul_precision("high")`` or
-    ``torch.backends.cuda.matmul.allow_tf32 = True``) are switched off,
-    with a warning when a caller had switched them on."""
+    ``torch.backends.cuda.matmul.allow_tf32 = True``) and TF32 cuDNN
+    convolutions (``torch.backends.cudnn.allow_tf32``, which PyTorch
+    turns on by default) are switched off, with a warning when either was
+    on."""
     if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32 or \
             torch.get_float32_matmul_precision() != "highest":
         warnings.warn("bigdl_tpu_torch computes in fp32: TF32 matrix "
-                      "products switched off", RuntimeWarning, stacklevel=3)
+                      "products and convolutions switched off",
+                      RuntimeWarning, stacklevel=3)
         torch.set_float32_matmul_precision("highest")
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:

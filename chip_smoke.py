@@ -156,6 +156,40 @@ Phases, each printing JSON lines:
     engine by the scanned and the unrolled model (equal greedy streams,
     K3 at D 96 launched), and by the scanned model through the contiguous
     (K2) and int8-KV (K3q) engines.
+12. ResNet-50 (1000 classes, full width and depth, random weights from
+    seed 0; no kernel of the port is on this path: convolutions, pooling
+    and BatchNorm are cuDNN and PyTorch ops, as they are XLA ops in the
+    JAX package): (a) ``__graft_entry__.entry``'s forward, batch 4 at 224
+    x 224 in eval mode with the running statistics of one training
+    forward, through the compiled eval step in fp32 and bf16, against
+    the same model on the CPU in fp32 (``RESNET_FWD_TOL``); (b) four
+    ``Optimizer(...).optimize()`` legs at ``bench.py`` ``_bench_one``'s
+    setting (batch 128, 224 x 224, standard normal images and labels
+    from numpy seed 0, 4 batches cycled, ``SGD(0.02, momentum 0.9,
+    weight decay 1e-4)``, ``CrossEntropyCriterion``) of 10 compiled steps
+    each: fp32, bf16, bf16 with ``remat=True``, bf16 with
+    ``stem_s2d=True`` and ``Fused(SGD)``; each prints images/s over steps
+    1-6, the device's idle share and its time by kind (convolutions,
+    layout transforms, copies, reductions, elementwise) over steps 7-9
+    under the profiler, the optimizer update's device time, peak
+    allocated and reserved memory, the graph pool and a derived
+    model-FLOPs share (24.5 GFLOP an image over 989 TFLOP/s bf16, 67
+    fp32); held: batch 0's loss falling at its returns (steps 4, 8); with
+    ``cudnn.deterministic`` (cuDNN's default backward algorithms are not
+    deterministic), 3 compiled fp32 steps against 3 eager ones from the
+    same weights (``COMPILED_RTOL``: losses, parameters and running
+    statistics), the timed leg's first 3 steps printed beside an eager
+    run with the default algorithms; the remat leg's statistics after
+    one step against the plain bf16 leg's; the s2d stem against the
+    plain stem in fp32 and the s2d leg's first loss against the plain
+    leg's; (c) ``validate`` with
+    ``Top1Accuracy`` and ``Predictor`` over 64 held-out images in fp32
+    and bf16 on the trained fp32 model against its eager eval; (d) a
+    checkpoint with BatchNorm state at neval 5 of an 8-step bf16 run,
+    resumed into a fresh model to step 8, against the straight run, both
+    with ``cudnn.deterministic`` (``RESUME_RTOL``); (e) ``lenet-train``, ``vgg-train``,
+    ``resnet-train --depth 20`` and ``inception-train --version v1``, 4
+    iterations each through ``models/run.py``.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -164,6 +198,7 @@ non-zero before printing any result.
 
 import collections
 import ctypes
+import gc
 import json
 import re
 import subprocess
@@ -546,8 +581,10 @@ def empty_kernel_floor(card, grids):
 
 
 def clone_tree(tree):
-    return {name: {kv: t.clone() for kv, t in layer.items()}
-            for name, layer in tree.items()}
+    """A copy of nested dicts of tensors (a cache, an optimizer state)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 #: knob names of a paged step's static inputs
@@ -2750,6 +2787,554 @@ def large_phase(fa, ce, card):
     return paths
 
 
+# --------------------------------------------------------------------------- #
+# Phase 12: ResNet-50 (the CNN zoo's flagship), trained and evaluated
+# --------------------------------------------------------------------------- #
+
+#: bench.py ``_bench_one``'s training setting: ResNet-50 at batch 128 on
+#: 224 x 224 images, 4 batches cycled
+RESNET_BATCH, RESNET_SIDE, RESNET_BATCHES = 128, 224, 4
+#: steps a training leg: step 0 builds the graph; steps 1-6 are timed
+#: without the profiler, 7-9 under it
+RESNET_STEPS, RESNET_TIMED, RESNET_PROFILED = 10, 6, 3
+#: bench.py:1948's estimate of a training image's work (3 x 2 x 4.09e9)
+RESNET_FLOP_PER_IMAGE = 3 * 2 * 4.09e9
+#: (a) the flagship forward on the card against the CPU, relative L2
+RESNET_FWD_TOL = {None: 1e-4, torch.bfloat16: 3e-2}
+#: (b) the s2d stem against the plain 7x7/s2 stem on the first batch in
+#: fp32, relative L2 (``tests/test_conv.py``'s 2e-4), and the s2d leg's
+#: first bf16 loss against the plain bf16 leg's, relative: the stem sums
+#: its 147 taps in another order and rounds to bf16, and train-mode
+#: BatchNorm at fresh init grows such a difference through 53 layers
+RESNET_S2D_STEM_TOL, RESNET_S2D_LOSS_RTOL = 2e-4, 5e-2
+#: (c) the compiled eval step against the eager one on the same model,
+#: logits relative L2 (the same kernels; cuDNN may pick others in a
+#: capture)
+RESNET_EVAL_TOL = {None: 1e-5, torch.bfloat16: 1e-3}
+#: (d) checkpoint every 4 steps of an 8-step bf16 run (neval 5)
+RESNET_CKPT_STEPS, RESNET_CKPT_AT = 8, 5
+#: held-out images for (c), and the eval batch
+RESNET_HELD_OUT, RESNET_EVAL_BATCH = 64, 32
+
+#: kernel-name patterns of the device time by kind (lower case, first
+#: match wins): cuDNN's layout transforms (``nchwToNhwc`` and kin, of
+#: activations or of the HWIO weights), the convolution and GEMM
+#: kernels, PyTorch's strided (non-vectorized) elementwise kernels, which
+#: run on non-contiguous views and casts, its vectorized elementwise
+#: kernels (BatchNorm's normalisation, ReLU, the residual adds, the
+#: update), its reductions (BatchNorm's statistics and their gradients)
+RESNET_KINDS = (
+    ("layout_transform", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("convolution", ("conv", "xmma", "implicit_gemm", "dgrad", "wgrad",
+                     "fprop", "cudnn", "cutlass", "gemm")),
+    ("strided_elementwise", ("at::native::elementwise_kernel",
+                             "unrolled_elementwise")),
+    ("elementwise", ("vectorized_elementwise", "elementwise")),
+    ("reduction", ("reduce_kernel", "reduce", "norm")),
+    ("copy", ("copy", "memcpy", "memset", "fill", "cat", "split")),
+)
+
+
+def kernel_kind(name):
+    low = name.lower()
+    for kind, keys in RESNET_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def resnet_data(seed=0, batches=RESNET_BATCHES):
+    """``_bench_one``'s inputs: standard normal images and labels in [0,
+    1000) from numpy seed 0, ``batches`` batches of 128."""
+    rng = np.random.default_rng(seed)
+    n = batches * RESNET_BATCH
+    x = rng.standard_normal((n, RESNET_SIDE, RESNET_SIDE, 3),
+                            dtype=np.float32)
+    y = rng.integers(0, 1000, n)
+    return x, y
+
+
+def resnet_flagship_forward(card):
+    """(a) ``__graft_entry__.entry``'s work: ResNet-50 (seed 0) in eval
+    mode on 4 images of 224 x 224, its running statistics those of one
+    training-mode forward on the card (not the init's), through the
+    compiled eval step in fp32 and bf16, against the same model on the
+    CPU in fp32."""
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.models import ResNet
+
+    model = ResNet(50, 1000, device="cuda", seed=0)
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.standard_normal(
+        (8, RESNET_SIDE, RESNET_SIDE, 3), dtype=np.float32))
+    with torch.no_grad():
+        model.train()(xs[:4].cuda())
+    model.eval()
+    cpu = ResNet(50, 1000, device="cpu", seed=0)
+    cpu.load_state_tree(model.state_tree())
+    with torch.no_grad():
+        want = cpu.eval()(xs[4:])
+    rows = {}
+    for dtype in (None, torch.bfloat16):
+        got = optim.compiled_eval_step(model, dtype)(xs[4:].cuda()).cpu()
+        err = rel_l2(got, want)
+        rows["bf16" if dtype else "fp32"] = err
+        if not torch.isfinite(got).all() or got.shape != (4, 1000) or \
+                err > RESNET_FWD_TOL[dtype]:
+            raise AssertionError(f"ResNet-50 forward {dtype}: rel L2 {err}")
+    var = model._modules["1"].running_var
+    row = {"phase": "resnet_forward", "batch": 4, "side": RESNET_SIDE,
+           "rel_l2_vs_cpu_fp32": rows, "tolerance": {
+               "fp32": RESNET_FWD_TOL[None],
+               "bf16": RESNET_FWD_TOL[torch.bfloat16]},
+           "stem_bn_running_var_mean": float(var.mean()), "card": card}
+    emit(row)
+    del model, cpu
+    torch.cuda.empty_cache()
+    return row
+
+
+def resnet_leg(card, label, x, y, dtype, fused=False, snap_at=(), **kw):
+    """One ``optimize()`` of ``RESNET_STEPS`` steps of ResNet-50 (seed 0,
+    ``kw`` its options) at bench.py's setting: images/s over steps 1-6
+    (host clock, a sync at each end), the device's busy time and its kinds
+    over steps 7-9 under the profiler, idle = 1 - busy / step, peak memory
+    and the graph pool, the optimizer update's device time, and the
+    model's parameters and buffers at each step of ``snap_at`` (cloned
+    after a sync).  Returns ``(row, model, snapshots)``."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.models import ResNet
+
+    model = ResNet(50, 1000, device="cuda", seed=0, **kw)
+    method = optim.SGD(learning_rate=0.02, momentum=0.9, dampening=0.0,
+                       weight_decay=1e-4)
+    if fused:
+        method = optim.Fused(method)
+    ds = array_dataset(x, y, shuffle_on_epoch=False) >> \
+        SampleToMiniBatch(RESNET_BATCH)
+    opt = optim.Optimizer(model, ds, nn.CrossEntropyCriterion(), method)
+    if dtype is not None:
+        opt.set_compute_dtype(dtype)
+    summary = _Losses()
+    opt.set_train_summary(summary)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
+    first = 1 + RESNET_TIMED
+    snaps = {}
+
+    def snapshot(i):
+        def take():
+            snaps[i] = ({k: p.detach().clone()
+                         for k, p in model.named_parameters()},
+                        {k: b.detach().clone()
+                         for k, b in model.named_buffers()})
+        return take
+
+    then = {first: prof.start, RESNET_STEPS: prof.stop}
+    for i in snap_at:
+        then.setdefault(i, snapshot(i))
+    clock = StepClock(opt, RESNET_STEPS,
+                      sync_at=(1, first, RESNET_STEPS, *snap_at), then=then)
+    opt.set_end_when(clock)
+    # earlier phases' models and graphs can wait in reference cycles:
+    # collected here, the peak is this leg's
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_s = (clock.marks[first][0] - clock.marks[1][0]) / RESNET_TIMED
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = union_us([(e.time_range.start, e.time_range.end)
+                       for e in kernels]) / 1e6 / RESNET_PROFILED
+    by_kind, by_name = collections.Counter(), collections.Counter()
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        by_kind[kernel_kind(e.name)] += us / 1e3 / RESNET_PROFILED
+        by_name[e.name[:90]] += us / 1e3 / RESNET_PROFILED
+    images_s = RESNET_BATCH / step_s
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    # the optimizer update alone: one call on the trained weights with
+    # their gradients' shapes (a copy of the state, so the run's is kept)
+    params = dict(model.named_parameters())
+    grads = {k: torch.randn_like(p) * 1e-3 for k, p in params.items()}
+    state = clone_tree(method.state)
+    saved = {k: p.detach().clone() for k, p in params.items()}
+    update_ms = device_ms(lambda: method.update(grads, state, params),
+                          iters=5, reps=5)[0]
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(saved[k])
+    del grads, state, saved
+    row = {"phase": "resnet_leg", "leg": label,
+           "compute_dtype": "bf16" if dtype else "fp32",
+           "remat": bool(kw.get("remat")), "stem_s2d":
+           bool(kw.get("stem_s2d")), "fused_update": fused,
+           "batch": RESNET_BATCH, "losses": summary.scalars["Loss"],
+           "step_s": step_s, "images_per_s": images_s,
+           "device_busy_s_per_step": busy_s,
+           "device_idle_share": 1.0 - busy_s / step_s,
+           "device_ms_per_step_by_kind": dict(by_kind),
+           "top_kernels_ms_per_step": dict(by_name.most_common(12)),
+           "optimizer_update_device_ms": update_ms,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "graph_pool_bytes": opt.compiled_stats["pool_bytes"],
+           "captured": opt.compiled_stats["captured"],
+           "replays": opt.compiled_stats["replays"],
+           "model_flops_share_derived": RESNET_FLOP_PER_IMAGE * images_s
+           / peak,
+           "model_flops_share_peak_tflops": peak / 1e12,
+           "cudnn": {"benchmark": torch.backends.cudnn.benchmark,
+                     "deterministic": torch.backends.cudnn.deterministic,
+                     "allow_tf32": torch.backends.cudnn.allow_tf32},
+           "wall_s": wall, "card": card}
+    emit(row)
+    losses = row["losses"]
+    # batch 0 comes back at steps 4 and 8: its loss falls
+    if len(losses) != RESNET_STEPS or not all(np.isfinite(losses)) or \
+            row["captured"] != 1 or row["replays"] != RESNET_STEPS or \
+            not losses[8] < losses[4] < losses[0]:
+        raise AssertionError(f"ResNet-50 leg {label}: {row}")
+    del opt, prof
+    return row, model, snaps
+
+
+def resnet_s2d_stem(x):
+    """The s2d stem against the plain stem on the same weights (seed 0's
+    stem) and batch, fp32 on the card: relative L2."""
+    from bigdl_tpu_torch import nn
+
+    g = torch.Generator().manual_seed(0)
+    plain = nn.SpatialConvolution(3, 64, 7, 7, 2, 2, 3, 3, with_bias=False,
+                                  generator=g).cuda()
+    s2d = nn.SpaceToDepthStem(3, 64, 7).cuda()
+    s2d.load_parameters_tree(plain.parameters_tree())
+    xb = torch.as_tensor(x, device="cuda")
+    with torch.no_grad():
+        return rel_l2(s2d(xb), plain(xb))
+
+
+def _global_rel(a, b):
+    """Relative L2 of two ``{name: tensor}`` dicts as one vector."""
+    num = sum(float((a[k].detach().double() - b[k].detach().double())
+                    .norm() ** 2) for k in b)
+    den = sum(float(b[k].detach().double().norm() ** 2) for k in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _run_steps(x, y, steps, compiled):
+    """``steps`` fp32 steps of ResNet-50 (seed 0) on the first batches,
+    eager (``make_train_step``) or through ``CompiledTrainStep``; returns
+    the losses and the parameters and buffers after them."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.models import ResNet
+
+    model = ResNet(50, 1000, device="cuda", seed=0)
+    sgd = optim.SGD(learning_rate=0.02, momentum=0.9, dampening=0.0,
+                    weight_decay=1e-4)
+    state = sgd.init_state(dict(model.named_parameters()))
+    crit = nn.CrossEntropyCriterion()
+    if compiled:
+        step = optim.CompiledTrainStep(model, crit, sgd, state,
+                                       next(model.parameters()).device)
+        run = step.run
+    else:
+        step = optim.make_train_step(model, crit, sgd)
+        run = lambda xb, yb: step(state, xb, yb)[1]  # noqa: E731
+    losses = []
+    for i in range(steps):
+        sl = slice(i * RESNET_BATCH, (i + 1) * RESNET_BATCH)
+        losses.append(run(torch.as_tensor(x[sl], device="cuda"),
+                          torch.as_tensor(y[sl], device="cuda")).item())
+    out = (losses, {k: p.detach().clone()
+                    for k, p in model.named_parameters()},
+           {k: b.detach().clone() for k, b in model.named_buffers()})
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_eager_check(card, x, y, leg_row, leg_snap):
+    """(b) compiled against eager, 3 fp32 steps from the same weights.
+    cuDNN's default backward algorithms are not deterministic, and
+    BatchNorm's biases take gradients small against their terms, so two
+    eager runs already part: with ``cudnn.deterministic`` the compiled
+    step (a ``CompiledTrainStep`` run) is held to the eager step within
+    ``COMPILED_RTOL`` (losses; parameters and running statistics as one
+    vector each), bitwise equality printed; then the timed fp32 leg's
+    first 3 steps (default algorithms) are set beside a second eager run
+    with default algorithms, to show the spread of those."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        e_losses, e_params, e_bufs = _run_steps(x, y, 3, False)
+        c_losses, c_params, c_bufs = _run_steps(x, y, 3, True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    step_rel = [abs(a - b) / abs(b) for a, b in zip(c_losses, e_losses)]
+    p_rel, b_rel = _global_rel(c_params, e_params), _global_rel(c_bufs,
+                                                                e_bufs)
+    bitwise = c_losses == e_losses and p_rel == 0 and b_rel == 0
+    n_losses, n_params, n_bufs = _run_steps(x, y, 3, False)
+    leg_params, leg_bufs = leg_snap
+    tol = COMPILED_RTOL[None]
+    row = {"phase": "resnet_compiled_vs_eager",
+           "deterministic": {"eager_losses": e_losses,
+                             "compiled_losses": c_losses,
+                             "max_step_loss_rel": max(step_rel),
+                             "params_rel_l2": p_rel,
+                             "buffers_rel_l2": b_rel,
+                             "bitwise_equal": bitwise, "tolerance": tol},
+           "default_algorithms": {
+               "eager_losses": n_losses,
+               "timed_leg_losses": leg_row["losses"][:3],
+               "eager_vs_deterministic_eager_params_rel_l2":
+               _global_rel(n_params, e_params),
+               "timed_leg_vs_eager_params_rel_l2":
+               _global_rel(leg_params, n_params),
+               "timed_leg_vs_eager_buffers_rel_l2":
+               _global_rel(leg_bufs, n_bufs)},
+           "card": card}
+    emit(row)
+    if max(step_rel) > tol or p_rel > tol or b_rel > tol:
+        raise AssertionError(f"ResNet-50 compiled against eager: {row}")
+    return row
+
+
+def resnet_eval(card, model):
+    """(c) ``validate`` with ``Top1Accuracy`` and ``Predictor`` over 64
+    held-out images (numpy seed 1) through the compiled eval step, fp32
+    and bf16, against an eager eval of the trained model with its
+    current statistics: the logits (``RESNET_EVAL_TOL``), the Top1 count
+    (a differing argmax only at a near-tie of ``TIE_MARGIN``) and
+    ``Predictor``'s rows."""
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+
+    xv, yv = resnet_data(seed=1, batches=1)
+    xv, yv = xv[:RESNET_HELD_OUT], yv[:RESNET_HELD_OUT]
+    rows = {}
+    for dtype in (None, torch.bfloat16):
+        tag = "bf16" if dtype else "fp32"
+        ds = array_dataset(xv, yv) >> SampleToMiniBatch(RESNET_EVAL_BATCH)
+        t0 = time.perf_counter()
+        (top1,) = optim.validate(model, ds, [optim.Top1Accuracy()], dtype)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        pred = np.stack(optim.Predictor(model, RESNET_EVAL_BATCH,
+                                        compute_dtype=dtype)
+                        .predict(list(xv)))
+        with torch.no_grad():
+            eager = torch.cat([optim.make_eval_step(model, dtype)(
+                torch.as_tensor(xv[i:i + RESNET_EVAL_BATCH],
+                                device="cuda")).cpu()
+                for i in range(0, RESNET_HELD_OUT, RESNET_EVAL_BATCH)])
+        err = rel_l2(torch.from_numpy(pred), eager)
+        want = (eager.argmax(-1).numpy() == yv)
+        got = (pred.argmax(-1) == yv)
+        top2 = torch.topk(eager, 2, dim=-1).values
+        near = (top2[:, 0] - top2[:, 1]).numpy() < TIE_MARGIN
+        mismatched = int(((got != want) & ~near).sum())
+        rows[tag] = {"top1": top1.result()[0], "count": top1.result()[1],
+                     "eager_top1": float(want.mean()),
+                     "predictor_rel_l2": err, "non_tie_mismatches":
+                     mismatched, "validate_s": val_s,
+                     "eval_pool_bytes": optim.compiled_eval_step(
+                         model, dtype).stats()["pool_bytes"]}
+        if err > RESNET_EVAL_TOL[dtype] or mismatched or \
+                top1.result()[1] != RESNET_HELD_OUT or \
+                abs(top1.result()[0] - float(got.mean())) > 1e-9:
+            raise AssertionError(f"ResNet-50 eval {tag}: {rows[tag]}")
+    row = {"phase": "resnet_eval", "held_out": RESNET_HELD_OUT, **rows,
+           "card": card}
+    emit(row)
+    return row
+
+
+def _resnet_ckpt_run(model, x, y, ckpt, resume=False):
+    """8 bf16 steps of ResNet-50 with SGD, a checkpoint at neval 5;
+    returns the optimizer, per-step losses by iteration and the writes
+    (path, seconds)."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+
+    opt = optim.Optimizer(
+        model, array_dataset(x, y, shuffle_on_epoch=False) >>
+        SampleToMiniBatch(RESNET_BATCH), nn.CrossEntropyCriterion(),
+        optim.SGD(learning_rate=0.02, momentum=0.9, dampening=0.0,
+                  weight_decay=1e-4))
+    opt.set_compute_dtype(torch.bfloat16)
+    opt.set_end_when(optim.Trigger.max_iteration(RESNET_CKPT_STEPS))
+    opt.set_checkpoint(str(ckpt),
+                       optim.Trigger.several_iteration(RESNET_CKPT_AT))
+    losses, writes = {}, []
+
+    class _Summary:
+        def add_scalar(self, tag, value, step):
+            if tag == "Loss":
+                losses[step] = value
+
+    opt.set_train_summary(_Summary())
+    write = opt._checkpoint
+
+    def timed(opt_state):
+        t0 = time.perf_counter()
+        path = write(opt_state)
+        writes.append((path, time.perf_counter() - t0))
+        return path
+
+    opt._checkpoint = timed
+    if resume:
+        opt.resume_from_checkpoint()
+    opt.optimize()
+    torch.cuda.synchronize()
+    return opt, losses, writes
+
+
+def resnet_checkpoint(card, x, y):
+    """(d) a checkpoint with BatchNorm state after step 4 of an 8-step bf16
+    run, resumed into a fresh model (seed 1) to step 8: its bytes and
+    write time, per-step losses, parameters and running statistics
+    against the straight run's (``RESUME_RTOL``; bitwise printed)."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.utils import file_io
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_resnet_ckpt_"))
+    # deterministic algorithms: the straight and the resumed runs are two
+    # runs, which cuDNN's default backward algorithms would part
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight = ResNet(50, 1000, device="cuda", seed=0)
+        _, s_losses, writes = _resnet_ckpt_run(straight, x, y, root)
+        (path, write_s), = writes
+        snap = file_io.load(path)
+        if not snap["model_state"]["1"]["running_mean"].any():
+            raise AssertionError("the checkpoint holds no statistics")
+        resumed = ResNet(50, 1000, device="cuda", seed=1)
+        _, r_losses, _ = _resnet_ckpt_run(resumed, x, y, root, resume=True)
+        params = lambda m: dict(m.named_parameters())  # noqa: E731
+        p_rel = _global_rel(params(resumed), params(straight))
+        b_rel = _global_rel(dict(resumed.named_buffers()),
+                            dict(straight.named_buffers()))
+        steps = sorted(r_losses)
+        step_rel = [abs(r_losses[s] - s_losses[s]) / abs(s_losses[s])
+                    for s in steps]
+        bitwise = all(r_losses[s] == s_losses[s] for s in steps) and \
+            p_rel == 0 and b_rel == 0
+        row = {"phase": "resnet_checkpoint", "checkpoint": Path(path).name,
+               "bytes": file_io.getsize(path), "write_s": write_s,
+               "straight_losses": s_losses, "resumed_losses": r_losses,
+               "max_step_loss_rel": max(step_rel), "params_rel_l2": p_rel,
+               "buffers_rel_l2": b_rel, "bitwise_equal": bitwise,
+               "cudnn_deterministic": True, "tolerance": RESUME_RTOL,
+               "card": card}
+        emit(row)
+        if steps != list(range(RESNET_CKPT_AT, RESNET_CKPT_STEPS + 1)) or \
+                max(step_rel) > RESUME_RTOL or p_rel > RESUME_RTOL or \
+                b_rel > RESUME_RTOL:
+            raise AssertionError(f"ResNet-50 resume: {row}")
+        return row
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def cnn_recipes(card):
+    """(e) ``lenet-train``, ``vgg-train``, ``resnet-train --depth 20`` and
+    ``inception-train --version v1``, 4 iterations each through
+    ``models/run.py`` on the card."""
+    from bigdl_tpu_torch.models import run
+
+    rows = {}
+    for argv in (["lenet-train"], ["vgg-train"],
+                 ["resnet-train", "--depth", "20"],
+                 ["inception-train", "--version", "v1"]):
+        t0 = time.perf_counter()
+        opt = run.main(argv + ["--maxIteration", "4"])
+        torch.cuda.synchronize()
+        rows[argv[0]] = {"loss": opt.driver_state["loss"],
+                         "neval": opt.driver_state["neval"],
+                         "wall_s": time.perf_counter() - t0,
+                         "captured": opt.compiled_stats["captured"]}
+        if opt.driver_state["neval"] != 5 or \
+                not np.isfinite(opt.driver_state["loss"]):
+            raise AssertionError(f"recipe {argv}: {rows[argv[0]]}")
+        del opt
+        torch.cuda.empty_cache()
+    emit({"phase": "cnn_recipes", "recipes": rows, "card": card})
+    return rows
+
+
+def resnet_phase(card):
+    """Phase 12: ResNet-50 at full width and depth (module docstring)."""
+    t0 = time.perf_counter()
+    resnet_flagship_forward(card)
+    x, y = resnet_data()
+    emit({"phase": "resnet_data", "images": len(x),
+          "seconds": time.perf_counter() - t0, "card": card})
+    legs = {}
+    legs["fp32"], fp32_model, fp32_snaps = resnet_leg(
+        card, "fp32", x, y, None, snap_at=(3,))
+    resnet_eager_check(card, x, y, legs["fp32"], fp32_snaps[3])
+    del fp32_snaps
+    legs["bf16"], bf16_model, bf16_snaps = resnet_leg(
+        card, "bf16", x, y, torch.bfloat16, snap_at=(1,))
+    del bf16_model
+    torch.cuda.empty_cache()
+    legs["bf16_remat"], model, remat_snaps = resnet_leg(
+        card, "bf16_remat", x, y, torch.bfloat16, snap_at=(1,), remat=True)
+    del model
+    torch.cuda.empty_cache()
+    legs["bf16_s2d_fused"], model, _ = resnet_leg(
+        card, "bf16_s2d_fused", x, y, torch.bfloat16, fused=True,
+        stem_s2d=True)
+    del model
+    torch.cuda.empty_cache()
+    # the remat leg's statistics after one step against the plain leg's
+    # (buffer names differ by the Remat "0" level; the order is the same)
+    plain_b = list(bf16_snaps[1][1].values())
+    remat_b = list(remat_snaps[1][1].values())
+    stat_rel = max(rel_l2(a, b) for a, b in zip(remat_b, plain_b))
+    stat_bitwise = all(torch.equal(a, b) for a, b in zip(remat_b, plain_b))
+    s2d_rel = abs(legs["bf16_s2d_fused"]["losses"][0]
+                  - legs["bf16"]["losses"][0]) / abs(legs["bf16"]["losses"][0])
+    stem_rel = resnet_s2d_stem(x[:RESNET_BATCH])
+    check = {"phase": "resnet_legs_check",
+             "remat_stats_after_step1_rel_l2": stat_rel,
+             "remat_stats_bitwise": stat_bitwise,
+             "s2d_first_loss_rel": s2d_rel,
+             "s2d_loss_tolerance": RESNET_S2D_LOSS_RTOL,
+             "s2d_stem_fp32_rel_l2": stem_rel,
+             "s2d_stem_tolerance": RESNET_S2D_STEM_TOL,
+             "images_per_s": {k: r["images_per_s"] for k, r in legs.items()},
+             "peak_allocated_gb": {k: r["peak_allocated_bytes"] / 1e9
+                                   for k, r in legs.items()},
+             "remat_below_plain": legs["bf16_remat"]["peak_allocated_bytes"]
+             < legs["bf16"]["peak_allocated_bytes"], "card": card}
+    emit(check)
+    del bf16_snaps, remat_snaps
+    if len(plain_b) != len(remat_b) or stat_rel > COMPILED_RTOL[None] or \
+            s2d_rel > RESNET_S2D_LOSS_RTOL or stem_rel > RESNET_S2D_STEM_TOL:
+        raise AssertionError(f"ResNet-50 legs: {check}")
+    resnet_eval(card, fp32_model)
+    del fp32_model
+    torch.cuda.empty_cache()
+    resnet_checkpoint(card, x, y)
+    del x, y
+    cnn_recipes(card)
+    return legs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2790,6 +3375,7 @@ def main():
     phase10 = eval_phase(fa, ce, card)
     rows.update(large_kernel_rows(fa, card))
     phase11 = large_phase(fa, ce, card)
+    resnet_phase(card)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
