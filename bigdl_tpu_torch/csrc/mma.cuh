@@ -1,5 +1,6 @@
 // Tensor-core building blocks of K1 and K1-bwd (flash_attention.cu,
-// flash_attention_bwd.cu): cp.async tile copies and mma.sync fragments.
+// flash_attention_bwd.cu) and K6 (int8_conv.cu): cp.async tile copies and
+// mma.sync fragments.
 //
 // fp32 inputs run on the TF32 tensor cores in the 3xTF32 split, which
 // keeps fp32-level accuracy: x = hi + lo, each rounded to TF32 (10-bit
@@ -283,5 +284,60 @@ struct Mma<__nv_bfloat16> {
     mma_bf16(c, a.r, b.r);
   }
 };
+
+// ---- int8 (K6, int8_conv.cu) ------------------------------------------------
+
+// m16n8k32 s8 x s8 -> s32: the sum is exact in int32.  Fragment layouts
+// (PTX ISA, per lane: g = lane / 4, t = lane % 4; each register holds four
+// consecutive k of one row or column, the lowest k in the lowest byte):
+//   s8 A m16k32: a0 (g, 4t:4t+4), a1 (g+8, 4t:4t+4), a2 (g, 4t+16:4t+20),
+//                a3 (g+8, 4t+16:4t+20)
+//   s8 B k32n8:  b0 (4t:4t+4, g), b1 (4t+16:4t+20, g)
+//   s32 C m16n8: as the fp32 accumulator above
+// So both operands are read from K-contiguous rows in shared memory: A as
+// [m][k], B as [n][k].
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+struct MmaS8 {
+  static constexpr int K = 32;
+  static __device__ __forceinline__ uint32_t word(const int8_t* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  // A[r][k] = s[r * ld + k], the tile's rows 0-15 and k 0-31
+  static __device__ __forceinline__ void load_a(uint32_t* a, const int8_t* s,
+                                                int ld) {
+    const int g = lane_g(), t = lane_t();
+    a[0] = word(s + g * ld + 4 * t);
+    a[1] = word(s + (g + 8) * ld + 4 * t);
+    a[2] = word(s + g * ld + 4 * t + 16);
+    a[3] = word(s + (g + 8) * ld + 4 * t + 16);
+  }
+  // B[k][n] = s[n * ld + k], the tile's columns 0-7 and k 0-31
+  static __device__ __forceinline__ void load_b_nk(uint32_t* b,
+                                                   const int8_t* s, int ld) {
+    const int g = lane_g(), t = lane_t();
+    b[0] = word(s + g * ld + 4 * t);
+    b[1] = word(s + g * ld + 4 * t + 16);
+  }
+};
+
+// The 4 x 4 byte block r[0..3] (row i in r[i], column j in byte j) as its
+// transpose (column j in r[j], row i in byte i).
+__device__ __forceinline__ void transpose_bytes_4x4(uint32_t* r) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  r[0] = __byte_perm(t0, t2, 0x5410);
+  r[1] = __byte_perm(t0, t2, 0x7632);
+  r[2] = __byte_perm(t1, t3, 0x5410);
+  r[3] = __byte_perm(t1, t3, 0x7632);
+}
 
 }  // namespace

@@ -44,6 +44,15 @@ class AbstractDataSet:
     def __rshift__(self, transformer: Transformer):
         return self.transform(transformer)
 
+    def prefetch(self, num_workers: int = 2, queue_depth: int = 4):
+        """Run this dataset's transformer chain on background worker
+        threads feeding a bounded queue (``dataset/prefetch.py``).
+        Terminal: apply after the whole ``>>`` chain."""
+        from bigdl_tpu_torch.dataset.prefetch import PrefetchDataSet
+
+        return PrefetchDataSet(self, num_workers=num_workers,
+                               queue_depth=queue_depth)
+
 
 class LocalDataSet(AbstractDataSet):
     """In-memory dataset over a list of elements; ``data(train=True)``

@@ -18,12 +18,16 @@ synthetic data (the same numpy draws: ``_synthetic_images``,
 ``--device cpu`` runs the kernels' plain versions).  ``--checkpoint DIR``
 writes a snapshot under DIR at every epoch's end
 (``set_checkpoint(DIR, Trigger.every_epoch())``), which either package
-resumes; ``--syncEvery k`` reads the loss every k-th step only.
+resumes; ``--syncEvery k`` reads the loss every k-th step only;
+``--summaryDir D`` (with ``--appName``) writes TensorBoard summaries
+under ``D/<appName>/train`` (``visualization.TrainSummary``);
+``--numWorkers N`` runs the transformer chain on N prefetch workers
+ahead of the loop (``dataset.prefetch``, ``--queueDepth`` batches held
+ready).
 
 Refused, each naming its ROADMAP item: ``--folder`` (dataset sources,
-A9), ``--model`` (the serializer, A9), ``--summaryDir`` and
-``--numWorkers`` (summaries and prefetch workers, A1), ``--distributed``
-(A4), and for ``transformer-train`` ``--sp``/``--pp`` above 1 (A7).
+A9), ``--model`` (the serializer, A9), ``--distributed`` (A4), and for
+``transformer-train`` ``--sp``/``--pp`` above 1 (A7).
 ``--compilationCache`` names JAX's XLA cache: the port has no
 counterpart (its CUDA graphs are captured per run) and ignores it.
 
@@ -54,10 +58,6 @@ def _refuse_unported(args):
                    "(ROADMAP A9)"),
         ("model", "--model: loading a saved module needs the serializer, "
                   "not ported yet (ROADMAP A9)"),
-        ("summary_dir", "--summaryDir: TensorBoard summaries are not "
-                        "ported yet (ROADMAP A1)"),
-        ("num_workers", "--numWorkers: prefetch workers are not ported "
-                        "yet (ROADMAP A1)"),
         ("distributed", "--distributed: DistriOptimizer is not ported yet "
                         "(ROADMAP A4)"),
     ]
@@ -113,10 +113,14 @@ def _to_dataset(x, y, batch):
 
 def _build_optimizer(args, model, train_ds, val_ds, criterion, method,
                      val_methods):
-    """``Optimizer`` with the JAX recipe's end trigger, sync cadence,
-    validation every epoch and checkpoint every epoch."""
+    """``Optimizer`` with the JAX recipe's prefetch workers, end trigger,
+    sync cadence, validation every epoch, checkpoint every epoch and
+    train summary (JAX :62-82)."""
     from bigdl_tpu_torch.optim import Optimizer, Trigger
 
+    if getattr(args, "num_workers", 0):
+        train_ds = train_ds.prefetch(num_workers=args.num_workers,
+                                     queue_depth=args.queue_depth)
     opt = Optimizer(model, train_ds, criterion, method, device=args.device)
     opt.set_end_when(Trigger.max_epoch(args.max_epoch)
                      if args.max_iteration is None
@@ -127,6 +131,10 @@ def _build_optimizer(args, model, train_ds, val_ds, criterion, method,
         opt.set_validation(Trigger.every_epoch(), val_ds, val_methods)
     if args.checkpoint:
         opt.set_checkpoint(args.checkpoint, Trigger.every_epoch())
+    if args.summary_dir:
+        from bigdl_tpu_torch.visualization import TrainSummary
+
+        opt.set_train_summary(TrainSummary(args.summary_dir, args.app_name))
     return opt
 
 
@@ -272,7 +280,6 @@ def _validate_remat_policy(args):
 def cmd_transformer_train(args):
     """TransformerLM on a synthetic next-token corpus, one device."""
     from bigdl_tpu_torch import nn, optim
-    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
     from bigdl_tpu_torch.models.transformer import (synthetic_corpus,
                                                     transformer_lm)
 
@@ -288,17 +295,8 @@ def cmd_transformer_train(args):
                            remat_policy=remat_policy)
     crit = nn.TimeDistributedCriterion(
         nn.FusedSoftmaxCrossEntropyCriterion())
-    dataset = array_dataset(x, y) >> SampleToMiniBatch(args.batch)
-    opt = optim.Optimizer(model, dataset, crit,
-                          optim.Adam(learning_rate=args.lr),
-                          device=args.device)
-    opt.set_end_when(optim.Trigger.max_epoch(args.max_epoch)
-                     if args.max_iteration is None
-                     else optim.Trigger.max_iteration(args.max_iteration))
-    if args.sync_every != 1:
-        opt.set_sync_every(args.sync_every)
-    if args.checkpoint:
-        opt.set_checkpoint(args.checkpoint, optim.Trigger.every_epoch())
+    opt = _build_optimizer(args, model, _to_dataset(x, y, args.batch), None,
+                           crit, optim.Adam(learning_rate=args.lr), [])
     opt.optimize()
     return opt
 
@@ -316,16 +314,14 @@ def _common_flags(p, default_epochs):
     p.add_argument("--checkpoint", default=None,
                    help="directory of a snapshot at every epoch's end")
     p.add_argument("--summaryDir", default=None, dest="summary_dir",
-                   help="refused: ROADMAP A1")
+                   help="TensorBoard summaries under DIR/<appName>/train")
     p.add_argument("--appName", default="bigdl_tpu", dest="app_name")
     p.add_argument("--distributed", action="store_true",
                    help="refused: ROADMAP A4")
     p.add_argument("--model", default=None,
                    help="snapshot to load (refused: ROADMAP A9)")
     p.add_argument("--synthN", type=int, default=2048, dest="synth_n")
-    p.add_argument("--numWorkers", type=int, default=0, dest="num_workers",
-                   help="prefetch workers (refused above 0: ROADMAP A1)")
-    p.add_argument("--queueDepth", type=int, default=4, dest="queue_depth")
+    _prefetch_flags(p)
     p.add_argument("--syncEvery", type=int, default=1, dest="sync_every",
                    help="block on the device loss every k-th step only")
     p.add_argument("--compilationCache", default=None,
@@ -334,6 +330,13 @@ def _common_flags(p, default_epochs):
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the kernels' plain versions)")
+
+
+def _prefetch_flags(p):
+    p.add_argument("--numWorkers", type=int, default=0, dest="num_workers",
+                   help="prefetch transform workers (0 = synchronous)")
+    p.add_argument("--queueDepth", type=int, default=4, dest="queue_depth",
+                   help="prefetch queue depth (batches held ahead)")
 
 
 #: subcommand -> (function, default epochs, extra flags): JAX's table
@@ -386,6 +389,10 @@ def main(argv=None):
                    help="block on the device loss every k-th step only")
     p.add_argument("--checkpoint", default=None,
                    help="directory of a snapshot at every epoch's end")
+    p.add_argument("--summaryDir", default=None, dest="summary_dir",
+                   help="TensorBoard summaries under DIR/<appName>/train")
+    p.add_argument("--appName", default="bigdl_tpu", dest="app_name")
+    _prefetch_flags(p)
     p.add_argument("--vocab", type=int, default=256)
     p.add_argument("--seq-len", type=int, default=64, dest="seq_len")
     p.add_argument("--size", default="tiny",

@@ -13,6 +13,10 @@ every call.
 A pad of -1 on both axes is TF-style ``"SAME"`` (:82-86), which puts the
 odd pixel of the total padding on the high side; ``F.conv2d`` pads
 symmetrically, so an asymmetric SAME pad is applied explicitly first.
+
+A ``SpatialConvolution`` (or ``SpatialDilatedConvolution``) that holds
+``weight_q``/``scale`` (the int8 twin of ``nn.quantized``) convolves in
+int8 through the hand-written kernel K6 (``ops/int8_conv.py``).
 """
 
 import numpy as np
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.initialization import RandomUniform, Xavier, Zeros
 from bigdl_tpu_torch.nn.module import Module
-from bigdl_tpu_torch.utils.errors import UnsupportedFeatureError
+from bigdl_tpu_torch.nn.quantized import int8_conv_layer
 
 
 def same_pads(size, k, s, d=1):
@@ -96,12 +100,13 @@ class SpatialConvolution(Module):
         return (ph, ph), (pw, pw)
 
     def forward(self, x):
+        if "weight_q" in self._parameters:
+            # post-training-quantized weights (nn/quantized, JAX :91-99):
+            # the int8 convolution (K6), bias in fp32, cast back to the
+            # input dtype, the NCHW facade as below
+            return int8_conv_layer(self, x)
         if self.data_format == "NCHW":
             x = x.permute(0, 2, 3, 1)
-        if "weight_q" in self._parameters:
-            raise UnsupportedFeatureError(
-                "int8 convolution (weight_q, JAX nn/quantized.int8_conv) is "
-                "not ported yet (ROADMAP A5, its int8 half)")
         bias = None if self.bias is None else self.bias.to(x.dtype)
         y = _conv_nhwc(x, self.weight.to(x.dtype), bias, self.stride,
                        self._pads(x), self.dilation, self.n_group)

@@ -170,6 +170,16 @@ class Module(torch.nn.Module):
         _load_in_place(dict(self.named_buffers()), tree, "state")
         return self
 
+    def quantize(self) -> "Module":
+        """Rewrite this model for int8 inference in place (JAX
+        ``nn/module.py:509``, reference ``AbstractModule.quantize()``):
+        ``nn.quantized.quantize(self)``, which swaps its ``Linear`` and
+        convolution children for their int8 twins; returns self in eval
+        mode."""
+        from bigdl_tpu_torch.nn.quantized import quantize
+
+        return quantize(self)
+
     def predict(self, data, batch_size: int = 128):
         """Batch inference (``optim.Predictor``): one output per sample."""
         from bigdl_tpu_torch.optim.predictor import Predictor

@@ -16,6 +16,8 @@ from bigdl_tpu_torch.optim.optim_method import (
     ParallelAdam, Plateau, Poly, RMSprop, SequentialSchedule, Step, Warmup,
     build_composite_method, clip_by_global_norm, clip_by_value)
 from bigdl_tpu_torch.optim.predictor import Predictor, evaluate
+from bigdl_tpu_torch.optim.recovery import (ChaosKillTrigger, RunSupervisor,
+                                            parse_chaos)
 from bigdl_tpu_torch.optim.regularizer import (L1L2Regularizer,
                                                L1Regularizer, L2Regularizer,
                                                Regularizer, has_regularizers,
@@ -32,17 +34,20 @@ from bigdl_tpu_torch.optim.validation import (MAE, NDCG, AccuracyDeltaGate,
 
 __all__ = ["MAE", "NDCG", "AccuracyDeltaGate", "Adadelta", "Adagrad",
            "Adam", "Adamax", "BaseOptimizer", "CompiledEvalStep",
-           "CompiledTrainStep", "CompositeOptimMethod", "Default",
+           "ChaosKillTrigger", "CompiledTrainStep", "CompositeOptimMethod",
+           "Default",
            "EpochDecay", "EpochDecayWithWarmUp", "EpochSchedule",
            "EpochStep", "Exponential", "Ftrl", "Fused", "HitRatio", "LBFGS",
            "L1L2Regularizer", "L1Regularizer", "L2Regularizer",
            "LearningRateSchedule", "LocalOptimizer", "Loss", "MultiStep",
            "NaturalExp", "OptimMethod", "Optimizer", "ParallelAdam",
-           "Plateau", "Poly", "Predictor", "RMSprop", "Regularizer", "SGD",
+           "Plateau", "Poly", "Predictor", "RMSprop", "Regularizer",
+           "RunSupervisor", "SGD",
            "SequentialSchedule", "Step", "Top1Accuracy", "Top5Accuracy",
            "TreeNNAccuracy", "Trigger", "ValidationMethod",
            "ValidationResult", "Warmup", "build_composite_method",
            "clip_by_global_norm", "clip_by_value", "compiled_eval_step",
            "evaluate", "has_regularizers", "line_search_wolfe",
-           "make_eval_step", "make_train_step", "regularization_loss",
+           "make_eval_step", "make_train_step", "parse_chaos",
+           "regularization_loss",
            "validate"]

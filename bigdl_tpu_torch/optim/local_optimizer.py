@@ -39,11 +39,18 @@ parameters and the optimizer state in place, before the step is built.
 ``optimize()`` retries a failed run from the newest intact checkpoint,
 at most ``BIGDL_FAILURE_RETRY_TIMES`` times.
 
+Summaries (``set_train_summary``, a ``visualization.TrainSummary`` or
+any object with ``add_scalar``) get each step's event (``Loss``,
+``Throughput``, ``DataWaitSeconds``), the learning rates and, where the
+summary's ``"Parameters"`` trigger fires, a histogram of every
+parameter.  A prefetching dataset (``dataset.prefetch()``) adds its queue
+occupancy to each step's event, and its threads are shut down when
+``optimize()`` returns or raises.
+
 Not ported yet (each raises or is absent): sharded (orbax) checkpoints
-(refused, as JAX's ``LocalOptimizer`` refuses them), summaries beyond
-``Loss``, ``Throughput``, ``LearningRate`` and the validation scalars,
-telemetry and health monitoring (ROADMAP A8), prefetch workers,
-``distributed=True`` (ROADMAP A4) and ``strategy=`` (ROADMAP A7).
+(refused, as JAX's ``LocalOptimizer`` refuses them), telemetry and
+health monitoring (ROADMAP A8), ``distributed=True`` (ROADMAP A4) and
+``strategy=`` (ROADMAP A7).
 """
 
 import gc
@@ -222,10 +229,15 @@ class BaseOptimizer:
         return self
 
     def set_train_summary(self, summary):
-        """Any object with ``add_scalar(tag, value, step)``: it gets
-        ``Loss``, ``Throughput`` and ``LearningRate`` (one
-        ``LearningRate/<name>`` per submodule of ``set_optim_methods``)
-        after every step.  Reading the rate syncs every step."""
+        """A ``visualization.TrainSummary``, or any object with
+        ``add_scalar(tag, value, step)``: after every step it gets the
+        step event (``add_step_event``: ``Loss``, ``Throughput``,
+        ``DataWaitSeconds``; plain ``Loss`` and ``Throughput`` scalars
+        without that method) and ``LearningRate`` (one
+        ``LearningRate/<name>`` per submodule of ``set_optim_methods``),
+        and, where its ``"Parameters"`` summary trigger fires, a
+        histogram of every parameter.  Reading the rate syncs every
+        step."""
         self.train_summary = summary
         return self
 
@@ -431,28 +443,34 @@ class BaseOptimizer:
         """Train, with the reference's failure-retry semantics: on an
         exception, resume from the newest intact checkpoint and go on, at
         most ``BIGDL_FAILURE_RETRY_TIMES`` times.  Configuration and
-        capability errors, and a halt, are raised at once."""
+        capability errors, and a halt, are raised at once.  A prefetching
+        dataset's threads are shut down however it ends."""
         self._check_plateau_monitor()
         retries_left = config.failure_retry_times()
-        while True:
-            try:
-                return self._optimize_impl()
-            except KeyboardInterrupt:
-                raise
-            except (ConfigurationError, UnsupportedFeatureError,
-                    TrainingHaltedError):
-                raise
-            except Exception:
-                if retries_left <= 0 or self.checkpoint_path is None:
+        try:
+            while True:
+                try:
+                    return self._optimize_impl()
+                except KeyboardInterrupt:
                     raise
-                retries_left -= 1
-                log.exception(
-                    "training failed; restoring last checkpoint and "
-                    "retrying (%d retries left)", retries_left)
-            # the failed run's compiled step (its graphs and their pool)
-            # goes before the next one is built
-            gc.collect()
-            self.resume_from_checkpoint()
+                except (ConfigurationError, UnsupportedFeatureError,
+                        TrainingHaltedError):
+                    raise
+                except Exception:
+                    if retries_left <= 0 or self.checkpoint_path is None:
+                        raise
+                    retries_left -= 1
+                    log.exception(
+                        "training failed; restoring last checkpoint and "
+                        "retrying (%d retries left)", retries_left)
+                # the failed run's compiled step (its graphs and their pool)
+                # goes before the next one is built
+                gc.collect()
+                self.resume_from_checkpoint()
+        finally:
+            shutdown = getattr(self.dataset, "shutdown", None)
+            if callable(shutdown):
+                shutdown()       # no prefetch thread outlives the run
 
     def _log_progress(self, loss, throughput, data_wait_s, sync_skew=0):
         s = self.driver_state
@@ -475,6 +493,22 @@ class BaseOptimizer:
             self.train_summary.add_scalar(
                 "LearningRate",
                 float(self.optim_method.get_learning_rate(opt_state)),
+                state["neval"])
+
+    def _histograms(self, state):
+        """``Parameters`` histograms where the summary's trigger fires
+        (reference: AbstractOptimizer.saveSummary; JAX :597-612), tagged
+        like JAX's ``keystr`` paths (``Parameters['0']['weight']``).  The
+        parameters are read to the host only then."""
+        getter = getattr(self.train_summary, "get_summary_trigger", None)
+        trig = getter("Parameters") if getter is not None else None
+        if trig is None or not trig(state):
+            return
+        from bigdl_tpu_torch.interop.jax_params import to_jax_params
+
+        for path, leaf in _tree_leaves(to_jax_params(self.model)):
+            self.train_summary.add_histogram(
+                "Parameters" + "".join(f"[{k!r}]" for k in path), leaf,
                 state["neval"])
 
     def _effective_sync_every(self):
@@ -544,6 +578,7 @@ class BaseOptimizer:
         epoch_size = self.dataset.size()
         state = self.driver_state
         stager = _Stager(self.device)
+        queue_stats = getattr(self.dataset, "queue_stats", None)
         sync_every = self._effective_sync_every()
         loss = float("nan")          # the last synced loss
         # primed so the FIRST step syncs: every published loss is a real
@@ -568,6 +603,7 @@ class BaseOptimizer:
             data_wait = time.perf_counter() - t0
             loss_dev = dispatch(stager.wait(*dev))
             n = batch.size()
+            qdepth = queue_stats() if queue_stats is not None else None
             t_fetch = time.perf_counter()
             next_batch, train_iter = self._stage_next_batch(
                 train_iter, state, n, epoch_size)
@@ -587,12 +623,25 @@ class BaseOptimizer:
             # is not counted, so a snapshot's position replays it
             state["batches_consumed"] = state.get("batches_consumed", 0) + 1
             state["throughput"] = n / max(wall, 1e-9)
+            event = {"step": state["neval"], "epoch": state["epoch"],
+                     "wall_s": wall, "data_wait_s": data_wait,
+                     "device_s": wall - data_wait, "loss": loss,
+                     "records": n, "records_per_s": state["throughput"],
+                     "sync_skew": sync_skew}
+            if qdepth is not None:
+                event["queue_depth"], event["queue_capacity"] = qdepth
             self._log_progress(loss, state["throughput"], data_wait,
                                sync_skew)
             if self.train_summary is not None:
-                self.train_summary.add_scalar("Loss", loss, state["neval"])
-                self.train_summary.add_scalar(
-                    "Throughput", state["throughput"], state["neval"])
+                add_event = getattr(self.train_summary, "add_step_event",
+                                    None)
+                if add_event is not None:
+                    add_event(event)
+                else:
+                    self.train_summary.add_scalar("Loss", loss,
+                                                  state["neval"])
+                    self.train_summary.add_scalar(
+                        "Throughput", state["throughput"], state["neval"])
                 if extra_summaries is not None:
                     extra_summaries(state)
             state["neval"] += 1
@@ -703,8 +752,9 @@ class LocalOptimizer(BaseOptimizer):
         try:
             self._run_driver_loop(
                 train_iter, first_batch, dispatch,
-                extra_summaries=lambda state: self._log_learning_rates(
-                    opt_state, state),
+                extra_summaries=lambda state: (
+                    self._log_learning_rates(opt_state, state),
+                    self._histograms(state)),
                 validate_cb=lambda: validate(
                     self.model, self.validation_dataset,
                     self.validation_methods, self.compute_dtype),
@@ -715,6 +765,17 @@ class LocalOptimizer(BaseOptimizer):
             self.compiled_stats = step.stats()
         self.optim_method.state = opt_state
         return self.model
+
+
+def _tree_leaves(tree, path=()):
+    """``(path, leaf)`` of a nested dict in sorted key order, as JAX
+    flattens it; empty ``()`` entries hold no leaf."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _tree_leaves(v, path + (k,))
+        elif not isinstance(v, tuple):
+            yield path + (k,), v
 
 
 def _copy_into(dst, src):

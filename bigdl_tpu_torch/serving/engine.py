@@ -67,12 +67,13 @@ class _LocalEval:
 
     def __init__(self, model, compute_dtype=None):
         self.model = model
+        self.device = next(model.parameters()).device
         if compute_dtype is not None:
             model = compute_copy(model, compute_dtype)
         self.step = make_eval_step(model, compute_dtype)
 
     def eval(self, x):
-        tokens = torch.as_tensor(x, device=self.model.device)
+        tokens = torch.as_tensor(x, device=self.device)
         return self.step(tokens).cpu().numpy()
 
     def precompile(self, sample, buckets):
@@ -399,6 +400,7 @@ class ServingEngine:
         batch), and the result sliced back.  Both sides run in the
         engine's ``compute_dtype`` and give fp32."""
         step = make_eval_step(model, self._compute_dtype)
+        device = next(model.parameters()).device
 
         def run(x):
             x = np.asarray(x)
@@ -406,7 +408,7 @@ class ServingEngine:
             bucket = self.ladder.bucket_for(n)
             xb = x if bucket is None or bucket == n \
                 else pad_batch_axis(x, bucket)
-            return step(torch.as_tensor(xb, device=model.device))[:n]
+            return step(torch.as_tensor(xb, device=device))[:n]
         return run
 
     # ----- warmup ----------------------------------------------------------- #

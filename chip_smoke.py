@@ -190,6 +190,44 @@ Phases, each printing JSON lines:
     with ``cudnn.deterministic`` (``RESUME_RTOL``); (e) ``lenet-train``, ``vgg-train``,
     ``resnet-train --depth 20`` and ``inception-train --version v1``, 4
     iterations each through ``models/run.py``.
+13. int8 inference of the CNN zoo and the recipes' host services: (a) K6
+    ``int8_conv`` (``csrc/int8_conv.cu``, the int8 implicit-GEMM
+    convolution on ``mma.sync`` s8 tensor cores) at ResNet-50's shapes at
+    batch 128 (the 7 x 7 / 2 stem, 1 x 1 256 -> 64, 3 x 3 64 -> 64, 3 x 3
+    / 2 256 -> 256, the 1 x 1 / 2 512 -> 1024 shortcut) and two coverage
+    rows at batch 8 (AlexNet's grouped 5 x 5, a SAME 3 x 3 / 2 with
+    dilation 2), each bitwise equal to its plain version (``F.conv2d`` in
+    float64 over the int8 values), timed beside its bound (the larger of
+    bytes / 3.35 TB/s and int8 operations / 1,979 TOPS), its plain
+    version, im2col plus ``torch._int_mm`` (the same int32 sums, checked
+    exact) and cuDNN's bf16 channels-last convolution of the float layer;
+    (b) ResNet-50 (seed 0, the running statistics of one training
+    forward) quantized by ``quantize_model`` and by ``quantize()`` on a
+    copy (bitwise-equal logits), 228 images through ``Predictor`` and the
+    compiled eval step at batch 128 (53 K6 launches a batch counted
+    through the replays, none of another kernel; the ragged batch against
+    the twin's eager eval of the same padded batch), held against the
+    twin with the plain int8 convolution (``INT8_PLAIN_RTOL``, bitwise
+    printed, else the first layer that differs) and against the fp32
+    model (relative logit error, top-1 agreement, ``AccuracyDeltaGate``);
+    images/s of the compiled int8, fp32 and bf16 eval, K6's share of the
+    int8 forward's device time, the parameters' bytes fp32 / int8 (at
+    least 3.5, as JAX's bench holds) and peak memory; (c)
+    ``ServingEngine(resnet50, quantize=True, accuracy_gate=...)``: 8
+    ``predict`` requests one at a time, each bitwise the twin's eager eval
+    of the request padded to its rung, K6 53 times a forward; (d)
+    ``resnet-imagenet-train`` (bf16, batch 128, 12 iterations) through
+    ``models/run.py`` with neither flag, with ``--summaryDir`` and with
+    ``--numWorkers 4 --queueDepth 4 --summaryDir``: equal batch digests,
+    images/s and the data-wait share a step, 12 ``Loss``, ``Throughput``
+    and ``LearningRate`` points, no prefetch thread left, then the
+    ``g++``-built ``NativeBatcher``'s rate for 128 x 224 x 224 x 3
+    batches against numpy's output; (e) ``RunSupervisor.run_process``: a
+    child training ``ResNetCifar(20)`` on the card with
+    ``cudnn.deterministic`` and a checkpoint every 2 iterations is
+    SIGKILLed by ``ChaosKillTrigger(5)``, restarted from its snapshot and
+    finishes at step 10, its parameters and statistics against a straight
+    child's (``RESUME_RTOL``), and the recovery event.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -197,12 +235,15 @@ non-zero before printing any result.
 """
 
 import collections
+import contextlib
 import ctypes
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3335,6 +3376,653 @@ def resnet_phase(card):
     return legs
 
 
+# --------------------------------------------------------------------------- #
+# Phase 13: int8 ResNet-50 through K6; the recipes' summaries, prefetch
+# workers and the run supervisor
+# --------------------------------------------------------------------------- #
+
+#: published H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12
+INT8_OPS = "operations (int8 tensor cores)"
+#: (a) K6's rows: (label, batch, input side, cin, cout, kernel, stride,
+#: pads ("SAME": TF-style), dilation, groups); ResNet-50's shapes at batch
+#: 128, then two coverage rows at a small batch
+INT8_CONV_ROWS = (
+    ("stem 7x7/2 3->64 @224", 128, 224, 3, 64, 7, 2, ((3, 3), (3, 3)), 1,
+     1),
+    ("1x1 256->64 @56", 128, 56, 256, 64, 1, 1, ((0, 0), (0, 0)), 1, 1),
+    ("3x3 64->64 @56", 128, 56, 64, 64, 3, 1, ((1, 1), (1, 1)), 1, 1),
+    ("3x3/2 256->256 @28", 128, 28, 256, 256, 3, 2, ((1, 1), (1, 1)), 1, 1),
+    ("1x1/2 512->1024 @28", 128, 28, 512, 1024, 1, 2, ((0, 0), (0, 0)), 1,
+     1),
+    ("alexnet 5x5 96->256 g2 @27", 8, 27, 96, 256, 5, 1, ((2, 2), (2, 2)), 1,
+     2),
+    ("SAME 3x3/2 d2 64->64 @28", 8, 28, 64, 64, 3, 2, "SAME", 2, 1),
+)
+#: the row the ``{"kernels": ...}`` line reports for K6
+INT8_CONV_KEY_ROW = "3x3 64->64 @56"
+#: (b) K6 launches in one ResNet-50 forward: the stem, 16 bottlenecks of
+#: three convolutions, 4 projection shortcuts
+RESNET_CONVS = 53
+#: (b) Predictor batches of 128 through the compiled eval step (the
+#: second one ragged: 100 images padded to 128)
+INT8_PREDICT_IMAGES = 228
+#: (b) eval replays timed per dtype
+INT8_EVAL_REPS = 5
+#: (c) requests sent one at a time to the int8 engine
+INT8_SERVE_REQUESTS = 8
+#: (b) the compiled (graph) int8 forward against its eager runs with K6
+#: and with the plain int8 convolution, logits relative L2: the same
+#: operations on the same inputs (K6 is bitwise its plain version)
+INT8_PLAIN_RTOL = 1e-6
+#: (b), (c) the accuracy gate of the int8 twin against the fp32 model.
+#: Measured on the H100 (PERF.md, the int8 CNN findings): logit RMSE
+#: 9.33 over 128 rows and 9.26 over the engine's 8 (random weights give
+#: logits of order 100), top-1 agreement 1.0 on both.  The limits sit one
+#: step above that: RMSE 1.5x, one of the engine's 8 rows lost
+INT8_GATE_TOP1, INT8_GATE_RMSE = 0.875, 14.0
+#: (d) the recipe's iterations per run
+RECIPE_ITERS = 12
+#: (e) the supervised child: iterations, checkpoint cadence, chaos step
+SUP_STEPS, SUP_EVERY, SUP_CHAOS = 10, 2, 5
+SUP_DEVICE = "cuda"
+
+
+def _im2col_int8(x_q, kernel, stride, pads, dilation):
+    """The ``(N * Ho * Wo, kh * kw * C)`` patch matrix of an int8 NHWC
+    batch: a strided view of the padded batch, copied once."""
+    (ph0, ph1), (pw0, pw1) = pads
+    x = torch.nn.functional.pad(x_q, (0, 0, pw0, pw1, ph0, ph1))
+    n, hp, wp, c = x.shape
+    (kh, kw), (sh, sw), (dh, dw) = kernel, stride, dilation
+    ho = (hp - (kh - 1) * dh - 1) // sh + 1
+    wo = (wp - (kw - 1) * dw - 1) // sw + 1
+    s = x.stride()
+    view = x.as_strided((n, ho, wo, kh, kw, c),
+                        (s[0], sh * s[1], sw * s[2], dh * s[1], dw * s[2],
+                         s[3]))
+    return view.reshape(n * ho * wo, kh * kw * c)
+
+
+def int8_conv_rows(card):
+    """(a) K6 against its plain version at each row's shape, bitwise, with
+    the device times of K6, the plain version and two library
+    computations (CUDA-graph replays): im2col plus ``torch._int_mm`` for
+    the same int32 sums, and cuDNN's bf16 ``F.conv2d`` (channels-last) of
+    the float layer."""
+    from bigdl_tpu_torch.nn import quantized as tq
+    from bigdl_tpu_torch.nn.conv import same_pads
+    from bigdl_tpu_torch.ops import int8_conv as k6
+
+    rows = {}
+    g = np.random.default_rng(13)
+    for (label, n, side, cin, cout, k, stride, pads, dil,
+         groups) in INT8_CONV_ROWS:
+        if pads == "SAME":
+            pads = tuple(same_pads(side, k, stride, dil) for _ in range(2))
+        x = torch.from_numpy(g.standard_normal(
+            (n, side, side, cin), dtype=np.float32)).cuda()
+        w_q = torch.from_numpy(g.integers(
+            -127, 128, (k, k, cin // groups, cout), dtype=np.int8)).cuda()
+        scale = torch.from_numpy(
+            g.uniform(1e-3, 2e-2, cout).astype(np.float32)).cuda()
+        x_q, x_scale = tq._quantize_activation(x)
+        args = (x_q, w_q, scale, x_scale, None, (stride, stride), pads,
+                (dil, dil), groups, torch.float32)
+        got = k6.int8_conv_nhwc(*args)
+        want = k6.int8_conv_nhwc_reference(*args)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(got, want))
+        err = float((got - want).abs().max())
+        m, cout_g = got.shape[0] * got.shape[1] * got.shape[2], cout // groups
+        kk = k * k * (cin // groups)
+        n_bytes = (x_q.numel() + w_q.numel() + 4 * (cout + 1)
+                   + 4 * got.numel())
+        ops = 2 * m * cout * kk
+        bound_ms, bound_by = bound(n_bytes, ops, INT8_OPS_PER_S, INT8_OPS)
+        ms = device_ms(lambda: k6.int8_conv_nhwc(*args))
+        plain_ms = device_ms(lambda: k6.int8_conv_nhwc_reference(*args),
+                             iters=5, reps=5)[0]
+        # the library computations, on the same inputs
+        w_t = [w_q[..., j * cout_g:(j + 1) * cout_g].reshape(kk, cout_g)
+               .t().contiguous() for j in range(groups)]
+        cin_g = cin // groups
+
+        def int_mm():
+            return [tq._int_mm(_im2col_int8(
+                x_q[..., j * cin_g:(j + 1) * cin_g], (k, k),
+                (stride, stride), pads, (dil, dil)), w_t[j])
+                for j in range(groups)]
+
+        acc_lib = torch.cat(int_mm(), dim=1)
+        acc_ref = k6.int8_conv_acc_reference(x_q, w_q, (stride, stride),
+                                             pads, (dil, dil), groups)
+        lib_exact = bool(torch.equal(acc_lib, acc_ref.reshape(m, cout)))
+        int_mm_ms = device_ms(int_mm, iters=5, reps=5)[0]
+        (ph0, ph1), (pw0, pw1) = pads
+        x_bf = torch.nn.functional.pad(
+            x.to(torch.bfloat16), (0, 0, pw0, pw1, ph0, ph1)).permute(
+            0, 3, 1, 2)
+        w_bf = (w_q.float() * scale).to(torch.bfloat16).permute(
+            3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        cudnn_ms = device_ms(lambda: torch.nn.functional.conv2d(
+            x_bf, w_bf, stride=stride, dilation=dil, groups=groups),
+            iters=10, reps=5)[0]
+        row = {"phase": "int8_conv", "shape": label, "batch": n,
+               "pads": pads, "bitwise_equal_plain": bitwise,
+               "max_abs_err": err, "ms": ms[0], "ms_range": ms[1:],
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "share_of_bound": bound_ms / ms[0], "plain_ms": plain_ms,
+               "library_ms": int_mm_ms, "library": "im2col + torch._int_mm",
+               "library_exact": lib_exact, "cudnn_bf16_ms": cudnn_ms,
+               "int8_tops": ops / ms[0] / 1e9, "card": card}
+        emit(row)
+        rows[label] = row
+        del x, w_q, x_q, got, want, acc_lib, acc_ref, x_bf, w_bf, w_t
+        torch.cuda.empty_cache()
+        if not bitwise or not lib_exact:
+            raise AssertionError(f"K6 {label}: {row}")
+    return rows
+
+
+def _conv_outputs(model, x):
+    """Each convolution's output (by module name) in one eager forward."""
+    from bigdl_tpu_torch import nn
+
+    outs, hooks = {}, []
+    for name, m in model.named_modules():
+        if type(m) in (nn.SpatialConvolution, nn.QuantizedSpatialConvolution):
+            hooks.append(m.register_forward_hook(
+                lambda mod, i, o, name=name: outs.__setitem__(
+                    name, o.detach().clone())))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return outs
+
+
+@contextlib.contextmanager
+def _plain_int8_conv():
+    """The int8 convolutions through K6's plain version on the card (the
+    comparison's reference; never the main path)."""
+    from bigdl_tpu_torch.ops import int8_conv as k6
+
+    real = k6._on_cpu
+    k6._on_cpu = lambda *ts: True
+    try:
+        yield
+    finally:
+        k6._on_cpu = real
+
+
+def _eval_rate(step, x, reps=INT8_EVAL_REPS):
+    """Images/s of compiled eval replays (host clock around ``reps``
+    calls, a sync at each end); the first call builds the graph."""
+    step(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(x)
+    torch.cuda.synchronize()
+    return reps * x.shape[0] / (time.perf_counter() - t0)
+
+
+def _device_share(fn, match):
+    """Device time of one call of ``fn`` under the profiler: the busy ms,
+    and the share of it in kernels whose name contains ``match``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = union_us([(e.time_range.start, e.time_range.end)
+                     for e in kernels]) / 1e3
+    mine = sum(e.time_range.end - e.time_range.start
+               for e in kernels if match in e.name) / 1e3
+    by_kind = collections.Counter()
+    for e in kernels:
+        name = "int8_conv" if match in e.name else kernel_kind(e.name)
+        by_kind[name] += (e.time_range.end - e.time_range.start) / 1e3
+    return busy, mine / max(busy, 1e-9), dict(by_kind)
+
+
+def int8_resnet(card):
+    """(b) ResNet-50 (seed 0, the running statistics of one training
+    forward) quantized by ``quantize_model`` and by ``quantize()`` on a
+    copy (bitwise-equal logits), then batch 128 through ``Predictor`` and
+    the compiled eval step (K6's launches counted through the replays,
+    53 a batch); held against the twin with the plain int8 convolution
+    (bitwise, else the first layer that differs) and against the fp32
+    model (relative logit error, top-1 agreement, the gate's details);
+    images/s int8, fp32 and bf16, K6's share of the int8 forward, the
+    parameters' bytes and peak memory.  Returns the row, the models and
+    the launches."""
+    import copy
+
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.nn import quantized as tq
+    from bigdl_tpu_torch.ops import cross_entropy as ce
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops import int8_conv as k6
+
+    model = ResNet(50, 1000, device="cuda", seed=0)
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        model.train()(torch.from_numpy(rng.standard_normal(
+            (4, RESNET_SIDE, RESNET_SIDE, 3), dtype=np.float32)).cuda())
+    model.eval()
+    xs = rng.standard_normal((INT8_PREDICT_IMAGES, RESNET_SIDE,
+                              RESNET_SIDE, 3), dtype=np.float32)
+    x = torch.from_numpy(xs[:RESNET_BATCH]).cuda()
+    t0 = time.perf_counter()
+    twin, qparams = tq.quantize_model(model)
+    quantize_s = time.perf_counter() - t0
+    legacy = copy.deepcopy(model).quantize()
+    n_q = sum(type(m).__name__ == "QuantizedSpatialConvolution"
+              for m in legacy.modules())
+    with torch.no_grad():
+        same_quantizers = bool(torch.equal(twin(x), legacy(x)))
+    del legacy
+    step = optim.compiled_eval_step(twin)
+    step(x)                               # builds the graph
+    # the main path: Predictor over 228 images (a full batch, then 100
+    # padded to 128) through the compiled eval step
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    ce.reset_launch_counts()
+    k6.reset_launch_counts()
+    preds = np.stack(optim.Predictor(twin, RESNET_BATCH).predict(list(xs)))
+    torch.cuda.synchronize()
+    launches = dict(k6.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    kernel_launches = sum(fa.LAUNCHES.values()) + sum(ce.LAUNCHES.values())
+    got = torch.from_numpy(preds[:RESNET_BATCH])
+    # the ragged batch against the twin's eager eval of the same padded
+    # batch (the activation scale is taken over the padded rows too)
+    tail = np.zeros((RESNET_BATCH, RESNET_SIDE, RESNET_SIDE, 3), np.float32)
+    tail[:INT8_PREDICT_IMAGES - RESNET_BATCH] = xs[RESNET_BATCH:]
+    with torch.no_grad():
+        tail_eager = twin(torch.from_numpy(tail).cuda()).cpu()
+    ragged = INT8_PREDICT_IMAGES - RESNET_BATCH
+    tail_rel = rel_l2(torch.from_numpy(preds[RESNET_BATCH:]),
+                      tail_eager[:ragged])
+    with _plain_int8_conv(), torch.no_grad():
+        plain = twin(x).cpu()
+    plain_equal = bool(torch.equal(got, plain))
+    first_diff = None
+    if not plain_equal:
+        kernel_outs = _conv_outputs(twin, x)
+        with _plain_int8_conv():
+            plain_outs = _conv_outputs(twin, x)
+        for name, o in kernel_outs.items():
+            d = float((o - plain_outs[name]).abs().max())
+            if d:
+                first_diff = {"layer": name, "max_abs": d}
+                break
+    with torch.no_grad():
+        fp32 = model(x).cpu()
+    agree = float((fp32.argmax(-1) == got.argmax(-1)).float().mean())
+    gate = optim.AccuracyDeltaGate(xs[:RESNET_BATCH],
+                                   min_top1_agreement=INT8_GATE_TOP1,
+                                   max_logit_rmse=INT8_GATE_RMSE)
+    gate_ok, gate_detail = gate.check(lambda v: fp32, lambda v: got)
+    rates = {"int8": _eval_rate(step, x),
+             "fp32": _eval_rate(optim.compiled_eval_step(model), x),
+             "bf16": _eval_rate(optim.compiled_eval_step(
+                 model, torch.bfloat16), x)}
+    busy_ms, k6_share, by_kind = _device_share(lambda: step(x),
+                                               "int8_conv_kernel")
+    fp32_bytes = tq.model_bytes(model.parameters_tree())
+    int8_bytes = tq.model_bytes(qparams)
+    row = {"phase": "int8_resnet", "batch": RESNET_BATCH,
+           "quantized_convolutions": n_q, "quantize_model_s": quantize_s,
+           "quantizers_bitwise_equal": same_quantizers,
+           "k6_launches": launches["int8_conv"],
+           "predict_batches": 2, "other_kernel_launches": kernel_launches,
+           "ragged_batch_vs_eager_padded_rel_l2": tail_rel,
+           "kernel_vs_plain_bitwise": plain_equal,
+           "kernel_vs_plain_rel_l2": rel_l2(got, plain),
+           "kernel_vs_plain_max_abs": float((got - plain).abs().max()),
+           "first_difference": first_diff,
+           "vs_fp32_rel_l2": rel_l2(got, fp32),
+           "vs_fp32_top1_agreement": agree, "gate_ok": gate_ok,
+           "gate": gate_detail, "images_per_s": rates,
+           "int8_forward_device_ms": busy_ms, "k6_share": k6_share,
+           "int8_forward_ms_by_kind": by_kind,
+           "model_bytes_fp32": fp32_bytes, "model_bytes_int8": int8_bytes,
+           "bytes_ratio": fp32_bytes / int8_bytes,
+           "peak_allocated_bytes": peak, "card": card}
+    emit(row)
+    if not (same_quantizers and n_q == RESNET_CONVS and
+            tail_rel <= INT8_PLAIN_RTOL and
+            row["kernel_vs_plain_rel_l2"] <= INT8_PLAIN_RTOL and
+            launches["int8_conv"] == 2 * RESNET_CONVS and
+            kernel_launches == 0 and gate_ok and
+            fp32_bytes / int8_bytes >= 3.5 and
+            torch.isfinite(got).all() and got.shape == (RESNET_BATCH, 1000)):
+        raise AssertionError(f"int8 ResNet-50: {row}")
+    return row, model, twin, xs
+
+
+def int8_serving(card, model, xs):
+    """(c) ``ServingEngine(resnet50, quantize=True, accuracy_gate=...)``:
+    8 ``predict`` requests one at a time, each against the twin's eager
+    eval of the request padded to the rung it rode in (the activation
+    scale is taken over the padded rows too), bitwise; K6's launches
+    counted from the engine's construction (its gate) to its close."""
+    from bigdl_tpu_torch.ops import cross_entropy as ce
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops import int8_conv as k6
+    from bigdl_tpu_torch.serving import ServingEngine
+    from bigdl_tpu_torch.serving.buckets import pad_batch_axis
+
+    gate = {"features": xs[:8], "min_top1_agreement": INT8_GATE_TOP1,
+            "max_logit_rmse": INT8_GATE_RMSE}
+    fa.reset_launch_counts()
+    ce.reset_launch_counts()
+    k6.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = []
+    with ServingEngine(model, max_batch_size=8, quantize=True,
+                       accuracy_gate=gate) as eng:
+        start_s = time.perf_counter() - t0
+        for i in range(INT8_SERVE_REQUESTS):
+            req = xs[RESNET_BATCH + i]
+            fut = eng.submit(req)
+            served.append((req, fut.result(timeout=300), fut))
+        twin, detail = eng._qmodel, eng._gate_detail
+    torch.cuda.synchronize()
+    launches = k6.LAUNCHES["int8_conv"]
+    other = sum(fa.LAUNCHES.values()) + sum(ce.LAUNCHES.values())
+    mismatched = []
+    for i, (req, got, fut) in enumerate(served):
+        with torch.no_grad():
+            want = twin(torch.from_numpy(pad_batch_axis(
+                req[None], fut.bucket)).cuda())[0].cpu().numpy()
+        if not np.array_equal(got, want):
+            mismatched.append((i, float(np.abs(got - want).max())))
+    results = [{"bucket": fut.bucket, "latency_s": fut.latency_s}
+               for _, _, fut in served]
+    row = {"phase": "int8_serving", "requests": INT8_SERVE_REQUESTS,
+           "engine_start_s": start_s, "served": results,
+           "mismatched": mismatched, "gate": detail,
+           "k6_launches": launches, "other_kernel_launches": other,
+           "card": card}
+    emit(row)
+    # 53 a forward: the gate's batch and each request
+    if mismatched or other or \
+            launches != RESNET_CONVS * (INT8_SERVE_REQUESTS + 1):
+        raise AssertionError(f"int8 serving: {row}")
+    return row
+
+
+def _recipe_run(argv):
+    """One ``resnet-imagenet-train`` run through ``models/run.py`` in bf16
+    (the recipe has no dtype flag: the harness sets the optimizer's), with
+    each step's throughput and data wait and a digest of each batch."""
+    import hashlib
+
+    from bigdl_tpu_torch.models import run
+    from bigdl_tpu_torch.optim import local_optimizer as lo
+
+    steps, digests = [], []
+    build, log_progress = run._build_optimizer, lo.BaseOptimizer._log_progress
+    stage = lo._Stager.stage
+
+    def bf16_build(*a, **kw):
+        return build(*a, **kw).set_compute_dtype(torch.bfloat16)
+
+    def record(self, loss, throughput, data_wait_s, sync_skew=0):
+        steps.append((throughput, data_wait_s))
+        return log_progress(self, loss, throughput, data_wait_s, sync_skew)
+
+    def digest(self, batch):
+        x = batch.get_input()
+        digests.append(hashlib.sha256(
+            np.ascontiguousarray(x[:, ::7, ::7]).tobytes() +
+            np.asarray(batch.get_target()).tobytes()).hexdigest()[:16])
+        return stage(self, batch)
+
+    run._build_optimizer, lo.BaseOptimizer._log_progress = bf16_build, record
+    lo._Stager.stage = digest
+    try:
+        t0 = time.perf_counter()
+        opt = run.main(["resnet-imagenet-train", "-b", str(RESNET_BATCH),
+                        "--maxIteration", str(RECIPE_ITERS)] + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        run._build_optimizer, lo.BaseOptimizer._log_progress = \
+            build, log_progress
+        lo._Stager.stage = stage
+    timed = steps[2:]                     # past the capture
+    img_s = [t for t, _ in timed]
+    share = [w * t / RESNET_BATCH for t, w in timed]
+    return opt, {"argv": argv, "wall_s": wall, "neval":
+                 opt.driver_state["neval"],
+                 "images_per_s_median": float(np.median(img_s)),
+                 "data_wait_share_median": float(np.median(share)),
+                 "data_wait_ms_median": float(np.median(
+                     [w for _, w in timed])) * 1e3,
+                 "loss": opt.driver_state["loss"]}, digests
+
+
+def recipe_services(card):
+    """(d) ``resnet-imagenet-train`` (bf16, batch 128, 12 iterations)
+    through ``models/run.py`` with neither flag, with ``--summaryDir``
+    alone, and with ``--numWorkers 4 --queueDepth 4 --summaryDir``: the
+    same batches in the same order, images/s and the data-wait share a
+    step, 12 ``Loss``, ``Throughput`` and ``LearningRate`` points in the
+    summary; then the ``g++``-built ``NativeBatcher``'s assembly rate
+    for 128 x 224 x 224 x 3 batches against numpy's output."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.dataset import PrefetchDataSet
+    from bigdl_tpu_torch.dataset import native_loader as nl
+    from bigdl_tpu_torch.visualization import read_scalar
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_summaries_"))
+    runs, digests = {}, {}
+    try:
+        for label, argv in (
+                ("plain", []),
+                ("summary", ["--summaryDir", str(root / "s")]),
+                ("workers_summary", ["--numWorkers", "4", "--queueDepth",
+                                     "4", "--summaryDir", str(root / "w")])):
+            opt, runs[label], digests[label] = _recipe_run(argv)
+            runs[label]["prefetch"] = isinstance(opt.dataset,
+                                                 PrefetchDataSet)
+            del opt
+            gc.collect()
+            torch.cuda.empty_cache()
+        points = {tag: len(read_scalar(str(root / "w" / "bigdl_tpu" /
+                                           "train"), tag))
+                  for tag in ("Loss", "Throughput", "LearningRate",
+                              "DataWaitSeconds")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same_order = digests["plain"] == digests["summary"] == \
+        digests["workers_summary"]
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("bigdl-prefetch")]
+    # the native batch assembler, built by g++ from native/
+    pool = np.random.default_rng(5).standard_normal(
+        (4 * RESNET_BATCH, RESNET_SIDE, RESNET_SIDE, 3), dtype=np.float32)
+    labels = np.arange(len(pool), dtype=np.int32)
+    mean, std = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+    batcher = nl.NativeBatcher(pool, labels, mean, std)
+    idx = np.random.default_rng(6).permutation(len(pool))[:RESNET_BATCH]
+    xb, yb = batcher.batch(idx)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        batcher.batch(idx)
+    native_s = (time.perf_counter() - t0) / 5
+    want = (pool[idx] - np.float32(mean)) / np.float32(std)
+    native = {"library": None if batcher.lib is None else
+              Path(batcher.lib._name).name,
+              "threads": batcher.n_threads, "batch_s": native_s,
+              "gb_per_s": xb.nbytes / native_s / 1e9,
+              "max_rel_err_vs_numpy": float(np.abs(xb - want).max() /
+                                            np.abs(want).max()),
+              "labels_equal": bool(np.array_equal(yb, labels[idx]))}
+    row = {"phase": "recipe_services", "runs": runs,
+           "same_batch_order": same_order, "summary_points": points,
+           "prefetch_threads_left": alive, "native_batcher": native,
+           "summary_cost_share": 1.0 - runs["summary"]["images_per_s_median"]
+           / runs["plain"]["images_per_s_median"], "card": card}
+    emit(row)
+    if not same_order or alive or batcher.lib is None or \
+            not native["labels_equal"] or \
+            native["max_rel_err_vs_numpy"] > 1e-6 or \
+            not runs["workers_summary"]["prefetch"] or \
+            any(r["neval"] != RECIPE_ITERS + 1 for r in runs.values()) or \
+            any(points[t] != RECIPE_ITERS for t in
+                ("Loss", "Throughput", "LearningRate")):
+        raise AssertionError(f"recipe services: {row}")
+    return row
+
+
+SUPERVISED_CHILD = '''
+import sys
+
+import numpy as np
+import torch
+
+from bigdl_tpu_torch import nn, optim
+from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+from bigdl_tpu_torch.models import ResNetCifar
+from bigdl_tpu_torch.optim import ChaosKillTrigger
+from bigdl_tpu_torch.visualization import TrainSummary
+
+ckpt, chaos, out, steps, every, device = (
+    sys.argv[1], int(sys.argv[2]), sys.argv[3], int(sys.argv[4]),
+    int(sys.argv[5]), sys.argv[6])
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.allow_tf32 = False
+rng = np.random.default_rng(8)
+x = rng.standard_normal((256, 32, 32, 3)).astype(np.float32)
+y = rng.integers(0, 10, 256).astype(np.int32)
+model = ResNetCifar(20, device=device, seed=0)
+opt = optim.Optimizer(model, array_dataset(x, y) >> SampleToMiniBatch(64),
+                      nn.CrossEntropyCriterion(),
+                      optim.SGD(learning_rate=0.05, momentum=0.9,
+                                dampening=0.0), device=device)
+end = optim.Trigger.max_iteration(steps)
+if chaos:
+    end = optim.Trigger.or_(ChaosKillTrigger(chaos), end)
+opt.set_end_when(end)
+if ckpt != "-":
+    opt.set_train_summary(TrainSummary(ckpt, "child"))
+    opt.set_checkpoint(ckpt, optim.Trigger.several_iteration(every))
+    opt.resume_from_checkpoint()
+opt.optimize()
+torch.save({"neval": opt.driver_state["neval"],
+            "params": {k: v.cpu() for k, v in model.named_parameters()},
+            "buffers": {k: v.cpu() for k, v in model.named_buffers()}}, out)
+'''
+
+
+def supervisor_drill(card):
+    """(e) ``RunSupervisor.run_process``: a child training ``ResNetCifar(20)``
+    on the card (``cudnn.deterministic``, a checkpoint every 2 iterations)
+    is SIGKILLed by ``ChaosKillTrigger(5)`` on its first attempt,
+    restarted from its last snapshot and finishes at step 10; its
+    parameters and running statistics against a straight run in another
+    child (``RESUME_RTOL``), and the recovery event."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.optim import RunSupervisor
+    from bigdl_tpu_torch.visualization import read_scalar
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_supervisor_"))
+    script = root / "child.py"
+    script.write_text(SUPERVISED_CHILD)
+    ckpt = root / "ckpt"
+    ckpt.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    procs = []
+
+    def launch(ckpt_dir, chaos, out):
+        proc = subprocess.Popen(
+            [sys.executable, str(script), str(ckpt_dir), str(chaos),
+             str(out), str(SUP_STEPS), str(SUP_EVERY), SUP_DEVICE], env=env)
+        procs.append(proc)
+        return proc
+
+    def probe():
+        done = read_scalar(str(ckpt / "child" / "train"), "Loss")
+        return max(s for s, _, _ in done) + 1 if done else None
+
+    try:
+        t0 = time.perf_counter()
+        sup = RunSupervisor(max_restarts=2, backoff_base_s=0.5)
+        restarts = sup.run_process(
+            lambda attempt: launch(ckpt, SUP_CHAOS if attempt == 0 else 0,
+                                   root / "resumed.pt"),
+            checkpoint_path=str(ckpt), probe_step=probe)
+        supervised_s = time.perf_counter() - t0
+        rcs = [p.returncode for p in procs]
+        t0 = time.perf_counter()
+        straight_rc = launch("-", 0, root / "straight.pt").wait()
+        straight_s = time.perf_counter() - t0
+        a = torch.load(root / "straight.pt")
+        b = torch.load(root / "resumed.pt")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    p_rel = _global_rel(b["params"], a["params"])
+    s_rel = _global_rel(b["buffers"], a["buffers"])
+    event = sup.events[0] if sup.events else None
+    row = {"phase": "supervisor", "restarts": restarts, "child_rcs": rcs,
+           "straight_rc": straight_rc, "event": event,
+           "resumed_neval": b["neval"], "params_rel_l2": p_rel,
+           "buffers_rel_l2": s_rel, "bitwise_equal": p_rel == 0 and
+           s_rel == 0, "tolerance": RESUME_RTOL,
+           "supervised_s": supervised_s, "straight_s": straight_s,
+           "card": card}
+    emit(row)
+    if restarts != 1 or rcs[0] != -9 or rcs[1] != 0 or straight_rc != 0 or \
+            b["neval"] != SUP_STEPS + 1 or event["cause"] != \
+            "process_death" or p_rel > RESUME_RTOL or s_rel > RESUME_RTOL:
+        raise AssertionError(f"supervisor: {row}")
+    return row
+
+
+def int8_phase(card):
+    """Phase 13 (module docstring): K6's rows, int8 ResNet-50, serving,
+    the recipe's host services and the supervisor.  Returns K6's rows
+    and the main path's K6 launches by leg."""
+    t0 = time.perf_counter()
+    rows = int8_conv_rows(card)
+    resnet, model, twin, xs = int8_resnet(card)
+    del twin
+    serving = int8_serving(card, model, xs)
+    del model, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    recipe_services(card)
+    supervisor_drill(card)
+    emit({"phase": "int8_phase_done", "seconds": time.perf_counter() - t0,
+          "card": card})
+    return rows, {"int8_resnet": {"int8_conv": resnet["k6_launches"]},
+                  "int8_serving": {"int8_conv": serving["k6_launches"]}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3376,6 +4064,8 @@ def main():
     rows.update(large_kernel_rows(fa, card))
     phase11 = large_phase(fa, ce, card)
     resnet_phase(card)
+    int8_rows, phase13 = int8_phase(card)
+    rows["int8_conv"] = int8_rows[INT8_CONV_KEY_ROW]
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -3399,6 +4089,9 @@ def main():
         "fused_softmax_cross_entropy_bwd": (
             "bigdl_tpu_torch/csrc/cross_entropy.cu",
             "bigdl_tpu/ops/cross_entropy.py:126"),
+        "int8_conv": ("bigdl_tpu_torch/csrc/int8_conv.cu",
+                      "bigdl_tpu/nn/quantized.py:110 (int8_conv: an XLA "
+                      "conv_general_dilated, no pallas_call)"),
     }
     # the head_dim 96 instantiations ("large"), launched by phase 11 only
     for name in ("flash_attention", "flash_attention_bf16",
@@ -3415,7 +4108,8 @@ def main():
                                         ("training", training),
                                         ("training_bf16", training_bf16),
                                         ("int8_serving", int8_serving),
-                                        *phase10.items(), *phase11.items())
+                                        *phase10.items(), *phase11.items(),
+                                        *phase13.items())
                    if counts.get(name)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,

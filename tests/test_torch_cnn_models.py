@@ -26,7 +26,10 @@ recipes of ``models/run.py``) against the JAX package's, on the CPU.
   packages part after a step): its first loss against JAX's, and
   ``optimize()`` with dropout against the eager steps bitwise.
 - The recipes at tiny sizes on ``--device cpu`` with JAX's flags and
-  defaults, and their refusals naming ROADMAP items.
+  defaults, and their refusals naming ROADMAP items (``--summaryDir``,
+  ``--numWorkers`` and ``--queueDepth`` are taken since the summaries
+  and prefetch workers were ported: ``test_torch_summaries.py``,
+  ``test_torch_prefetch.py``).
 """
 
 import numpy as np
@@ -491,7 +494,6 @@ def test_resnet_imagenet_recipe(monkeypatch):
 
 @pytest.mark.parametrize("flag,item", [
     (["--folder", "data"], "A9"), (["--model", "m.bigdl"], "A9"),
-    (["--summaryDir", "logs"], "A1"), (["--numWorkers", "2"], "A1"),
     (["--distributed"], "A4")])
 @pytest.mark.parametrize("recipe", ["lenet-train", "lenet-test",
                                     "vgg-train", "resnet-train",

@@ -39,7 +39,6 @@ from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.nn import dropout as tdrop
 from bigdl_tpu_torch.nn import initialization as tinit
 from bigdl_tpu_torch.optim.train_step import _cast_params as tcast
-from bigdl_tpu_torch.utils.errors import UnsupportedFeatureError
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_REL_L2 = 3e-2
@@ -263,12 +262,24 @@ def test_space_to_depth_stem_equals_plain_stem():
 
 
 def test_int8_convolution_is_refused_naming_the_roadmap():
-    conv = nn.SpatialConvolution(3, 4, 3, 3)
-    conv.weight_q = torch.nn.Parameter(torch.zeros(3, 3, 3, 4,
-                                                   dtype=torch.int8),
-                                       requires_grad=False)
-    with pytest.raises(UnsupportedFeatureError, match="ROADMAP A5"):
-        conv(torch.zeros(1, 5, 5, 3))
+    """The refusal this test held until ROADMAP A5's int8 half was ported
+    is gone: a convolution holding ``weight_q`` / ``scale`` convolves in
+    int8 (JAX ``nn/conv.py:91-99``; K6's plain version on the CPU), the
+    bias in fp32 and the result in the input's dtype."""
+    from bigdl_tpu_torch.nn import quantized as tq
+
+    conv = nn.SpatialConvolution(3, 4, 3, 3, 1, 1, -1, -1)
+    with torch.no_grad():
+        conv.bias.normal_()
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, 5, 5, 3)).astype(np.float32))
+    twin, qp = tq.quantize_model(nn.Sequential().add(conv))
+    assert qp["0"]["weight_q"].dtype == torch.int8
+    want = tq.int8_conv(x, qp["0"]["weight_q"], qp["0"]["scale"],
+                        stride=(1, 1), padding="SAME", dilation=(1, 1),
+                        groups=1, bias=qp["0"]["bias"])
+    with torch.no_grad():
+        np.testing.assert_array_equal(twin(x).numpy(), want.numpy())
 
 
 # --------------------------------------------------------------------------- #
