@@ -9,10 +9,13 @@ contraction is exact in int32, as ``lax.dot_general(...,
 preferred_element_type=jnp.int32)`` in the JAX package: ``torch._int_mm``
 takes int8 operands and returns int32 on the CPU and on the card.  It is a
 plain matrix product, not a TPU kernel, so the port has no kernel of its
-own for it.  The int8 convolution (``int8_conv``) has no library call on
-the card: it runs through the hand-written kernel K6
-(``ops/int8_conv.py``), the exact int32 sum, the scaling, the layer's
-bias and its cast in one launch.
+own for it.  The per-tensor activation quantization ahead of both is the
+hand-written kernel K6q (``ops/act_quant.py``) on the card.  The int8
+convolution (``int8_conv``) has no library call on the card: it runs
+through the hand-written kernel K6 (``ops/int8_conv.py``), the exact
+int32 sum, the scaling, the layer's bias and its cast in one launch; a
+convolution layer keeps K6's packed copy of its weight in a cache off the
+parameter tree (``int8_conv_layer``).
 
 ``quantize_model(model)`` returns the int8 TWIN: a copy of the module
 tree whose ``Linear``, ``SpatialConvolution`` /
@@ -35,6 +38,7 @@ convolution child of a Sequential-style container (children keyed
 """
 
 import copy
+import weakref
 from typing import Callable, Optional
 
 import torch
@@ -73,11 +77,11 @@ def quantize_channelwise(w, channel_axis: int, lead_axes: int = 0):
 
 def _quantize_activation(x):
     """Dynamic symmetric per-tensor activation quantization ->
-    ``(x_int8, scale)``, the scale over EVERY element of ``x``."""
-    x32 = x.to(torch.float32)
-    scale = x32.abs().amax().clamp_min(1e-8) / 127.0
-    x_q = torch.round(x32 / scale).clamp(-127, 127).to(torch.int8)
-    return x_q, scale
+    ``(x_int8, scale)``, the scale over EVERY element of ``x``: K6q on the
+    card, its plain version on the CPU (``ops/act_quant.py``)."""
+    from bigdl_tpu_torch.ops.act_quant import act_quant
+
+    return act_quant(x)
 
 
 def _pad_to(t, dim, multiple, at_least=0):
@@ -125,21 +129,77 @@ def _conv_padding(padding, x_nhwc, kernel, stride, dilation):
 
 
 def int8_conv(x_nhwc, w_q, scale, *, stride, padding, dilation, groups,
-              bias=None, out_dtype=torch.float32):
+              bias=None, out_dtype=torch.float32, w_packed=None):
     """Int8 NHWC convolution: ``x`` float, ``w_q`` HWIO int8, ``scale``
     ``(out,)`` -> the exact int32 sum scaled back to real units, NHWC.
-    The activation is quantized per tensor (``_quantize_activation``);
-    the convolution is K6 on the card and its plain version on the CPU.
-    ``bias`` (fp32) is added and the result cast to ``out_dtype`` in the
-    same call, with the roundings of ``(acc * scale + bias).to(...)``:
-    the JAX layer adds its bias and casts after ``int8_conv`` returns."""
+    The activation is quantized per tensor (``_quantize_activation``: K6q
+    on the card); the convolution is K6 on the card (reading ``w_packed``,
+    ``ops.int8_conv.pack_weight(w_q, groups)``, where its shape takes the
+    wgmma kernel: packed at the call when not given) and its plain version
+    on the CPU.  ``bias`` (fp32) is added and the result cast to
+    ``out_dtype`` in the same call, with the roundings of ``(acc * scale +
+    bias).to(...)``: the JAX layer adds its bias and casts after
+    ``int8_conv`` returns."""
     from bigdl_tpu_torch.ops.int8_conv import int8_conv_nhwc
 
     pads = _conv_padding(padding, x_nhwc, tuple(w_q.shape[:2]), stride,
                          dilation)
     x_q, x_scale = _quantize_activation(x_nhwc)
     return int8_conv_nhwc(x_q, w_q, scale, x_scale, bias, stride, pads,
-                          dilation, groups, out_dtype)
+                          dilation, groups, out_dtype, w_packed)
+
+
+class _PackedWeight:
+    """K6's packed copy of one layer's weight and the key it was packed
+    under; a copy of the layer (``copy.deepcopy``, pickling) starts
+    without it, as ``optim/validation.py``'s eval cache does."""
+
+    def __init__(self, weight=None, key=None, packed=None):
+        self.weight = None if weight is None else weakref.ref(weight)
+        self.key, self.packed = key, packed
+
+    def holds(self, weight, key):
+        return self.weight is not None and self.weight() is weight and \
+            self.key == key
+
+    def __deepcopy__(self, memo):
+        return _PackedWeight()
+
+    def __reduce__(self):
+        return _PackedWeight, ()
+
+
+def packed_weight(layer):
+    """K6's packed copy of ``layer.weight_q`` (``pack_weight``), cached on
+    the layer outside the parameters and state that checkpoints, the JAX
+    bridge and ``model_bytes`` read.  The key is the weight tensor itself
+    (a weak reference: ``_bind`` and a deserialization install a new
+    one), its ``data_ptr()`` and its ``_version`` (an in-place load,
+    ``t.copy_``, bumps it), so a reloaded weight is packed anew.  None
+    where the shape takes K6's gather kernel, which reads the HWIO
+    weight.  The forward asks for it on the card only: the CPU's plain
+    version reads the HWIO weight."""
+    from bigdl_tpu_torch.ops.int8_conv import pack_weight, uses_wgmma
+
+    w_q = layer.weight_q
+    if not uses_wgmma(w_q.shape[2]):
+        return None
+    key = (w_q.data_ptr(), w_q._version)
+    cache = layer.__dict__.get("_k6_packed")
+    if cache is None or not cache.holds(w_q, key):
+        cache = _PackedWeight(w_q, key, pack_weight(w_q.detach(),
+                                                    layer.n_group))
+        layer.__dict__["_k6_packed"] = cache
+    return cache.packed
+
+
+def packed_weight_bytes(model) -> int:
+    """Bytes of the packed copies (``packed_weight``) that the layers of
+    ``model`` hold now, beside ``model_bytes`` of its parameters: on the
+    card a wgmma layer holds its weight twice, HWIO and packed."""
+    caches = (m.__dict__.get("_k6_packed") for m in model.modules())
+    return sum(c.packed.numel() * c.packed.element_size() for c in caches
+               if c is not None and c.packed is not None)
 
 
 def int8_conv_layer(layer, x):
@@ -157,7 +217,8 @@ def int8_conv_layer(layer, x):
                   padding=SpatialConvolution._pads(layer, x),
                   dilation=layer.dilation, groups=layer.n_group,
                   bias=None if bias is None else bias.float(),
-                  out_dtype=x.dtype)
+                  out_dtype=x.dtype,
+                  w_packed=packed_weight(layer) if x.is_cuda else None)
     if layer.data_format == "NCHW":
         y = y.permute(0, 3, 1, 2)
     return y

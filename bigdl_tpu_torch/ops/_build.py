@@ -24,8 +24,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_bwd.cu",
-           CSRC / "cross_entropy.cu", CSRC / "int8_conv.cu")
-HEADERS = (CSRC / "common.cuh", CSRC / "mma.cuh")
+           CSRC / "cross_entropy.cu", CSRC / "int8_conv.cu",
+           CSRC / "act_quant.cu")
+HEADERS = (CSRC / "common.cuh", CSRC / "mma.cuh", CSRC / "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -132,6 +133,8 @@ def _declare(libs):
         "bigdl_ce_fwd": [p, p, p, p, i, i, i, i64, p],
         "bigdl_ce_bwd": [p, p, p, p, p, i, i, i, i64, i64, p],
         "bigdl_int8_conv": [p, p, p, p, p, p] + [i] * 17 + [p],
+        "bigdl_int8_conv_wgmma": [p, p, i, i, p, p, p, p] + [i] * 17 + [p],
+        "bigdl_act_quant": [p, i64, i, p, p, p, i, p],
     }
     ns = types.SimpleNamespace()
     for name, argtypes in signatures.items():

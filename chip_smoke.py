@@ -9,8 +9,9 @@ Phases, each printing JSON lines:
    and CUDA versions, TF32 switched off;
 2. build: the CUDA kernels compiled from ``bigdl_tpu_torch/csrc``, the
    compiler's registers, spills and static shared memory of every
-   instantiation (``-Xptxas -v``), and the HMMA (tensor-core)
-   instructions of every K1 and K1-bwd kernel counted in ``cuobjdump
+   instantiation (``-Xptxas -v``), and the tensor-core instructions of
+   every K1 and K1-bwd kernel (HMMA) and of K6's two kernels (GMMA for
+   the wgmma kernel, IMMA for the gather kernel) counted in ``cuobjdump
    -sass`` of the libraries (none fails);
 3. kernels: K1 ``flash_attention``, K2 ``flash_decode_attention`` and K3
    ``flash_paged_decode_attention`` held against their plain PyTorch
@@ -101,7 +102,11 @@ Phases, each printing JSON lines:
    pool's; the gate's measured agreement and RMSE within the stated
    tolerances, and a gate at half the measured RMSE refusing the engine;
    (c)'s greedy streams equal to (a)'s (the fp32 model decoding alone
-   over int8 KV) except at stated near-ties;
+   over int8 KV) except at stated near-ties; K6q (``act_quant``, the
+   int8 twin's activation quantization ahead of every ``torch._int_mm``)
+   launched by (b) and by (c)'s drafter, never by (a), and held bitwise
+   against its plain version at every input shape the built steps gave
+   it;
 10. evaluation, checkpoints and L-BFGS: TransformerLM "small" (seed 0),
     29 held-out sequences of 1024 tokens (``synthetic_corpus`` seed 1) at
     batch 8, three full batches and a ragged one of 5: (a) ``validate``
@@ -191,31 +196,44 @@ Phases, each printing JSON lines:
     ``resnet-train --depth 20`` and ``inception-train --version v1``, 4
     iterations each through ``models/run.py``.
 13. int8 inference of the CNN zoo and the recipes' host services: (a) K6
-    ``int8_conv`` (``csrc/int8_conv.cu``, the int8 implicit-GEMM
-    convolution on ``mma.sync`` s8 tensor cores) at ResNet-50's shapes at
-    batch 128 (the 7 x 7 / 2 stem, 1 x 1 256 -> 64, 3 x 3 64 -> 64, 3 x 3
-    / 2 256 -> 256, the 1 x 1 / 2 512 -> 1024 shortcut) and two coverage
-    rows at batch 8 (AlexNet's grouped 5 x 5, a SAME 3 x 3 / 2 with
-    dilation 2), each bitwise equal to its plain version (``F.conv2d`` in
-    float64 over the int8 values), timed beside its bound (the larger of
-    bytes / 3.35 TB/s and int8 operations / 1,979 TOPS), its plain
-    version, im2col plus ``torch._int_mm`` (the same int32 sums, checked
-    exact) and cuDNN's bf16 channels-last convolution of the float layer;
-    (b) ResNet-50 (seed 0, the running statistics of one training
-    forward) quantized by ``quantize_model`` and by ``quantize()`` on a
-    copy (bitwise-equal logits), 228 images through ``Predictor`` and the
-    compiled eval step at batch 128 (53 K6 launches a batch counted
-    through the replays, none of another kernel; the ragged batch against
-    the twin's eager eval of the same padded batch), held against the
-    twin with the plain int8 convolution (``INT8_PLAIN_RTOL``, bitwise
-    printed, else the first layer that differs) and against the fp32
-    model (relative logit error, top-1 agreement, ``AccuracyDeltaGate``);
-    images/s of the compiled int8, fp32 and bf16 eval, K6's share of the
-    int8 forward's device time, the parameters' bytes fp32 / int8 (at
-    least 3.5, as JAX's bench holds) and peak memory; (c)
+    ``int8_conv`` (``csrc/int8_conv.cu``: the ``wgmma`` s8 implicit GEMM
+    over the packed K-major weight, and the byte-gather ``mma.sync``
+    kernel for the stem) at ResNet-50's shapes at batch 128 (the 7 x 7 /
+    2 stem, 1 x 1 256 -> 64, 3 x 3 64 -> 64, 3 x 3 / 2 256 -> 256, the
+    1 x 1 / 2 512 -> 1024 shortcut) and two coverage rows at batch 8
+    (AlexNet's grouped 5 x 5, a SAME 3 x 3 / 2 with dilation 2), each
+    bitwise equal to its plain version (``F.conv2d`` in float64 over the
+    int8 values), timed beside its bound (the larger of bytes / 3.35 TB/s
+    and int8 operations / 1,979 TOPS), its share of it, the time of the
+    ``mma.sync`` kernel it replaced, its
+    plain version, im2col plus ``torch._int_mm`` (the same int32 sums,
+    checked exact) and cuDNN's bf16 channels-last convolution of the
+    float layer; then K6q ``act_quant`` (``csrc/act_quant.cu``) at every
+    distinct input shape of ResNet-50's convolutions and head at batch
+    128, ``x_q`` and ``x_scale`` bitwise its plain version, timed beside
+    its bound (x read once, x_q written once: 5 bytes an fp32 element),
+    its two-pass floor (9 bytes where x and x_q do not fit in L2 together)
+    and its plain version; (b) ResNet-50
+    (seed 0, the running statistics of one training forward) quantized
+    by ``quantize_model`` and by ``quantize()`` on a copy (bitwise-equal
+    logits), 228 images through ``Predictor`` and the compiled eval step
+    at batch 128 (a batch: 52 wgmma K6 launches, 1 gather K6 launch and
+    54 K6q launches counted through the replays, none of another kernel;
+    the ragged batch against the twin's eager eval of the same padded
+    batch), held bitwise against the twin with both halves plain (the
+    plain quantizer and the plain convolution; else the first layer that
+    differs) and against the fp32 model (relative logit error, top-1
+    agreement, ``AccuracyDeltaGate``); images/s of the compiled int8,
+    fp32 and bf16 eval, K6's and K6q's shares of the int8 forward's
+    device time, the kernels of one replay against the same graph with
+    the quantizer as PyTorch passes, no abs / round / amax
+    kernel left in the replay, the parameters' bytes fp32 / int8 (at
+    least 3.5, as JAX's bench holds), the packed weight copies' bytes
+    beside them and the int8 bytes the card holds, and peak memory; (c)
     ``ServingEngine(resnet50, quantize=True, accuracy_gate=...)``: 8
     ``predict`` requests one at a time, each bitwise the twin's eager eval
-    of the request padded to its rung, K6 53 times a forward; (d)
+    of the request padded to its rung, K6 53 and K6q 54 times a forward;
+    (d)
     ``resnet-imagenet-train`` (bf16, batch 128, 12 iterations) through
     ``models/run.py`` with neither flag, with ``--summaryDir`` and with
     ``--numWorkers 4 --queueDepth 4 --summaryDir``: equal batch digests,
@@ -418,13 +436,17 @@ def ptxas_report(log):
     return report
 
 
-#: the kernels that must run on the tensor cores, by function name
-TENSOR_CORE_KERNELS = ("flash_attn_kernel", "bwd_dkdv_kernel",
-                       "bwd_dq_kernel")
+#: the kernels that must run on the tensor cores, by function name, and
+#: the SASS instruction that shows it: HMMA (mma.sync fp16/bf16/tf32),
+#: IMMA (mma.sync int8), GMMA (wgmma: IGMMA for int8)
+TENSOR_CORE_KERNELS = {"flash_attn_kernel": "HMMA", "bwd_dkdv_kernel": "HMMA",
+                       "bwd_dq_kernel": "HMMA",
+                       "int8_conv_wgmma_kernel": "GMMA",
+                       "int8_conv_gather_kernel": "IMMA"}
 
 
 def tensor_core_instructions(build, libs):
-    """Phase 2: HMMA (tensor-core) instructions in each instantiation of
+    """Phase 2: tensor-core instructions in each instantiation of
     ``TENSOR_CORE_KERNELS``, counted in ``cuobjdump -sass`` of the built
     libraries; fails where one has none."""
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
@@ -433,22 +455,23 @@ def tensor_core_instructions(build, libs):
         sass = subprocess.run([str(tool), "-sass", str(lib)],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
-        kernel = None
+        kernel = op = None
         for line in sass.splitlines():
             if "Function :" in line:
-                kernel = kernel_name(line.split("Function :")[-1].strip())
-                if not kernel.startswith(TENSOR_CORE_KERNELS):
-                    kernel = None
-                else:
+                mangled = line.split("Function :")[-1].strip()
+                op = next((o for k, o in TENSOR_CORE_KERNELS.items()
+                           if k in mangled), None)
+                kernel = kernel_name(mangled) if op else None
+                if kernel:
                     counts[kernel] = 0
-            elif kernel and "HMMA" in line:
+            elif kernel and op in line:
                 counts[kernel] += 1
     missing = [k for k in TENSOR_CORE_KERNELS
-               if not any(name.startswith(k) for name in counts)]
+               if not any(k in name for name in counts)]
     idle = [name for name, n in counts.items() if n == 0]
     if missing or idle:
         raise AssertionError(f"no tensor-core code: missing {missing}, "
-                             f"no HMMA in {idle}")
+                             f"none in {idle}")
     return counts
 
 
@@ -1734,6 +1757,7 @@ def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
     each engine's launches read right after its own bursts."""
     from bigdl_tpu_torch.models import synthetic_corpus
     from bigdl_tpu_torch.nn.quantized import model_bytes
+    from bigdl_tpu_torch.ops import act_quant as k6q
     from bigdl_tpu_torch.serving import ServingEngine
 
     prompts = serving_prompts(1)                  # phase 4's prompts
@@ -1769,17 +1793,31 @@ def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
                 raise
         else:
             raise AssertionError("a gate at half the measured RMSE passed")
-        built = {label: eng.precompile() for label, eng in engines.items()}
+        # the twins' built steps call K6q at the shapes their path gives it
+        quant_shapes, act_quant = [], k6q.act_quant
+
+        def recorded(x):
+            quant_shapes.append((tuple(x.shape), x.dtype))
+            return act_quant(x)
+
+        k6q.act_quant = recorded
+        try:
+            built = {label: eng.precompile()
+                     for label, eng in engines.items()}
+        finally:
+            k6q.act_quant = act_quant
         # ---- the int8 serving path, engine by engine ----------------------
         for rnd in (0, 1):
             for label, eng in engines.items():
                 fa.reset_launch_counts()
+                k6q.reset_launch_counts()
                 streams[(label, rnd)], bursts[(label, rnd)] = timed_burst(
                     eng, prompts, SERVE_NEW, label, card,
                     phase="int8_generate", round=rnd,
                     fp32_paged_tokens_per_s=fp32_tok_s[rnd])
                 torch.cuda.synchronize()
                 launches[label].update(fa.LAUNCHES)
+                launches[label].update(k6q.LAUNCHES)
         # -------------------------------------------------------------------
         peak = max(torch.cuda.max_memory_allocated(),
                    *(r["peak_memory_bytes"] for r in bursts.values()))
@@ -1810,6 +1848,19 @@ def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
     if launches["a_int8_kv"][k3]:
         raise AssertionError(f"the int8-KV engine launched K3: "
                              f"{launches['a_int8_kv']}")
+    if launches["a_int8_kv"]["act_quant"] or any(
+            launches[label]["act_quant"] < 1
+            for label in ("b_int8_twin", "c_speculative4_int8_kv")):
+        raise AssertionError(f"K6q launches: the twin and the drafter "
+                             f"quantize their activations, the fp32 model "
+                             f"never: {launches}")
+    # K6q at every input shape of the twins' steps (decode, prefill chunks
+    # and drafts; the hidden width and the MLP's), after the counts were
+    # read
+    g = torch.Generator(device="cuda").manual_seed(9)
+    quant_rows = [act_quant_row(card, torch.randn(
+        shape, generator=g, device="cuda").to(dtype), "int8_serving")
+        for shape, dtype in dict.fromkeys(quant_shapes)]
     want_ratio = (HEAD_DIM + 4) / (4 * HEAD_DIM)
     if abs(ratio - want_ratio) > 1e-9:
         raise AssertionError(f"int8/fp32 pool bytes per block {ratio}, "
@@ -1838,6 +1889,8 @@ def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
                     f"int8-KV stream at token {j} with no tie: {t}")
             ties.append({"engine": label, "round": rnd, "index": j, **t})
     emit({"phase": "int8_check", "launches": launches,
+          "twin_act_quant_shapes": [r["shape"] for r in quant_rows],
+          "twin_act_quant_ms": [r["ms"] for r in quant_rows],
           "pool_bytes_ratio_int8_fp32": ratio,
           "twin_model_bytes": twin_bytes,
           "fp32_model_bytes": model_bytes(model.parameters_tree()),
@@ -3399,10 +3452,21 @@ INT8_CONV_ROWS = (
      2),
     ("SAME 3x3/2 d2 64->64 @28", 8, 28, 64, 64, 3, 2, "SAME", 2, 1),
 )
-#: the row the ``{"kernels": ...}`` line reports for K6
+#: (a) each row's time on the ``mma.sync`` kernel that the wgmma kernel
+#: replaced (PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700.00 W)
+INT8_CONV_MMA_SYNC_MS = {
+    "stem 7x7/2 3->64 @224": 0.7154, "1x1 256->64 @56": 0.1547,
+    "3x3 64->64 @56": 0.2155, "3x3/2 256->256 @28": 0.1753,
+    "1x1/2 512->1024 @28": 0.1980, "alexnet 5x5 96->256 g2 @27": 0.0419,
+    "SAME 3x3/2 d2 64->64 @28": 0.0216}
+#: the rows the ``{"kernels": ...}`` line reports for K6's two kernels
 INT8_CONV_KEY_ROW = "3x3 64->64 @56"
-#: (b) K6 launches in one ResNet-50 forward: the stem, 16 bottlenecks of
-#: three convolutions, 4 projection shortcuts
+INT8_GATHER_KEY_ROW = "stem 7x7/2 3->64 @224"
+#: ... and for K6q: the largest convolution input
+ACT_QUANT_KEY_ROW = "(128, 56, 56, 256)"
+#: (b) K6 launches in one ResNet-50 forward: the stem (the gather
+#: kernel), 16 bottlenecks of three convolutions, 4 projection shortcuts
+#: (the wgmma kernel); K6q quantizes each of their inputs and the head's
 RESNET_CONVS = 53
 #: (b) Predictor batches of 128 through the compiled eval step (the
 #: second one ragged: 100 images padded to 128)
@@ -3411,10 +3475,13 @@ INT8_PREDICT_IMAGES = 228
 INT8_EVAL_REPS = 5
 #: (c) requests sent one at a time to the int8 engine
 INT8_SERVE_REQUESTS = 8
-#: (b) the compiled (graph) int8 forward against its eager runs with K6
-#: and with the plain int8 convolution, logits relative L2: the same
-#: operations on the same inputs (K6 is bitwise its plain version)
+#: (b) the compiled (graph) int8 forward against its eager run on the
+#: same padded batch, logits relative L2: the same operations on the same
+#: inputs (the twin with both halves plain is held bitwise)
 INT8_PLAIN_RTOL = 1e-6
+#: (b) kernels of the activation quantization as PyTorch passes, by name:
+#: none may be left in the replay
+QUANT_PASS_KERNELS = ("abs_kernel", "round_kernel", "MaxOps")
 #: (b), (c) the accuracy gate of the int8 twin against the fp32 model.
 #: Measured on the H100 (PERF.md, the int8 CNN findings): logit RMSE
 #: 9.33 over 128 rows and 9.26 over the engine's 8 (random weights give
@@ -3446,10 +3513,11 @@ def _im2col_int8(x_q, kernel, stride, pads, dilation):
 
 def int8_conv_rows(card):
     """(a) K6 against its plain version at each row's shape, bitwise, with
-    the device times of K6, the plain version and two library
+    the device times of K6 (the wgmma kernel over the packed weight, or
+    the gather kernel: the shape picks), the plain version and two library
     computations (CUDA-graph replays): im2col plus ``torch._int_mm`` for
     the same int32 sums, and cuDNN's bf16 ``F.conv2d`` (channels-last) of
-    the float layer."""
+    the float layer; beside the replaced ``mma.sync`` kernel's time."""
     from bigdl_tpu_torch.nn import quantized as tq
     from bigdl_tpu_torch.nn.conv import same_pads
     from bigdl_tpu_torch.ops import int8_conv as k6
@@ -3469,9 +3537,15 @@ def int8_conv_rows(card):
         x_q, x_scale = tq._quantize_activation(x)
         args = (x_q, w_q, scale, x_scale, None, (stride, stride), pads,
                 (dil, dil), groups, torch.float32)
-        got = k6.int8_conv_nhwc(*args)
+        wgmma = k6.uses_wgmma(cin // groups)
+        packed = k6.pack_weight(w_q, groups) if wgmma else None
+        path = "int8_conv" if wgmma else "int8_conv_gather"
+        before = k6.LAUNCHES[path]
+        got = k6.int8_conv_nhwc(*args, packed)
         want = k6.int8_conv_nhwc_reference(*args)
         torch.cuda.synchronize()
+        if k6.LAUNCHES[path] != before + 1:
+            raise AssertionError(f"K6 {label}: not launched as {path}")
         bitwise = bool(torch.equal(got, want))
         err = float((got - want).abs().max())
         m, cout_g = got.shape[0] * got.shape[1] * got.shape[2], cout // groups
@@ -3480,7 +3554,7 @@ def int8_conv_rows(card):
                    + 4 * got.numel())
         ops = 2 * m * cout * kk
         bound_ms, bound_by = bound(n_bytes, ops, INT8_OPS_PER_S, INT8_OPS)
-        ms = device_ms(lambda: k6.int8_conv_nhwc(*args))
+        ms = device_ms(lambda: k6.int8_conv_nhwc(*args, packed))
         plain_ms = device_ms(lambda: k6.int8_conv_nhwc_reference(*args),
                              iters=5, reps=5)[0]
         # the library computations, on the same inputs
@@ -3509,19 +3583,100 @@ def int8_conv_rows(card):
             x_bf, w_bf, stride=stride, dilation=dil, groups=groups),
             iters=10, reps=5)[0]
         row = {"phase": "int8_conv", "shape": label, "batch": n,
-               "pads": pads, "bitwise_equal_plain": bitwise,
+               "pads": pads, "kernel": path, "bitwise_equal_plain": bitwise,
                "max_abs_err": err, "ms": ms[0], "ms_range": ms[1:],
+               "mma_sync_ms": INT8_CONV_MMA_SYNC_MS[label],
+               "speedup_vs_mma_sync": INT8_CONV_MMA_SYNC_MS[label] / ms[0],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "share_of_bound": bound_ms / ms[0], "plain_ms": plain_ms,
                "library_ms": int_mm_ms, "library": "im2col + torch._int_mm",
-               "library_exact": lib_exact, "cudnn_bf16_ms": cudnn_ms,
+               "library_exact": lib_exact,
+               "int_mm_over_kernel": int_mm_ms / ms[0],
+               "cudnn_bf16_ms": cudnn_ms,
                "int8_tops": ops / ms[0] / 1e9, "card": card}
         emit(row)
         rows[label] = row
-        del x, w_q, x_q, got, want, acc_lib, acc_ref, x_bf, w_bf, w_t
+        del x, w_q, x_q, got, want, acc_lib, acc_ref, x_bf, w_bf, w_t, packed
         torch.cuda.empty_cache()
         if not bitwise or not lib_exact:
             raise AssertionError(f"K6 {label}: {row}")
+    return rows
+
+
+def resnet50_quant_inputs(batch=RESNET_BATCH):
+    """The distinct input shapes of ResNet-50's convolutions and head (in
+    the order a forward meets them) at ``batch``: the tensors K6q
+    quantizes."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import ResNet
+
+    model = ResNet(50, 1000, device="cuda", seed=0).eval()
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: shapes.append(tuple(inp[0].shape[1:])))
+        for m in model.modules()
+        if type(m) in (nn.SpatialConvolution, nn.Linear)]
+    with torch.no_grad():
+        model(torch.zeros((1, RESNET_SIDE, RESNET_SIDE, 3), device="cuda"))
+    for h in hooks:
+        h.remove()
+    return [(batch,) + shape for shape in dict.fromkeys(shapes)]
+
+
+def l2_bytes():
+    """The card's L2 cache in bytes (H100 SXM: 50 MiB)."""
+    return getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                   0) or 50 * 2 ** 20
+
+
+def act_quant_row(card, x, path):
+    """K6q against its plain version on ``x``: ``x_q`` and ``x_scale``
+    bitwise, the device times of K6q (memset, absmax, quantize) and of
+    the plain version (CUDA-graph replays), the bound (``x`` read once,
+    ``x_q`` written once: no PyTorch call computes this quantization) and
+    the two-pass floor (``x`` read twice from HBM unless ``x`` and ``x_q``
+    fit in L2 together).  Raises where they differ."""
+    from bigdl_tpu_torch.ops import act_quant as k6q
+
+    got_q, got_s = k6q.act_quant(x)
+    want_q, want_s = k6q.act_quant_reference(x)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(got_q, want_q)) and \
+        bool(torch.equal(got_s, want_s))
+    ms = device_ms(lambda: k6q.act_quant(x))
+    plain_ms = device_ms(lambda: k6q.act_quant_reference(x), iters=5,
+                         reps=5)[0]
+    n, size = x.numel(), x.element_size()
+    in_l2 = (size + 1) * n <= l2_bytes()
+    bound_ms, bound_by = bound((size + 1) * n, 0)
+    two_pass_ms, _ = bound((size + 1 + (0 if in_l2 else size)) * n, 0)
+    row = {"phase": "act_quant", "path": path, "shape": str(tuple(x.shape)),
+           "dtype": str(x.dtype), "elements": n,
+           "bitwise_equal_plain": bitwise,
+           "max_abs_err": float((got_q.int() - want_q.int()).abs().max()),
+           "x_scale": float(got_s), "ms": ms[0], "ms_range": ms[1:],
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / ms[0],
+           "x_and_x_q_fit_l2": in_l2, "two_pass_bound_ms": two_pass_ms,
+           "share_of_two_pass_bound": two_pass_ms / ms[0],
+           "plain_ms": plain_ms, "library_ms": None, "card": card}
+    emit(row)
+    del got_q, want_q
+    if not bitwise:
+        raise AssertionError(f"K6q {tuple(x.shape)}: {row}")
+    return row
+
+
+def act_quant_rows(card):
+    """(a) K6q (``act_quant_row``) at each input shape of ResNet-50's
+    convolutions and head at batch 128."""
+    rows = {}
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for shape in resnet50_quant_inputs():
+        x = torch.randn(shape, generator=g, device="cuda")
+        rows[str(shape)] = act_quant_row(card, x, "int8_resnet")
+        del x
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3545,17 +3700,21 @@ def _conv_outputs(model, x):
 
 
 @contextlib.contextmanager
-def _plain_int8_conv():
-    """The int8 convolutions through K6's plain version on the card (the
-    comparison's reference; never the main path)."""
+def _plain_int8(conv=True):
+    """The int8 layers through the plain versions on the card: K6q's
+    always, K6's with ``conv`` (the comparison's reference; never the main
+    path)."""
+    from bigdl_tpu_torch.ops import act_quant as k6q
     from bigdl_tpu_torch.ops import int8_conv as k6
 
-    real = k6._on_cpu
-    k6._on_cpu = lambda *ts: True
+    real = k6._on_cpu, k6q.act_quant
+    if conv:
+        k6._on_cpu = lambda *ts: True
+    k6q.act_quant = k6q.act_quant_reference
     try:
         yield
     finally:
-        k6._on_cpu = real
+        k6._on_cpu, k6q.act_quant = real
 
 
 def _eval_rate(step, x, reps=INT8_EVAL_REPS):
@@ -3570,45 +3729,68 @@ def _eval_rate(step, x, reps=INT8_EVAL_REPS):
     return reps * x.shape[0] / (time.perf_counter() - t0)
 
 
-def _device_share(fn, match):
+#: (b) the hand-written kernels of the int8 forward, by profiler name
+INT8_KERNEL_NAMES = {"int8_conv": ("int8_conv_wgmma_kernel",),
+                     "int8_conv_gather": ("int8_conv_gather_kernel",),
+                     "act_quant": ("absmax_kernel", "quantize_kernel")}
+
+
+def _device_share(fn):
     """Device time of one call of ``fn`` under the profiler: the busy ms,
-    and the share of it in kernels whose name contains ``match``."""
+    the share of it in each of ``INT8_KERNEL_NAMES``' kernels, the ms by
+    kind, and the device kernels and memsets themselves."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
+    # one profiled warm-up call first: after the earlier phases' profiles,
+    # a window's first kernels were missing from its events
+    with torch.profiler.profile(
+            activities=acts, schedule=torch.profiler.schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # (the schedule's step annotation spans the step on the device too)
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA and
+               not e.name.startswith("ProfilerStep")]
     busy = union_us([(e.time_range.start, e.time_range.end)
                      for e in kernels]) / 1e3
-    mine = sum(e.time_range.end - e.time_range.start
-               for e in kernels if match in e.name) / 1e3
+
+    def kind(name):
+        return next((label for label, parts in INT8_KERNEL_NAMES.items()
+                     if any(p in name for p in parts)), None) or \
+            kernel_kind(name)
+
     by_kind = collections.Counter()
     for e in kernels:
-        name = "int8_conv" if match in e.name else kernel_kind(e.name)
-        by_kind[name] += (e.time_range.end - e.time_range.start) / 1e3
-    return busy, mine / max(busy, 1e-9), dict(by_kind)
+        by_kind[kind(e.name)] += (e.time_range.end - e.time_range.start) / 1e3
+    shares = {label: by_kind.get(label, 0.0) / max(busy, 1e-9)
+              for label in INT8_KERNEL_NAMES}
+    return busy, shares, dict(by_kind), kernels
 
 
 def int8_resnet(card):
     """(b) ResNet-50 (seed 0, the running statistics of one training
     forward) quantized by ``quantize_model`` and by ``quantize()`` on a
     copy (bitwise-equal logits), then batch 128 through ``Predictor`` and
-    the compiled eval step (K6's launches counted through the replays,
-    53 a batch); held against the twin with the plain int8 convolution
-    (bitwise, else the first layer that differs) and against the fp32
-    model (relative logit error, top-1 agreement, the gate's details);
-    images/s int8, fp32 and bf16, K6's share of the int8 forward, the
-    parameters' bytes and peak memory.  Returns the row, the models and
-    the launches."""
+    the compiled eval step (K6's and K6q's launches counted through the
+    replays: 52 wgmma, 1 gather and 54 K6q a batch); held bitwise against
+    the twin with both halves plain (else the first layer that differs)
+    and against the fp32 model (relative logit error, top-1 agreement,
+    the gate's details); images/s int8, fp32 and bf16, K6's and K6q's
+    shares of the int8 forward, the kernels of one replay against the
+    same graph with the quantizer as PyTorch passes, the parameters'
+    bytes, the packed weight copies' bytes and peak memory.  Returns the
+    row, the models and the launches."""
     import copy
 
     from bigdl_tpu_torch import optim
     from bigdl_tpu_torch.models import ResNet
     from bigdl_tpu_torch.nn import quantized as tq
+    from bigdl_tpu_torch.ops import act_quant as k6q
     from bigdl_tpu_torch.ops import cross_entropy as ce
     from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops import int8_conv as k6
@@ -3641,9 +3823,10 @@ def int8_resnet(card):
     fa.reset_launch_counts()
     ce.reset_launch_counts()
     k6.reset_launch_counts()
+    k6q.reset_launch_counts()
     preds = np.stack(optim.Predictor(twin, RESNET_BATCH).predict(list(xs)))
     torch.cuda.synchronize()
-    launches = dict(k6.LAUNCHES)
+    launches = dict(k6.LAUNCHES, **k6q.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     kernel_launches = sum(fa.LAUNCHES.values()) + sum(ce.LAUNCHES.values())
     got = torch.from_numpy(preds[:RESNET_BATCH])
@@ -3656,13 +3839,13 @@ def int8_resnet(card):
     ragged = INT8_PREDICT_IMAGES - RESNET_BATCH
     tail_rel = rel_l2(torch.from_numpy(preds[RESNET_BATCH:]),
                       tail_eager[:ragged])
-    with _plain_int8_conv(), torch.no_grad():
+    with _plain_int8(), torch.no_grad():
         plain = twin(x).cpu()
     plain_equal = bool(torch.equal(got, plain))
     first_diff = None
     if not plain_equal:
         kernel_outs = _conv_outputs(twin, x)
-        with _plain_int8_conv():
+        with _plain_int8():
             plain_outs = _conv_outputs(twin, x)
         for name, o in kernel_outs.items():
             d = float((o - plain_outs[name]).abs().max())
@@ -3680,14 +3863,30 @@ def int8_resnet(card):
              "fp32": _eval_rate(optim.compiled_eval_step(model), x),
              "bf16": _eval_rate(optim.compiled_eval_step(
                  model, torch.bfloat16), x)}
-    busy_ms, k6_share, by_kind = _device_share(lambda: step(x),
-                                               "int8_conv_kernel")
+    busy_ms, shares, by_kind, replay = _device_share(lambda: step(x))
+    # the same graph with the quantizer as PyTorch passes
+    with _plain_int8(conv=False):
+        torch_quant_step = optim.CompiledEvalStep(twin)
+        torch_quant_step(x)
+    torch_quant_busy, _, torch_quant_by_kind, torch_quant_replay = \
+        _device_share(lambda: torch_quant_step(x))
+    del torch_quant_step
+    quant_passes = sorted({e.name for e in replay
+                           if any(k in e.name for k in QUANT_PASS_KERNELS)})
+    by_name = {name: sum(any(p in e.name for p in parts) for e in replay)
+               for name, parts in INT8_KERNEL_NAMES.items()}
+    # the profiler's names show which kernels ran; LAUNCHES counts them
+    # exactly (a profile may miss a window's first few kernels)
+    expected_names = {"int8_conv": RESNET_CONVS - 1, "int8_conv_gather": 1,
+                      "act_quant": 2 * (RESNET_CONVS + 1)}
     fp32_bytes = tq.model_bytes(model.parameters_tree())
     int8_bytes = tq.model_bytes(qparams)
+    packed_bytes = tq.packed_weight_bytes(twin)   # beside the parameters
     row = {"phase": "int8_resnet", "batch": RESNET_BATCH,
            "quantized_convolutions": n_q, "quantize_model_s": quantize_s,
            "quantizers_bitwise_equal": same_quantizers,
-           "k6_launches": launches["int8_conv"],
+           "launches": launches,
+           "k6q_launches_a_forward": launches["act_quant"] / 2,
            "predict_batches": 2, "other_kernel_launches": kernel_launches,
            "ragged_batch_vs_eager_padded_rel_l2": tail_rel,
            "kernel_vs_plain_bitwise": plain_equal,
@@ -3697,18 +3896,32 @@ def int8_resnet(card):
            "vs_fp32_rel_l2": rel_l2(got, fp32),
            "vs_fp32_top1_agreement": agree, "gate_ok": gate_ok,
            "gate": gate_detail, "images_per_s": rates,
-           "int8_forward_device_ms": busy_ms, "k6_share": k6_share,
+           "int8_forward_device_ms": busy_ms,
+           "k6_share": shares["int8_conv"] + shares["int8_conv_gather"],
+           "k6q_share": shares["act_quant"], "shares": shares,
            "int8_forward_ms_by_kind": by_kind,
+           "replay_kernels": len(replay),
+           "replay_kernels_pytorch_quantizer": len(torch_quant_replay),
+           "pytorch_quantizer_forward_device_ms": torch_quant_busy,
+           "pytorch_quantizer_ms_by_kind": torch_quant_by_kind,
+           "quantizer_passes_in_replay": quant_passes,
+           "replay_kernels_by_name": by_name,
+           "replay_kernels_by_name_expected": expected_names,
            "model_bytes_fp32": fp32_bytes, "model_bytes_int8": int8_bytes,
            "bytes_ratio": fp32_bytes / int8_bytes,
+           "packed_weight_bytes": packed_bytes,
+           "int8_bytes_on_card": int8_bytes + packed_bytes,
+           "bytes_ratio_on_card": fp32_bytes / (int8_bytes + packed_bytes),
            "peak_allocated_bytes": peak, "card": card}
     emit(row)
     if not (same_quantizers and n_q == RESNET_CONVS and
-            tail_rel <= INT8_PLAIN_RTOL and
-            row["kernel_vs_plain_rel_l2"] <= INT8_PLAIN_RTOL and
-            launches["int8_conv"] == 2 * RESNET_CONVS and
-            kernel_launches == 0 and gate_ok and
-            fp32_bytes / int8_bytes >= 3.5 and
+            tail_rel <= INT8_PLAIN_RTOL and plain_equal and
+            launches == {"int8_conv": 2 * (RESNET_CONVS - 1),
+                         "int8_conv_gather": 2,
+                         "act_quant": 2 * (RESNET_CONVS + 1)} and
+            all(0 < by_name[k] <= n for k, n in expected_names.items()) and
+            not quant_passes and kernel_launches == 0 and gate_ok and
+            fp32_bytes / int8_bytes >= 3.5 and packed_bytes > 0 and
             torch.isfinite(got).all() and got.shape == (RESNET_BATCH, 1000)):
         raise AssertionError(f"int8 ResNet-50: {row}")
     return row, model, twin, xs
@@ -3719,7 +3932,9 @@ def int8_serving(card, model, xs):
     8 ``predict`` requests one at a time, each against the twin's eager
     eval of the request padded to the rung it rode in (the activation
     scale is taken over the padded rows too), bitwise; K6's launches
-    counted from the engine's construction (its gate) to its close."""
+    counted from the engine's construction (its gate) to its close, and
+    K6q's."""
+    from bigdl_tpu_torch.ops import act_quant as k6q
     from bigdl_tpu_torch.ops import cross_entropy as ce
     from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops import int8_conv as k6
@@ -3731,6 +3946,7 @@ def int8_serving(card, model, xs):
     fa.reset_launch_counts()
     ce.reset_launch_counts()
     k6.reset_launch_counts()
+    k6q.reset_launch_counts()
     t0 = time.perf_counter()
     served = []
     with ServingEngine(model, max_batch_size=8, quantize=True,
@@ -3742,7 +3958,7 @@ def int8_serving(card, model, xs):
             served.append((req, fut.result(timeout=300), fut))
         twin, detail = eng._qmodel, eng._gate_detail
     torch.cuda.synchronize()
-    launches = k6.LAUNCHES["int8_conv"]
+    launches = dict(k6.LAUNCHES, **k6q.LAUNCHES)
     other = sum(fa.LAUNCHES.values()) + sum(ce.LAUNCHES.values())
     mismatched = []
     for i, (req, got, fut) in enumerate(served):
@@ -3756,12 +3972,15 @@ def int8_serving(card, model, xs):
     row = {"phase": "int8_serving", "requests": INT8_SERVE_REQUESTS,
            "engine_start_s": start_s, "served": results,
            "mismatched": mismatched, "gate": detail,
-           "k6_launches": launches, "other_kernel_launches": other,
+           "launches": launches, "other_kernel_launches": other,
            "card": card}
     emit(row)
-    # 53 a forward: the gate's batch and each request
-    if mismatched or other or \
-            launches != RESNET_CONVS * (INT8_SERVE_REQUESTS + 1):
+    # a forward each for the gate's batch and each request
+    forwards = INT8_SERVE_REQUESTS + 1
+    if mismatched or other or launches != {
+            "int8_conv": (RESNET_CONVS - 1) * forwards,
+            "int8_conv_gather": forwards,
+            "act_quant": (RESNET_CONVS + 1) * forwards}:
         raise AssertionError(f"int8 serving: {row}")
     return row
 
@@ -4004,11 +4223,13 @@ def supervisor_drill(card):
 
 
 def int8_phase(card):
-    """Phase 13 (module docstring): K6's rows, int8 ResNet-50, serving,
-    the recipe's host services and the supervisor.  Returns K6's rows
-    and the main path's K6 launches by leg."""
+    """Phase 13 (module docstring): K6's and K6q's rows, int8 ResNet-50,
+    serving, the recipe's host services and the supervisor.  Returns the
+    rows the kernel line reports and the main path's K6 and K6q launches
+    by leg."""
     t0 = time.perf_counter()
-    rows = int8_conv_rows(card)
+    conv_rows = int8_conv_rows(card)
+    quant_rows = act_quant_rows(card)
     resnet, model, twin, xs = int8_resnet(card)
     del twin
     serving = int8_serving(card, model, xs)
@@ -4019,8 +4240,11 @@ def int8_phase(card):
     supervisor_drill(card)
     emit({"phase": "int8_phase_done", "seconds": time.perf_counter() - t0,
           "card": card})
-    return rows, {"int8_resnet": {"int8_conv": resnet["k6_launches"]},
-                  "int8_serving": {"int8_conv": serving["k6_launches"]}}
+    rows = {"int8_conv": conv_rows[INT8_CONV_KEY_ROW],
+            "int8_conv_gather": conv_rows[INT8_GATHER_KEY_ROW],
+            "act_quant": quant_rows[ACT_QUANT_KEY_ROW]}
+    return rows, {"int8_resnet": resnet["launches"],
+                  "int8_resnet_serving": serving["launches"]}
 
 
 def main():
@@ -4049,7 +4273,9 @@ def main():
           "libraries": [lib.name for lib in libs],
           "ptxas": {stem: ptxas_report(log)
                     for stem, log in _build.build_logs().items()}})
-    emit({"phase": "sass", "hmma": tensor_core_instructions(_build, libs)})
+    emit({"phase": "sass",
+          "tensor_core_instructions": tensor_core_instructions(_build,
+                                                               libs)})
 
     rows = kernel_phase(fa, card)
     serving, fp32_tok_s = e2e_phase(fa, card, *serving_models())
@@ -4065,7 +4291,7 @@ def main():
     phase11 = large_phase(fa, ce, card)
     resnet_phase(card)
     int8_rows, phase13 = int8_phase(card)
-    rows["int8_conv"] = int8_rows[INT8_CONV_KEY_ROW]
+    rows.update(int8_rows)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -4092,6 +4318,13 @@ def main():
         "int8_conv": ("bigdl_tpu_torch/csrc/int8_conv.cu",
                       "bigdl_tpu/nn/quantized.py:110 (int8_conv: an XLA "
                       "conv_general_dilated, no pallas_call)"),
+        "int8_conv_gather": ("bigdl_tpu_torch/csrc/int8_conv.cu",
+                             "bigdl_tpu/nn/quantized.py:110 (int8_conv, cin "
+                             "a group off 16: the stem; no pallas_call)"),
+        "act_quant": ("bigdl_tpu_torch/csrc/act_quant.cu",
+                      "bigdl_tpu/nn/quantized.py:88 _quantize_activation "
+                      "(pure JAX in int8_conv :110 and int8_matmul :96, no "
+                      "pallas_call)"),
     }
     # the head_dim 96 instantiations ("large"), launched by phase 11 only
     for name in ("flash_attention", "flash_attention_bf16",
@@ -4100,16 +4333,16 @@ def main():
                  "flash_paged_decode_attention_int8"):
         source, replaces = kernels_of[name]
         kernels_of[f"{name}_d96"] = (source, replaces + ", head_dim 96")
+    paths = (("serving", serving), ("training", training),
+             ("training_bf16", training_bf16), ("int8_serving", int8_serving),
+             *phase10.items(), *phase11.items(), *phase13.items())
+    if len(dict(paths)) != len(paths):
+        raise AssertionError(f"two paths share a name: "
+                             f"{[p for p, _ in paths]}")
     kernels = []
     for name, (source, replaces) in kernels_of.items():
         row = rows[name]
-        by_path = {path: counts[name]
-                   for path, counts in (("serving", serving),
-                                        ("training", training),
-                                        ("training_bf16", training_bf16),
-                                        ("int8_serving", int8_serving),
-                                        *phase10.items(), *phase11.items(),
-                                        *phase13.items())
+        by_path = {path: counts[name] for path, counts in paths
                    if counts.get(name)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -20,6 +20,8 @@ Tolerances:
   code's worth.  None flips at these seeds; a failure would say so.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -38,6 +40,7 @@ from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.interop import (load_jax_params, load_jax_state,
                                      to_jax_params)
 from bigdl_tpu_torch.nn import quantized as tq
+from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops import int8_conv as k6
 from bigdl_tpu_torch.serving import ServingEngine
 
@@ -414,3 +417,222 @@ def test_int8_serving_engine_on_lenet_matches_jax():
             assert got.shape == want.shape == (10,)
             err = np.abs(got - want).max() / np.abs(want).max()
             assert err <= MODEL_TOL, (i, err)
+
+
+# --------------------------------------------------------------------------- #
+# K6's packed weight (the wgmma kernel's B operand) and the wrapper's card
+# path, through a stand-in library (no card here)
+# --------------------------------------------------------------------------- #
+
+def _packed_acc(x_q, w_packed, kernel, cin_g, stride, pads, dilation,
+                groups, cout):
+    """The exact int32 sums from the PACKED weight (the wgmma kernel's B
+    operand): unpacked back to HWIO, then ``int8_conv_acc_reference``."""
+    kh, kw = kernel
+    k = kh * kw * cin_g
+    cout_pad = w_packed.shape[0] // groups
+    w = w_packed.reshape(groups, cout_pad, -1)[:, :cout // groups, :k]
+    w_q = w.permute(2, 0, 1).reshape(kh, kw, cin_g, cout)
+    return k6.int8_conv_acc_reference(x_q, w_q, stride, pads, dilation,
+                                      groups)
+
+
+@pytest.mark.parametrize("k,s,p,d,cin,groups", GRID)
+def test_packed_weight_gives_the_same_sums(k, s, p, d, cin, groups):
+    """``pack_weight`` at every grid shape: K-contiguous rows, zero
+    padding to the kernel's tiles, and the exact sums from the packed
+    matrix equal to ``int8_conv_acc_reference`` over the HWIO weight."""
+    rng = np.random.default_rng(k * 1000 + s * 100 + d * 10 + cin + groups
+                                + 7)
+    cout = 8
+    x_q = torch.from_numpy(rng.integers(-127, 128, (2, 15, 13, cin),
+                                        dtype=np.int8))
+    w_q = torch.from_numpy(rng.integers(-127, 128,
+                                        (k, k, cin // groups, cout),
+                                        dtype=np.int8))
+    packed = k6.pack_weight(w_q, groups)
+    cin_g, cout_g = cin // groups, cout // groups
+    kk = k * k * cin_g
+    k_pad = -(-kk // k6.STAGE_K) * k6.STAGE_K
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert packed.shape == (groups * 64, k_pad)
+    blocks = packed.reshape(groups, 64, k_pad)
+    assert not blocks[:, cout_g:].any() and not blocks[:, :, kk:].any()
+    for g in range(groups):              # row o: channel g * cout_g + o
+        want = w_q[..., g * cout_g:(g + 1) * cout_g].reshape(kk, cout_g)
+        assert torch.equal(blocks[g, :cout_g, :kk], want.t())
+    pads = tq._conv_padding(_jax_padding(p), x_q, (k, k), (s, s), (d, d))
+    got = _packed_acc(x_q, packed, (k, k), cin_g, (s, s), pads, (d, d),
+                      groups, cout)
+    want = k6.int8_conv_acc_reference(x_q, w_q, (s, s), pads, (d, d),
+                                      groups)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cout_g,tile", [(5, 64), (64, 64), (65, 128),
+                                         (128, 128), (200, 128)])
+def test_packed_weight_pads_to_the_kernel_tile(cout_g, tile):
+    w_q = torch.ones((3, 3, 16, 2 * cout_g), dtype=torch.int8)
+    packed = k6.pack_weight(w_q, 2)
+    assert k6.tile_n(cout_g) == tile
+    assert packed.shape == (2 * -(-cout_g // tile) * tile, 256)
+
+
+def _quantized_conv(seed, cin=16, groups=1):
+    rng = np.random.default_rng(seed)
+    conv = nn.SpatialConvolution(cin, 32, 3, 3, 1, 1, 1, 1, n_group=groups)
+    load_jax_params(conv, {
+        "weight": rng.standard_normal((3, 3, cin // groups, 32))
+        .astype(np.float32),
+        "bias": rng.standard_normal(32).astype(np.float32)})
+    return tq.QuantizedSpatialConvolution(conv)
+
+
+def test_a_reloaded_weight_is_packed_anew():
+    """The packed copy follows the weight: the same copy while the
+    weight is unchanged; a new one after ``copy_`` of new values into
+    ``weight_q`` (a load in place), whose sums are the freshly quantized
+    twin's and not the old ones; off the parameter tree; dropped by a
+    deep copy."""
+    import copy
+
+    layer, fresh = _quantized_conv(1), _quantized_conv(2)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 8, 8, 16), np.float32))
+    x_q, _ = tq._quantize_activation(x)
+    old = tq.packed_weight(layer)
+    assert tq.packed_weight(layer) is old
+    keys = set(layer.parameters_tree())
+    with torch.no_grad():
+        layer.weight_q.copy_(fresh.weight_q)
+        layer.scale.copy_(fresh.scale)
+        layer.bias.copy_(fresh.bias)
+    new = tq.packed_weight(layer)
+    assert new is not old and set(layer.parameters_tree()) == keys
+
+    def sums(packed):
+        return _packed_acc(x_q, packed, (3, 3), 16, (1, 1),
+                           ((1, 1), (1, 1)), (1, 1), 1, 32)
+
+    assert torch.equal(sums(new), sums(tq.packed_weight(fresh)))
+    assert not torch.equal(sums(new), sums(old))
+    assert torch.equal(layer(x), fresh(x))
+    assert "_k6_packed" not in dict(layer.named_buffers())
+    assert copy.deepcopy(layer).__dict__["_k6_packed"].packed is None
+
+
+def test_a_rebound_weight_is_packed_anew():
+    """``quantize_model``'s ``_bind`` installs new tensors: a twin's
+    layer packs its own weight, never a packed copy of another's."""
+    model = nn.Sequential().add(_quantized_conv(4))
+    first = tq.packed_weight(model[0] if hasattr(model, "__getitem__")
+                             else model._modules["0"])
+    layer = model._modules["0"]
+    tq._bind(layer, {k: v * 0 if v.dtype == torch.int8 else v
+                     for k, v in layer.parameters_tree().items()})
+    again = tq.packed_weight(layer)
+    assert again is not first and not again.any()
+    assert first.any()
+
+
+def test_packed_weight_bytes_counts_the_cached_copies():
+    """``packed_weight_bytes`` counts what the layers hold now (the CPU
+    forward packs nothing), and ``model_bytes`` never counts it."""
+    model = nn.Sequential().add(_quantized_conv(6)).add(
+        _quantized_conv(7, cin=32)).add(_quantized_conv(8, cin=6, groups=2))
+    layers = list(model._modules.values())
+    params = tq.model_bytes(model.parameters_tree())
+    for m, cin in zip(layers, (16, 32, 6)):
+        m(torch.zeros((1, 5, 5, cin)))
+    assert tq.packed_weight_bytes(model) == 0
+    packed = [tq.packed_weight(m) for m in layers]
+    assert packed[2] is None
+    assert tq.packed_weight_bytes(model) == 64 * 256 + 64 * 384
+    assert tq.model_bytes(model.parameters_tree()) == params
+
+
+def test_the_gather_shapes_take_no_packed_weight():
+    assert tq.packed_weight(_quantized_conv(5, cin=6, groups=2)) is None
+    assert k6.uses_wgmma(16) and k6.uses_wgmma(48) and not k6.uses_wgmma(3)
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """The wrapper's card path on CPU tensors: every launch recorded by
+    entry point."""
+    seen = []
+
+    def entry(name):
+        def launch(*args):
+            seen.append((name, args))
+            return 0
+        return launch
+
+    monkeypatch.setattr(k6, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(k6, "_stream", lambda: None)
+    monkeypatch.setattr(_build, "load", lambda: types.SimpleNamespace(
+        bigdl_int8_conv=entry("gather"),
+        bigdl_int8_conv_wgmma=entry("wgmma")))
+    for key in k6.LAUNCHES:
+        monkeypatch.setitem(k6.LAUNCHES, key, 0)
+    return seen
+
+
+def _conv_args(cin, cout, groups, k=3):
+    rng = np.random.default_rng(cin + cout)
+    x_q = torch.from_numpy(rng.integers(-127, 128, (2, 9, 9, cin),
+                                        dtype=np.int8))
+    w_q = torch.from_numpy(rng.integers(-127, 128,
+                                        (k, k, cin // groups, cout),
+                                        dtype=np.int8))
+    return x_q, w_q, torch.ones(cout), torch.tensor(0.5)
+
+
+@pytest.mark.parametrize("cin,cout,groups,path", [
+    (16, 8, 1, "wgmma"), (64, 64, 1, "wgmma"), (96, 256, 2, "wgmma"),
+    (3, 64, 1, "gather"), (6, 6, 1, "gather"), (32, 12, 4, "gather")])
+def test_the_shape_picks_the_kernel(card, cin, cout, groups, path):
+    x_q, w_q, scale, xs = _conv_args(cin, cout, groups)
+    out = k6.int8_conv_nhwc(x_q, w_q, scale, xs, None, (1, 1),
+                            ((1, 1), (1, 1)), (1, 1), groups)
+    assert out.shape == (2, 9, 9, cout)
+    assert [name for name, _ in card] == [path]
+    key = "int8_conv" if path == "wgmma" else "int8_conv_gather"
+    assert k6.LAUNCHES == {"int8_conv": key == "int8_conv",
+                           "int8_conv_gather": key == "int8_conv_gather"}
+    args = card[0][1]
+    if path == "wgmma":                  # packed at the call: its pads
+        cout_g = cout // groups
+        k_pad, cout_pad = args[2], args[3]
+        assert k_pad == -(-9 * cin // groups // 128) * 128
+        assert cout_pad == -(-cout_g // k6.tile_n(cout_g)) * \
+            k6.tile_n(cout_g)
+    assert args[-1] is None and args[-2] == cout and args[-3] == groups
+
+
+def test_the_wrapper_refuses_what_the_kernels_do_not_take(card):
+    x_q, w_q, scale, xs = _conv_args(16, 8, 1)
+    conv = ((1, 1), ((1, 1), (1, 1)), (1, 1), 1)
+    with pytest.raises(TypeError):       # a float input
+        k6.int8_conv_nhwc(x_q.float(), w_q, scale, xs, None, *conv)
+    with pytest.raises(TypeError):       # fp16 out
+        k6.int8_conv_nhwc(x_q, w_q, scale, xs, None, *conv,
+                          out_dtype=torch.float16)
+    with pytest.raises(ValueError):      # channels and groups disagree
+        k6.int8_conv_nhwc(x_q, w_q, scale, xs, None, (1, 1),
+                          ((1, 1), (1, 1)), (1, 1), 3)
+    with pytest.raises(ValueError):      # a scale of the wrong shape
+        k6.int8_conv_nhwc(x_q, w_q, scale[:4], xs, None, *conv)
+    with pytest.raises(ValueError):      # a packed weight of another shape
+        k6.int8_conv_nhwc(x_q, w_q, scale, xs, None, *conv,
+                          w_packed=k6.pack_weight(w_q)[:, :64])
+    with pytest.raises(ValueError):      # a packed weight of another layer
+        k6.int8_conv_nhwc(x_q, w_q, scale, xs, None, *conv,
+                          w_packed=k6.pack_weight(w_q[:1, :1]))
+    assert not card
+
+
+def test_the_wrapper_refuses_a_device_mix():
+    x_q, w_q, scale, xs = _conv_args(16, 8, 1)
+    with pytest.raises(ValueError):
+        k6.int8_conv_nhwc(x_q, w_q.to("meta"), scale, xs)

@@ -9,13 +9,16 @@ Each checkout runs in a fresh process that imports its own
 ``chip_smoke.py`` and ``bigdl_tpu_torch``, builds its kernels into its
 own build directory, and times phase 3's rows (K1, K2, K3, and the
 empty-kernel floor where the checkout has it) and, where the checkout
-has it, phase 8's (K3q), then K1 and K1-bwd at phase 3's and
+has it, phase 8's (K3q) and phase 13's K6 rows (``int8_conv_rows``:
+ResNet-50's convolutions at batch 128 and two coverage shapes, each
+held bitwise against its plain version), then K1 and K1-bwd at phase 3's and
 phase 6's shapes (``K1_SHAPES``, ``K1_BWD_SHAPES``: fp32, H 12, D 64,
 causal, q/k/v views of one fused buffer) through the checkout's own
 wrappers, so that a checkout without a row still gets it timed: device
 time from CUDA-graph replays.
 Prints one JSON line per checkout, with the card's name and power limit:
-``{"checkout": ..., "card": ..., "<kernel>_<case>": ms, ...}``.  Then,
+``{"checkout": ..., "card": ..., "<kernel>_<case>": ms, "K6_<row>": ms,
+...}``.  Then,
 for each checkout after the first, one line comparing the SASS of every
 attention kernel instantiation it shares with the first (``cuobjdump
 -sass`` of each checkout's ``flash_attention`` library; the split-KV
@@ -79,8 +82,11 @@ def one(root):
     cs.kernel_phase(fa, card)
     if hasattr(cs, "int8_kernel_phase"):
         cs.int8_kernel_phase(fa, card)
+    if hasattr(cs, "int8_conv_rows"):
+        cs.int8_conv_rows(card)
     print(json.dumps({"checkout": root, "card": card,
-                      **{f"{r['name']}_{r['case']}": r["ms"]
+                      **{f"K6_{r['shape']}" if r.get("phase") == "int8_conv"
+                         else f"{r['name']}_{r['case']}": r["ms"]
                          for r in rows},
                       **attention_rows(cs, fa)}), flush=True)
 
