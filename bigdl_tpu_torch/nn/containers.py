@@ -102,7 +102,9 @@ def unstack_layer_trees(tree):
 
 
 class Sequential(Container):
-    """Feed-forward chain (reference: nn/Sequential.scala)."""
+    """Feed-forward chain (reference: nn/Sequential.scala).  In an int8
+    twin's eval forward the chain runs through its fused plan
+    (``nn/fused.py``: BatchNorm, residual add and ReLU by K7)."""
 
     def __init__(self, *modules, name=None):
         super().__init__(name)
@@ -110,6 +112,12 @@ class Sequential(Container):
             self.add(m)
 
     def forward(self, x):
+        if "_fused_plan" in self.__dict__:
+            from bigdl_tpu_torch.nn.fused import plan_of
+
+            plan = plan_of(self)
+            if plan is not None:
+                return plan.run(self, x)
         for m in self._modules.values():
             x = m(x)
         return x

@@ -63,6 +63,20 @@ class _Moments(torch.autograd.Function):
         return g.to(x.dtype).expand_as(x), None
 
 
+def batch_norm_affine(x, mean, var, weight, bias, eps):
+    """``x * scale + shift`` in ``x``'s dtype, the per-channel (last axis)
+    scale and shift formed from the statistics as JAX forms them
+    (``nn/normalization.py:97-102``); ``weight`` and ``bias`` None without
+    affine parameters.  K7 (``ops/bn_act.py``) rounds as these operations
+    do."""
+    inv = torch.rsqrt(var + eps)
+    scale, shift = inv, -mean * inv
+    if weight is not None:
+        scale = scale * weight
+        shift = shift * weight + bias
+    return x * scale.to(x.dtype) + shift.to(x.dtype)
+
+
 class BatchNormalization(Module):
     """Batch norm over ``(N, C)`` inputs; ``weight`` / ``bias`` (affine) are
     parameters, ``running_mean`` / ``running_var`` the state."""
@@ -105,12 +119,8 @@ class BatchNormalization(Module):
                         (1 - m) * self.running_var + m * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.eps)
-        scale, shift = inv, -mean * inv
-        if self.affine:
-            scale = scale * self.weight
-            shift = shift * self.weight + self.bias
-        return x * scale.to(x.dtype) + shift.to(x.dtype)
+        return batch_norm_affine(x, mean, var, self.weight, self.bias,
+                                 self.eps)
 
 
 class SpatialBatchNormalization(BatchNormalization):

@@ -15,7 +15,10 @@ convolution (``int8_conv``) has no library call on the card: it runs
 through the hand-written kernel K6 (``ops/int8_conv.py``), the exact
 int32 sum, the scaling, the layer's bias and its cast in one launch; a
 convolution layer keeps K6's packed copy of its weight in a cache off the
-parameter tree (``int8_conv_layer``).
+parameter tree (``int8_conv_layer``).  Both rewrites give the model a
+fused eval plan (``nn/fused.py``): in eval mode BatchNorm, the residual
+add and ReLU run as K7 (``ops/bn_act.py``), whose output K6q quantizes
+reading it once.
 
 ``quantize_model(model)`` returns the int8 TWIN: a copy of the module
 tree whose ``Linear``, ``SpatialConvolution`` /
@@ -319,11 +322,14 @@ def quantize(model: Module) -> Module:
     and nested containers walked, is swapped for its int8 twin with the
     trained weights quantized.  All or nothing: on any exception the
     swaps made so far are undone, in reverse, before it propagates.
-    Returns the model, in eval mode.
+    Returns the model, in eval mode, with its fused eval plan
+    (``nn/fused.py``).
 
     For the non-mutating serving path (every container, ``TransformerLM``,
     a ``select`` predicate, the fp32 original kept) use
     :func:`quantize_model`."""
+    from bigdl_tpu_torch.nn.fused import attach
+
     undo = []
     try:
         _quantize_children(model, undo)
@@ -331,7 +337,7 @@ def quantize(model: Module) -> Module:
         for fn in reversed(undo):
             fn()
         raise
-    return model.eval()
+    return attach(model).eval()
 
 
 def _swap_child(module, key, q, undo):
@@ -467,15 +473,18 @@ def quantize_model(model: Module, params=None,
     ``qparams`` is :func:`quantize_params` of ``params`` (default: the
     model's weights); ``qmodel`` is a copy of ``model``'s module tree
     holding ``qparams`` (int8 payloads and fp32 scales at the quantized
-    sites, copies of the other leaves), in eval mode.  ``model`` is not
-    changed and the two share no tensor."""
+    sites, copies of the other leaves), in eval mode, with its fused eval
+    plan (``nn/fused.py``).  ``model`` is not changed and the two share no
+    tensor."""
+    from bigdl_tpu_torch.nn.fused import attach
+
     qparams = quantize_params(model, params, select)
     # copy the modules without their fp32 tensors: each parameter maps
     # to None in the memo, then _bind installs the quantized tree
     memo = {id(p): None for p in model.parameters()}
     qmodel = copy.deepcopy(model, memo)
     _bind(qmodel, qparams)
-    qmodel.eval()
+    attach(qmodel).eval()
     return qmodel, qparams
 
 

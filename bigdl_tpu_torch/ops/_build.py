@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_bwd.cu",
            CSRC / "cross_entropy.cu", CSRC / "int8_conv.cu",
-           CSRC / "act_quant.cu")
+           CSRC / "act_quant.cu", CSRC / "bn_act.cu")
 HEADERS = (CSRC / "common.cuh", CSRC / "mma.cuh", CSRC / "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -135,6 +135,10 @@ def _declare(libs):
         "bigdl_int8_conv": [p, p, p, p, p, p] + [i] * 17 + [p],
         "bigdl_int8_conv_wgmma": [p, p, i, i, p, p, p, p] + [i] * 17 + [p],
         "bigdl_act_quant": [p, i64, i, p, p, p, i, p],
+        "bigdl_act_quant_given": [p, i64, i, p, p, p, i, p],
+        "bigdl_act_quant_small": [p, i64, i, p, p, i, p],
+        "bigdl_bn_act": [p, p, p, i64, i, i, p, p, p, p, f, p, p, p, p, f, i,
+                         p, i, p],
     }
     ns = types.SimpleNamespace()
     for name, argtypes in signatures.items():

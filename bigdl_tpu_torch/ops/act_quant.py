@@ -1,5 +1,5 @@
-"""Per-tensor int8 activation quantization: one hand-written CUDA kernel
-pair (K6q, ``csrc/act_quant.cu``) and its plain PyTorch version.
+"""Per-tensor int8 activation quantization: one hand-written CUDA source
+(K6q, ``csrc/act_quant.cu``, three routes) and its plain PyTorch version.
 
 Counterpart of ``bigdl_tpu/nn/quantized.py:88`` ``_quantize_activation``
 (pure JAX, no ``pallas_call``), which every ``int8_conv`` and
@@ -16,13 +16,35 @@ quotients are IEEE divisions, ``round`` is half to even, and a NaN in
 by its reciprocal (one rounding more), its CPU division does not, and the
 JAX package's eager ``/ 127.0`` is the IEEE quotient.
 
-The wrapper sends a CPU tensor to the plain version and a CUDA tensor to
-the kernel (a memset of its 4-byte scratch, the absmax pass, the
-quantize pass, all on the current stream, so a CUDA graph replays all
-three); it raises on anything the kernel does not take (no fallback).
-``LAUNCHES["act_quant"]`` counts one a quantization, through
-``flash_attention``'s ``count_launch``, so CUDA graph replays add them.
+``act_quant`` picks one of three routes by what it is given and by the
+input's size (``select_route``), never because something failed:
+
+- ``act_quant_given``: ``x`` is the very tensor K7 (``ops/bn_act.py``)
+  wrote, at the version it wrote (``hand_off``: kept on the tensor object
+  with its ``_version``, so an in-place change, a view, a slice or a copy
+  is not given), and K7 left ``max |x|`` in a 4-byte scratch: one
+  quantize pass reads ``x`` once;
+- ``act_quant_small``: ``x`` of at most ``SMALL_LIMIT`` elements: one
+  launch of one thread-block cluster, no memset;
+- ``act_quant``: a memset of a 4-byte scratch, the absmax pass and the
+  quantize pass.
+
+The wrapper sends a CPU tensor to the plain version of its route (the
+given route's plain version reads the absmax K7's plain version left), so
+the routes' choice runs, and is tested, on the CPU too; a CUDA tensor goes
+to the kernel, on the current stream (a CUDA graph replays every node), or
+the call raises (no fallback).  ``LAUNCHES[route]`` counts one a
+quantization on the card, through ``flash_attention``'s ``count_launch``,
+so CUDA graph replays add them.
+
+Inside ``quantize_once()`` each tensor version is quantized once: the
+fused eval plan (``nn/fused.py``) runs a residual block's two branches in
+it, so a downsampling block's ``conv1`` and its shortcut convolution share
+the quantization of the block's input.
 """
+
+import contextlib
+import threading
 
 import torch
 
@@ -32,25 +54,101 @@ from bigdl_tpu_torch.ops.flash_attention import (_raise_on, _stream,
                                                   register_launch_table,
                                                   sm_count)
 
-#: kernel launches since the last ``reset_launch_counts()``
-LAUNCHES = {"act_quant": 0}
+ROUTES = ("act_quant", "act_quant_given", "act_quant_small")
+
+#: kernel launches since the last ``reset_launch_counts()``, by route
+LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 register_launch_table("act_quant", LAUNCHES)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: the small route's largest input, in elements: up to it one cluster's
+#: launch beats the three-node route on the card at every size measured,
+#: fp32 and bf16 (``tools/torch_act_quant_limit.py``; PERF.md)
+SMALL_LIMIT = 98304
+#: elements a block of the small route takes (1024 threads, two 16-byte
+#: vectors each in fp32), and its most blocks (the portable cluster size)
+SMALL_BLOCK_ELEMENTS = 8192
+SMALL_MAX_BLOCKS = 8
+
+_HAND_OFF = "_k6q_absmax"
+_scope = threading.local()
+
 
 def reset_launch_counts():
-    LAUNCHES["act_quant"] = 0
+    for route in ROUTES:
+        LAUNCHES[route] = 0
+
+
+def _version(t):
+    """``t._version``, or None for an inference tensor, which keeps none
+    (an in-place change would not show)."""
+    return None if t.is_inference() else t._version
+
+
+def hand_off(y, absmax_bits):
+    """Record on ``y`` that ``absmax_bits`` (one int32 element: the bits of
+    ``max |y|``, written on ``y``'s stream ahead of any later use) holds
+    ``y``'s absmax at ``y``'s current version (K7 calls this)."""
+    version = _version(y)
+    if version is not None:
+        y.__dict__[_HAND_OFF] = (version, absmax_bits)
+
+
+def handed_off_absmax(x):
+    """The absmax bits handed off with ``x`` if ``x`` is still at the
+    version its producer wrote, else None."""
+    entry = x.__dict__.get(_HAND_OFF)
+    if entry is None or entry[0] != _version(x):
+        return None
+    return entry[1]
+
+
+def select_route(x):
+    """``(route, absmax_bits or None)`` for ``x`` (module docstring)."""
+    absmax = handed_off_absmax(x)
+    if absmax is not None:
+        return "act_quant_given", absmax
+    if x.numel() <= SMALL_LIMIT:
+        return "act_quant_small", None
+    return "act_quant", None
+
+
+@contextlib.contextmanager
+def quantize_once():
+    """Within the block ``act_quant`` quantizes each tensor version once
+    and hands the same ``(x_q, x_scale)`` to every later call on it (the
+    whole block's calls are one capture or one eager run: nothing is kept
+    past it)."""
+    outer = getattr(_scope, "done", None)
+    if outer is None:
+        _scope.done = {}
+    try:
+        yield
+    finally:
+        if outer is None:
+            _scope.done = None
+
+
+def _quantize_plain(x32, absmax):
+    absmax = absmax.clamp_min(1e-8)
+    scale = absmax / absmax.new_full((), 127.0)
+    x_q = torch.round(x32 / scale).clamp(-127, 127).to(torch.int8)
+    return x_q, scale
 
 
 def act_quant_reference(x):
     """The plain version: the same roundings on the CPU and the card."""
     x32 = x.to(torch.float32)
-    absmax = x32.abs().amax().clamp_min(1e-8)
-    scale = absmax / absmax.new_full((), 127.0)
-    x_q = torch.round(x32 / scale).clamp(-127, 127).to(torch.int8)
-    return x_q, scale
+    return _quantize_plain(x32, x32.abs().amax())
+
+
+def act_quant_given_reference(x, absmax_bits):
+    """The given route's plain version: the absmax read from the bits
+    ``x``'s producer left (exact, so the result is the plain version's)."""
+    absmax = absmax_bits.reshape(()).view(torch.float32)
+    return _quantize_plain(x.to(torch.float32), absmax)
 
 
 def _on_cpu(x):
@@ -70,19 +168,69 @@ def _check(x):
         raise ValueError("act_quant: x is empty (no absmax to scale by)")
 
 
-def act_quant(x):
-    """K6q (module docstring): ``(x_q int8 of x's shape, x_scale fp32
-    0-d)``."""
-    if _on_cpu(x):
-        return act_quant_reference(x)
+def _outputs(x):
+    return (torch.empty(x.shape, dtype=torch.int8, device=x.device),
+            torch.empty((), dtype=torch.float32, device=x.device))
+
+
+def small_blocks(n):
+    """The small route's blocks (one cluster) for ``n`` elements."""
+    return max(1, min(SMALL_MAX_BLOCKS, -(-n // SMALL_BLOCK_ELEMENTS)))
+
+
+def _launch(x, route, absmax):
     _check(x)
     x = x.contiguous()
-    x_q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    x_scale = torch.empty((), dtype=torch.float32, device=x.device)
-    scratch = torch.empty(1, dtype=torch.int32, device=x.device)
-    rc = _build.load().bigdl_act_quant(
-        x.data_ptr(), x.numel(), _DTYPES[x.dtype], scratch.data_ptr(),
-        x_q.data_ptr(), x_scale.data_ptr(), sm_count(x.device), _stream())
-    _raise_on(rc, "act_quant")
-    count_launch("act_quant", "act_quant")
+    x_q, x_scale = _outputs(x)
+    lib = _build.load()
+    if route == "act_quant_given":
+        if absmax.device != x.device or absmax.dtype != torch.int32 or \
+                absmax.numel() != 1:
+            raise ValueError(f"act_quant: the absmax handed off must be one "
+                             f"int32 on {x.device}, got {absmax.dtype} "
+                             f"{tuple(absmax.shape)} on {absmax.device}")
+        rc = lib.bigdl_act_quant_given(
+            x.data_ptr(), x.numel(), _DTYPES[x.dtype], absmax.data_ptr(),
+            x_q.data_ptr(), x_scale.data_ptr(), sm_count(x.device),
+            _stream())
+    elif route == "act_quant_small":
+        rc = lib.bigdl_act_quant_small(
+            x.data_ptr(), x.numel(), _DTYPES[x.dtype], x_q.data_ptr(),
+            x_scale.data_ptr(), small_blocks(x.numel()), _stream())
+    else:
+        scratch = torch.empty(1, dtype=torch.int32, device=x.device)
+        rc = lib.bigdl_act_quant(
+            x.data_ptr(), x.numel(), _DTYPES[x.dtype], scratch.data_ptr(),
+            x_q.data_ptr(), x_scale.data_ptr(), sm_count(x.device),
+            _stream())
+    _raise_on(rc, route)
+    count_launch("act_quant", route)
     return x_q, x_scale
+
+
+def quantize_route(x, route, absmax=None):
+    """``(x_q, x_scale)`` of ``x`` through ``route`` (one of ``ROUTES``;
+    ``absmax``: the bits the given route reads): the plain version on the
+    CPU, the route's kernel on the card."""
+    if route not in ROUTES:
+        raise ValueError(f"act_quant: unknown route {route!r}")
+    if _on_cpu(x):
+        if route == "act_quant_given":
+            return act_quant_given_reference(x, absmax)
+        return act_quant_reference(x)
+    return _launch(x, route, absmax)
+
+
+def act_quant(x):
+    """K6q (module docstring): ``(x_q int8 of x's shape, x_scale fp32
+    0-d)`` through ``select_route(x)``'s route."""
+    done = getattr(_scope, "done", None)
+    version = _version(x) if done is not None else None
+    if version is not None:
+        hit = done.get(id(x))
+        if hit is not None and hit[0] is x and hit[1] == version:
+            return hit[2]
+    out = quantize_route(x, *select_route(x))
+    if version is not None:
+        done[id(x)] = (x, version, out)
+    return out

@@ -104,9 +104,10 @@ Phases, each printing JSON lines:
    (c)'s greedy streams equal to (a)'s (the fp32 model decoding alone
    over int8 KV) except at stated near-ties; K6q (``act_quant``, the
    int8 twin's activation quantization ahead of every ``torch._int_mm``)
-   launched by (b) and by (c)'s drafter, never by (a), and held bitwise
-   against its plain version at every input shape the built steps gave
-   it;
+   launched by (b) and by (c)'s drafter, its small route among them,
+   never by (a), counted by route, and its small route held bitwise
+   against its plain version and timed beside its three-node route at
+   every input shape the built steps gave it;
 10. evaluation, checkpoints and L-BFGS: TransformerLM "small" (seed 0),
     29 held-out sequences of 1024 tokens (``synthetic_corpus`` seed 1) at
     batch 8, three full batches and a ragged one of 5: (a) ``validate``
@@ -194,7 +195,8 @@ Phases, each printing JSON lines:
     resumed into a fresh model to step 8, against the straight run, both
     with ``cudnn.deterministic`` (``RESUME_RTOL``); (e) ``lenet-train``, ``vgg-train``,
     ``resnet-train --depth 20`` and ``inception-train --version v1``, 4
-    iterations each through ``models/run.py``.
+    iterations each through ``models/run.py``; the phase launches no K7
+    (the float models keep their modules; counted).
 13. int8 inference of the CNN zoo and the recipes' host services: (a) K6
     ``int8_conv`` (``csrc/int8_conv.cu``: the ``wgmma`` s8 implicit GEMM
     over the packed K-major weight, and the byte-gather ``mma.sync``
@@ -208,31 +210,45 @@ Phases, each printing JSON lines:
     ``mma.sync`` kernel it replaced, its
     plain version, im2col plus ``torch._int_mm`` (the same int32 sums,
     checked exact) and cuDNN's bf16 channels-last convolution of the
-    float layer; then K6q ``act_quant`` (``csrc/act_quant.cu``) at every
-    distinct input shape of ResNet-50's convolutions and head at batch
-    128, ``x_q`` and ``x_scale`` bitwise its plain version, timed beside
-    its bound (x read once, x_q written once: 5 bytes an fp32 element),
-    its two-pass floor (9 bytes where x and x_q do not fit in L2 together)
-    and its plain version; (b) ResNet-50
-    (seed 0, the running statistics of one training forward) quantized
-    by ``quantize_model`` and by ``quantize()`` on a copy (bitwise-equal
-    logits), 228 images through ``Predictor`` and the compiled eval step
-    at batch 128 (a batch: 52 wgmma K6 launches, 1 gather K6 launch and
-    54 K6q launches counted through the replays, none of another kernel;
-    the ragged batch against the twin's eager eval of the same padded
-    batch), held bitwise against the twin with both halves plain (the
-    plain quantizer and the plain convolution; else the first layer that
-    differs) and against the fp32 model (relative logit error, top-1
-    agreement, ``AccuracyDeltaGate``); images/s of the compiled int8,
-    fp32 and bf16 eval, K6's and K6q's shares of the int8 forward's
-    device time, the kernels of one replay against the same graph with
-    the quantizer as PyTorch passes, no abs / round / amax
-    kernel left in the replay, the parameters' bytes fp32 / int8 (at
-    least 3.5, as JAX's bench holds), the packed weight copies' bytes
-    beside them and the int8 bytes the card holds, and peak memory; (c)
-    ``ServingEngine(resnet50, quantize=True, accuracy_gate=...)``: 8
-    ``predict`` requests one at a time, each bitwise the twin's eager eval
-    of the request padded to its rung, K6 53 and K6q 54 times a forward;
+    float layer; then one eager forward of the fused int8 twin at batch
+    128 records its K7 sites and K6q's quantizations by route; K7
+    ``bn_act`` (``csrc/bn_act.cu``: eval BatchNorm, the residual add and
+    ReLU in one pass, leaving max |y| for K6q) at each distinct (shape,
+    form) of those sites, ``y``'s bits and the absmax bitwise its plain
+    version, timed beside its bound (x, the residual and the BatchNorms'
+    buffers read once, y written once) and its plain version; K6q
+    ``act_quant`` (``csrc/act_quant.cu``) at each (shape, route) of those
+    quantizations -- the given route on a K7 output, the three-node route
+    (with its two-pass floor: 9 bytes where x and x_q do not fit in L2
+    together) -- and its small route at the head's input beside the
+    three-node route, ``x_q`` and ``x_scale`` bitwise its plain version,
+    timed beside its bound (x read once, x_q written once: 5 bytes an
+    fp32 element) and its plain version; (b) ResNet-50 (seed 0, the
+    running statistics of one training forward) quantized by
+    ``quantize_model`` and by ``quantize()`` on a copy (bitwise-equal
+    logits), its fused plan's site counts (49 K7 sites, no BatchNorm left
+    to its module), 228 images through ``Predictor`` and the compiled eval
+    step at batch 128 (a batch: 52 wgmma K6 launches, 1 gather K6 launch,
+    49 K7 launches and 50 K6q launches, 47 of them the given route,
+    counted through the replays, none of another kernel; the ragged batch
+    against the twin's eager eval of the same padded batch), held bitwise
+    against the twin with every plain version (the plain quantizer, K7's
+    and K6's; else the first convolution that differs) and against the
+    unfused twin with plain versions, and against the fp32 model (relative
+    logit error, top-1 agreement, ``AccuracyDeltaGate``); images/s of the
+    compiled int8, fp32 and bf16 eval (the float ones without a K7
+    launch), K6's, K6q's and K7's shares of the
+    int8 forward's device time and the time by kind, the kernels of one
+    replay against the same graph with the quantizer as PyTorch passes, no
+    abs / round / amax kernel left in the replay, the parameters' bytes
+    fp32 / int8 (at least 3.5, as JAX's bench holds), the packed weight
+    copies' bytes beside them and the int8 bytes the card holds, and peak
+    memory; (c) ``ServingEngine(resnet50, quantize=True,
+    accuracy_gate=...)``: 8 ``predict`` requests one at a time, each
+    bitwise the twin's eager eval of the request padded to its rung, K6
+    53, K7 49 and K6q 50 times a forward (47 given, the image, the
+    max-pool's output and the head's input small or three-node by their
+    size);
     (d)
     ``resnet-imagenet-train`` (bf16, batch 128, 12 iterations) through
     ``models/run.py`` with neither flag, with ``--summaryDir`` and with
@@ -1848,19 +1864,31 @@ def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
     if launches["a_int8_kv"][k3]:
         raise AssertionError(f"the int8-KV engine launched K3: "
                              f"{launches['a_int8_kv']}")
-    if launches["a_int8_kv"]["act_quant"] or any(
-            launches[label]["act_quant"] < 1
+    if any(launches["a_int8_kv"][route] for route in k6q.ROUTES) or any(
+            launches[label]["act_quant_small"] < 1
             for label in ("b_int8_twin", "c_speculative4_int8_kv")):
         raise AssertionError(f"K6q launches: the twin and the drafter "
-                             f"quantize their activations, the fp32 model "
+                             f"quantize their activations (their small "
+                             f"inputs by the small route), the fp32 model "
                              f"never: {launches}")
     # K6q at every input shape of the twins' steps (decode, prefill chunks
     # and drafts; the hidden width and the MLP's), after the counts were
-    # read
+    # read: both routes a random input can take, the small one and the
+    # three nodes, each bitwise against the plain version and timed, so
+    # the route the size picks on the main path is held at every shape
     g = torch.Generator(device="cuda").manual_seed(9)
-    quant_rows = [act_quant_row(card, torch.randn(
-        shape, generator=g, device="cuda").to(dtype), "int8_serving")
-        for shape, dtype in dict.fromkeys(quant_shapes)]
+    quant_rows = []
+    for shape, dtype in dict.fromkeys(quant_shapes):
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        row = act_quant_row(card, x, "int8_serving", "act_quant_small")
+        row["main_path_route"] = k6q.select_route(x)[0]
+        if row["main_path_route"] not in ("act_quant_small", "act_quant"):
+            raise AssertionError(f"K6q {shape}: a random input takes "
+                                 f"{row['main_path_route']}")
+        quant_rows.append(row)
+    small_row = max((r for r in quant_rows
+                     if r["main_path_route"] == "act_quant_small"),
+                    key=lambda r: r["elements"])
     want_ratio = (HEAD_DIM + 4) / (4 * HEAD_DIM)
     if abs(ratio - want_ratio) > 1e-9:
         raise AssertionError(f"int8/fp32 pool bytes per block {ratio}, "
@@ -1890,7 +1918,14 @@ def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
             ties.append({"engine": label, "round": rnd, "index": j, **t})
     emit({"phase": "int8_check", "launches": launches,
           "twin_act_quant_shapes": [r["shape"] for r in quant_rows],
-          "twin_act_quant_ms": [r["ms"] for r in quant_rows],
+          "twin_act_quant_routes": [r["main_path_route"]
+                                    for r in quant_rows],
+          "twin_act_quant_bitwise_small_three_node": [
+              [r["bitwise_equal_plain"], r["three_node_bitwise_equal_plain"]]
+              for r in quant_rows],
+          "twin_act_quant_small_ms": [r["ms"] for r in quant_rows],
+          "twin_act_quant_three_node_ms": [r["three_node_ms"]
+                                           for r in quant_rows],
           "pool_bytes_ratio_int8_fp32": ratio,
           "twin_model_bytes": twin_bytes,
           "fp32_model_bytes": model_bytes(model.parameters_tree()),
@@ -1902,7 +1937,7 @@ def int8_serving_phase(fa, card, model, plain_model, fp32_tok_s):
           "fp32_paged_tokens_per_s": fp32_tok_s,
           "peak_memory_bytes": peak, "card": card})
     return {k: sum(c[k] for c in launches.values())
-            for k in launches["a_int8_kv"]}
+            for k in launches["a_int8_kv"]}, small_row
 
 
 #: phase 10: held-out sequences (another seed of the corpus) validated and
@@ -3462,12 +3497,31 @@ INT8_CONV_MMA_SYNC_MS = {
 #: the rows the ``{"kernels": ...}`` line reports for K6's two kernels
 INT8_CONV_KEY_ROW = "3x3 64->64 @56"
 INT8_GATHER_KEY_ROW = "stem 7x7/2 3->64 @224"
-#: ... and for K6q: the largest convolution input
-ACT_QUANT_KEY_ROW = "(128, 56, 56, 256)"
+#: ... for K6q's routes: the given route at a block's output, the
+#: three-node route at the max-pool's output (the small route's row is
+#: phase 9's: ``int8_serving_phase``); and for K7 at a block's tail
+ACT_QUANT_KEY_ROWS = {"act_quant_given": "(128, 56, 56, 256)",
+                      "act_quant": "(128, 56, 56, 64)"}
+#: (a) the head's input, where K6q's small route is also timed against
+#: the three-node route
+RESNET_HEAD_INPUT = (128, 2048)
+BN_ACT_KEY_ROW = "(128, 56, 56, 256) BN + add + ReLU"
 #: (b) K6 launches in one ResNet-50 forward: the stem (the gather
 #: kernel), 16 bottlenecks of three convolutions, 4 projection shortcuts
-#: (the wgmma kernel); K6q quantizes each of their inputs and the head's
+#: (the wgmma kernel)
 RESNET_CONVS = 53
+#: (b) the fused plan of the twin (``nn/fused.py``): K7 launches a forward
+#: (the stem, two BatchNorm + ReLU sites and the tail of each of the 16
+#: bottlenecks, the 4 projection shortcuts' BatchNorms folded into their
+#: tails), and K6q's quantizations a forward: one for each distinct input
+#: of the 53 convolutions and the head (a downsampling block's conv1 and
+#: shortcut share theirs), 47 of them K7 outputs (the given route)
+RESNET_K7_SITES = 49
+RESNET_QUANTIZATIONS = 50
+RESNET_GIVEN = 47
+#: K7's forms, by the number ``resnet50_fused_sites`` gives them
+K7_FORMS = {1: "BN + ReLU", 2: "BN + add + ReLU",
+            3: "BN + BN(shortcut) + add + ReLU"}
 #: (b) Predictor batches of 128 through the compiled eval step (the
 #: second one ragged: 100 images padded to 128)
 INT8_PREDICT_IMAGES = 228
@@ -3603,24 +3657,45 @@ def int8_conv_rows(card):
     return rows
 
 
-def resnet50_quant_inputs(batch=RESNET_BATCH):
-    """The distinct input shapes of ResNet-50's convolutions and head (in
-    the order a forward meets them) at ``batch``: the tensors K6q
-    quantizes."""
-    from bigdl_tpu_torch import nn
+def resnet50_fused_sites(batch=RESNET_BATCH):
+    """One eager forward of ResNet-50's int8 twin (``quantize_model``,
+    seed 0, default statistics) at ``batch`` on a random image, with K7's
+    and K6q's wrappers recorded: the distinct ``(shape, form)`` of its K7
+    sites and ``(shape, route)`` of its quantizations, in the order the
+    forward meets them, K6q's quantizations a forward by route, and K7's
+    launches a forward."""
     from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.nn import quantized as tq
+    from bigdl_tpu_torch.ops import act_quant as k6q
+    from bigdl_tpu_torch.ops import bn_act as k7
 
-    model = ResNet(50, 1000, device="cuda", seed=0).eval()
-    shapes = []
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, inp: shapes.append(tuple(inp[0].shape[1:])))
-        for m in model.modules()
-        if type(m) in (nn.SpatialConvolution, nn.Linear)]
-    with torch.no_grad():
-        model(torch.zeros((1, RESNET_SIDE, RESNET_SIDE, 3), device="cuda"))
-    for h in hooks:
-        h.remove()
-    return [(batch,) + shape for shape in dict.fromkeys(shapes)]
+    twin, _ = tq.quantize_model(ResNet(50, 1000, device="cuda",
+                                       seed=0).eval())
+    k7_sites, routes = [], []
+    real_k7, real_route = k7.bn_act, k6q.quantize_route
+
+    def k7_spy(x, bn, residual=None, residual_bn=None, relu=True, **kw):
+        form = 1 if residual is None else 2 if residual_bn is None else 3
+        k7_sites.append((tuple(x.shape), form))
+        return real_k7(x, bn, residual, residual_bn, relu, **kw)
+
+    def route_spy(x, route, absmax=None):
+        routes.append((tuple(x.shape), route))
+        return real_route(x, route, absmax)
+
+    k7.bn_act, k6q.quantize_route = k7_spy, route_spy
+    try:
+        g = torch.Generator(device="cuda").manual_seed(15)
+        with torch.no_grad():
+            twin(torch.randn((batch, RESNET_SIDE, RESNET_SIDE, 3),
+                             generator=g, device="cuda"))
+        torch.cuda.synchronize()
+    finally:
+        k7.bn_act, k6q.quantize_route = real_k7, real_route
+    del twin
+    torch.cuda.empty_cache()
+    return (list(dict.fromkeys(k7_sites)), list(dict.fromkeys(routes)),
+            dict(collections.Counter(r for _, r in routes)), len(k7_sites))
 
 
 def l2_bytes():
@@ -3629,54 +3704,140 @@ def l2_bytes():
                    0) or 50 * 2 ** 20
 
 
-def act_quant_row(card, x, path):
-    """K6q against its plain version on ``x``: ``x_q`` and ``x_scale``
-    bitwise, the device times of K6q (memset, absmax, quantize) and of
-    the plain version (CUDA-graph replays), the bound (``x`` read once,
-    ``x_q`` written once: no PyTorch call computes this quantization) and
-    the two-pass floor (``x`` read twice from HBM unless ``x`` and ``x_q``
-    fit in L2 together).  Raises where they differ."""
+def _random_bn(c, g):
+    """An eval-mode BatchNorm on the card with random statistics and
+    affine parameters from the CUDA generator ``g``."""
+    from bigdl_tpu_torch import nn
+
+    bn = nn.SpatialBatchNormalization(c).cuda().eval().requires_grad_(False)
+    with torch.no_grad():
+        bn.running_mean.normal_(generator=g)
+        bn.running_var.uniform_(0.05, 3.0, generator=g)
+        bn.weight.uniform_(-2.0, 2.0, generator=g)
+        bn.bias.normal_(generator=g)
+    return bn
+
+
+def bn_act_row(card, shape, form, seed):
+    """(a) K7 against its plain version at one of ResNet-50's K7 sites:
+    ``y``'s bits and the absmax it hands to K6q equal, the device times of
+    K7 and of the plain version (CUDA-graph replays), the bound (x, the
+    residual and the BatchNorms' buffers read once, y written once).
+    Raises where they differ."""
+    from bigdl_tpu_torch.ops import act_quant as k6q
+    from bigdl_tpu_torch.ops import bn_act as k7
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device="cuda") * 3
+    r = torch.randn(shape, generator=g, device="cuda") if form > 1 else None
+    bns = [_random_bn(c, g) for _ in range(1 + (form == 3))]
+    args = (x, bns[0], r, bns[1] if form == 3 else None, True)
+    got = k7.bn_act(*args, absmax=True)
+    want = k7.bn_act_reference(*args)
+    absmax = k6q.handed_off_absmax(got)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(got.view(torch.int32),
+                               want.view(torch.int32))) and \
+        bool(torch.equal(absmax, want.abs().amax().reshape(1)
+                         .view(torch.int32)))
+    ms = device_ms(lambda: k7.bn_act(*args, absmax=True))
+    plain_ms = device_ms(lambda: k7.bn_act_reference(*args), iters=5,
+                         reps=5)[0]
+    n_bytes = x.nbytes * (2 + (r is not None)) + 16 * c * len(bns)
+    bound_ms, bound_by = bound(n_bytes, 0)
+    label = f"{shape} {K7_FORMS[form]}"
+    row = {"phase": "bn_act", "shape": str(shape), "form": K7_FORMS[form],
+           "elements": x.numel(), "bitwise_equal_plain": bitwise,
+           "max_abs_err": float((got - want).abs().max()),
+           "ms": ms[0], "ms_range": ms[1:], "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes_per_element": n_bytes / x.numel(),
+           "share_of_bound": bound_ms / ms[0], "plain_ms": plain_ms,
+           "library_ms": None, "card": card}
+    emit(row)
+    del x, r, got, want
+    if not bitwise:
+        raise AssertionError(f"K7 {label}: {row}")
+    return label, row
+
+
+def act_quant_row(card, x, path, route, absmax=None):
+    """K6q's ``route`` against its plain version on ``x`` (``absmax``: the
+    bits K7 handed off, for the given route): ``x_q`` and ``x_scale``
+    bitwise, the device times of the route and of the plain version
+    (CUDA-graph replays) and the bound (``x`` read once, ``x_q`` written
+    once: no PyTorch call computes this quantization); for the three-node
+    route also its two-pass floor (``x`` read twice from HBM unless ``x``
+    and ``x_q`` fit in L2 together), for the small route the three-node
+    route on the same ``x``, bitwise against the plain version too, and
+    its time.  Raises where any of them differs."""
     from bigdl_tpu_torch.ops import act_quant as k6q
 
-    got_q, got_s = k6q.act_quant(x)
+    got_q, got_s = k6q.quantize_route(x, route, absmax)
     want_q, want_s = k6q.act_quant_reference(x)
     torch.cuda.synchronize()
     bitwise = bool(torch.equal(got_q, want_q)) and \
         bool(torch.equal(got_s, want_s))
-    ms = device_ms(lambda: k6q.act_quant(x))
+    ms = device_ms(lambda: k6q.quantize_route(x, route, absmax))
     plain_ms = device_ms(lambda: k6q.act_quant_reference(x), iters=5,
                          reps=5)[0]
     n, size = x.numel(), x.element_size()
-    in_l2 = (size + 1) * n <= l2_bytes()
     bound_ms, bound_by = bound((size + 1) * n, 0)
-    two_pass_ms, _ = bound((size + 1 + (0 if in_l2 else size)) * n, 0)
-    row = {"phase": "act_quant", "path": path, "shape": str(tuple(x.shape)),
-           "dtype": str(x.dtype), "elements": n,
-           "bitwise_equal_plain": bitwise,
+    row = {"phase": "act_quant", "path": path, "route": route,
+           "shape": str(tuple(x.shape)), "dtype": str(x.dtype),
+           "elements": n, "bitwise_equal_plain": bitwise,
            "max_abs_err": float((got_q.int() - want_q.int()).abs().max()),
            "x_scale": float(got_s), "ms": ms[0], "ms_range": ms[1:],
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "share_of_bound": bound_ms / ms[0],
-           "x_and_x_q_fit_l2": in_l2, "two_pass_bound_ms": two_pass_ms,
-           "share_of_two_pass_bound": two_pass_ms / ms[0],
-           "plain_ms": plain_ms, "library_ms": None, "card": card}
+           "share_of_bound": bound_ms / ms[0], "plain_ms": plain_ms,
+           "library_ms": None, "card": card}
+    if route == "act_quant":
+        in_l2 = (size + 1) * n <= l2_bytes()
+        two_pass_ms, _ = bound((size + 1 + (0 if in_l2 else size)) * n, 0)
+        row.update(x_and_x_q_fit_l2=in_l2, two_pass_bound_ms=two_pass_ms,
+                   share_of_two_pass_bound=two_pass_ms / ms[0])
+    if route == "act_quant_small":
+        three_q, three_s = k6q.quantize_route(x, "act_quant")
+        torch.cuda.synchronize()
+        three_bitwise = bool(torch.equal(three_q, want_q)) and \
+            bool(torch.equal(three_s, want_s))
+        three = device_ms(lambda: k6q.quantize_route(x, "act_quant"))
+        row.update(blocks=k6q.small_blocks(n),
+                   three_node_bitwise_equal_plain=three_bitwise,
+                   three_node_ms=three[0], three_node_ms_range=three[1:],
+                   small_over_three_node=ms[0] / three[0])
+        bitwise = bitwise and three_bitwise
+        del three_q
     emit(row)
     del got_q, want_q
     if not bitwise:
-        raise AssertionError(f"K6q {tuple(x.shape)}: {row}")
+        raise AssertionError(f"K6q {route} {tuple(x.shape)}: {row}")
     return row
 
 
-def act_quant_rows(card):
-    """(a) K6q (``act_quant_row``) at each input shape of ResNet-50's
-    convolutions and head at batch 128."""
+def act_quant_rows(card, quant_sites):
+    """(a) K6q at each ``(shape, route)`` of ResNet-50's quantizations at
+    batch 128 (``resnet50_fused_sites``): the given route on a K7 output
+    (BatchNorm + ReLU of a random input, its absmax handed off), the
+    other routes on a random input."""
+    from bigdl_tpu_torch.ops import act_quant as k6q
+    from bigdl_tpu_torch.ops import bn_act as k7
+
     rows = {}
     g = torch.Generator(device="cuda").manual_seed(14)
-    for shape in resnet50_quant_inputs():
+    for shape, route in quant_sites:
         x = torch.randn(shape, generator=g, device="cuda")
-        rows[str(shape)] = act_quant_row(card, x, "int8_resnet")
-        del x
+        absmax = None
+        if route == "act_quant_given":
+            x = k7.bn_act(x, _random_bn(shape[-1], g), absmax=True)
+            absmax = k6q.handed_off_absmax(x)
+        rows[(str(shape), route)] = act_quant_row(card, x, "int8_resnet",
+                                                  route, absmax)
+        del x, absmax
         torch.cuda.empty_cache()
+    head = torch.randn(RESNET_HEAD_INPUT, generator=g, device="cuda")
+    rows[(str(RESNET_HEAD_INPUT), "act_quant_small")] = act_quant_row(
+        card, head, "int8_resnet", "act_quant_small")
     return rows
 
 
@@ -3702,19 +3863,20 @@ def _conv_outputs(model, x):
 @contextlib.contextmanager
 def _plain_int8(conv=True):
     """The int8 layers through the plain versions on the card: K6q's
-    always, K6's with ``conv`` (the comparison's reference; never the main
-    path)."""
+    always, K6's and K7's with ``conv`` (the comparison's reference; never
+    the main path)."""
     from bigdl_tpu_torch.ops import act_quant as k6q
+    from bigdl_tpu_torch.ops import bn_act as k7
     from bigdl_tpu_torch.ops import int8_conv as k6
 
-    real = k6._on_cpu, k6q.act_quant
+    real = k6._on_cpu, k7._on_cpu, k6q.act_quant
     if conv:
-        k6._on_cpu = lambda *ts: True
+        k6._on_cpu = k7._on_cpu = lambda *ts: True
     k6q.act_quant = k6q.act_quant_reference
     try:
         yield
     finally:
-        k6._on_cpu, k6q.act_quant = real
+        k6._on_cpu, k7._on_cpu, k6q.act_quant = real
 
 
 def _eval_rate(step, x, reps=INT8_EVAL_REPS):
@@ -3732,7 +3894,9 @@ def _eval_rate(step, x, reps=INT8_EVAL_REPS):
 #: (b) the hand-written kernels of the int8 forward, by profiler name
 INT8_KERNEL_NAMES = {"int8_conv": ("int8_conv_wgmma_kernel",),
                      "int8_conv_gather": ("int8_conv_gather_kernel",),
-                     "act_quant": ("absmax_kernel", "quantize_kernel")}
+                     "act_quant": ("absmax_kernel", "quantize_kernel",
+                                   "act_quant_small_kernel"),
+                     "bn_act": ("bn_act_kernel",)}
 
 
 def _device_share(fn):
@@ -3772,28 +3936,47 @@ def _device_share(fn):
     return busy, shares, dict(by_kind), kernels
 
 
-def int8_resnet(card):
+def _int8_launches():
+    from bigdl_tpu_torch.ops import act_quant as k6q
+    from bigdl_tpu_torch.ops import bn_act as k7
+    from bigdl_tpu_torch.ops import int8_conv as k6
+
+    return dict(k6.LAUNCHES, **k6q.LAUNCHES, **k7.LAUNCHES)
+
+
+def _reset_int8_launches():
+    from bigdl_tpu_torch.ops import act_quant as k6q
+    from bigdl_tpu_torch.ops import bn_act as k7
+    from bigdl_tpu_torch.ops import int8_conv as k6
+
+    for mod in (k6, k6q, k7):
+        mod.reset_launch_counts()
+
+
+def int8_resnet(card, quantizations):
     """(b) ResNet-50 (seed 0, the running statistics of one training
     forward) quantized by ``quantize_model`` and by ``quantize()`` on a
-    copy (bitwise-equal logits), then batch 128 through ``Predictor`` and
-    the compiled eval step (K6's and K6q's launches counted through the
-    replays: 52 wgmma, 1 gather and 54 K6q a batch); held bitwise against
-    the twin with both halves plain (else the first layer that differs)
-    and against the fp32 model (relative logit error, top-1 agreement,
-    the gate's details); images/s int8, fp32 and bf16, K6's and K6q's
-    shares of the int8 forward, the kernels of one replay against the
-    same graph with the quantizer as PyTorch passes, the parameters'
-    bytes, the packed weight copies' bytes and peak memory.  Returns the
-    row, the models and the launches."""
+    copy (bitwise-equal logits), its fused eval plan's site counts, then
+    batch 128 through ``Predictor`` and the compiled eval step (K6's, K7's
+    and K6q's launches by route counted through the replays: 52 wgmma, 1
+    gather, 49 K7 and ``quantizations``, K6q's a forward by route, a
+    batch); held bitwise against the twin with every plain version (else
+    the first layer that differs) and against the unfused twin with plain
+    versions, and against the fp32 model (relative logit error, top-1
+    agreement, the gate's details); images/s int8, fp32 and bf16, K6's,
+    K6q's and K7's shares of the int8 forward and its device time by
+    kind, the kernels of one replay against the same graph with the
+    quantizer as PyTorch passes, the parameters' bytes, the packed weight
+    copies' bytes and peak memory.  Returns the row, the models and the
+    launches."""
     import copy
 
     from bigdl_tpu_torch import optim
     from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.nn import fused
     from bigdl_tpu_torch.nn import quantized as tq
-    from bigdl_tpu_torch.ops import act_quant as k6q
     from bigdl_tpu_torch.ops import cross_entropy as ce
     from bigdl_tpu_torch.ops import flash_attention as fa
-    from bigdl_tpu_torch.ops import int8_conv as k6
 
     model = ResNet(50, 1000, device="cuda", seed=0)
     rng = np.random.default_rng(4)
@@ -3813,6 +3996,7 @@ def int8_resnet(card):
     with torch.no_grad():
         same_quantizers = bool(torch.equal(twin(x), legacy(x)))
     del legacy
+    sites = fused.site_counts(twin)
     step = optim.compiled_eval_step(twin)
     step(x)                               # builds the graph
     # the main path: Predictor over 228 images (a full batch, then 100
@@ -3822,11 +4006,10 @@ def int8_resnet(card):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     ce.reset_launch_counts()
-    k6.reset_launch_counts()
-    k6q.reset_launch_counts()
+    _reset_int8_launches()
     preds = np.stack(optim.Predictor(twin, RESNET_BATCH).predict(list(xs)))
     torch.cuda.synchronize()
-    launches = dict(k6.LAUNCHES, **k6q.LAUNCHES)
+    launches = _int8_launches()
     peak = torch.cuda.max_memory_allocated()
     kernel_launches = sum(fa.LAUNCHES.values()) + sum(ce.LAUNCHES.values())
     got = torch.from_numpy(preds[:RESNET_BATCH])
@@ -3841,7 +4024,10 @@ def int8_resnet(card):
                       tail_eager[:ragged])
     with _plain_int8(), torch.no_grad():
         plain = twin(x).cpu()
+        with fused.unfused():
+            unfused_plain = twin(x).cpu()
     plain_equal = bool(torch.equal(got, plain))
+    unfused_equal = bool(torch.equal(got, unfused_plain))
     first_diff = None
     if not plain_equal:
         kernel_outs = _conv_outputs(twin, x)
@@ -3859,10 +4045,13 @@ def int8_resnet(card):
                                    min_top1_agreement=INT8_GATE_TOP1,
                                    max_logit_rmse=INT8_GATE_RMSE)
     gate_ok, gate_detail = gate.check(lambda v: fp32, lambda v: got)
-    rates = {"int8": _eval_rate(step, x),
-             "fp32": _eval_rate(optim.compiled_eval_step(model), x),
-             "bf16": _eval_rate(optim.compiled_eval_step(
-                 model, torch.bfloat16), x)}
+    rates = {"int8": _eval_rate(step, x)}
+    # the fp32 and bf16 models keep their modules: no K7 launch
+    k7_before = _int8_launches()["bn_act"]
+    rates.update(fp32=_eval_rate(optim.compiled_eval_step(model), x),
+                 bf16=_eval_rate(optim.compiled_eval_step(
+                     model, torch.bfloat16), x))
+    float_k7 = _int8_launches()["bn_act"] - k7_before
     busy_ms, shares, by_kind, replay = _device_share(lambda: step(x))
     # the same graph with the quantizer as PyTorch passes
     with _plain_int8(conv=False):
@@ -3877,28 +4066,41 @@ def int8_resnet(card):
                for name, parts in INT8_KERNEL_NAMES.items()}
     # the profiler's names show which kernels ran; LAUNCHES counts them
     # exactly (a profile may miss a window's first few kernels)
-    expected_names = {"int8_conv": RESNET_CONVS - 1, "int8_conv_gather": 1,
-                      "act_quant": 2 * (RESNET_CONVS + 1)}
+    expected_names = {
+        "int8_conv": RESNET_CONVS - 1, "int8_conv_gather": 1,
+        "act_quant": quantizations.get("act_quant_given", 0) +
+        quantizations.get("act_quant_small", 0) +
+        2 * quantizations.get("act_quant", 0),
+        "bn_act": RESNET_K7_SITES}
+    want_launches = {"int8_conv": 2 * (RESNET_CONVS - 1),
+                     "int8_conv_gather": 2, "bn_act": 2 * RESNET_K7_SITES,
+                     **{route: 2 * quantizations.get(route, 0)
+                        for route in ("act_quant", "act_quant_given",
+                                      "act_quant_small")}}
     fp32_bytes = tq.model_bytes(model.parameters_tree())
     int8_bytes = tq.model_bytes(qparams)
     packed_bytes = tq.packed_weight_bytes(twin)   # beside the parameters
     row = {"phase": "int8_resnet", "batch": RESNET_BATCH,
            "quantized_convolutions": n_q, "quantize_model_s": quantize_s,
            "quantizers_bitwise_equal": same_quantizers,
-           "launches": launches,
-           "k6q_launches_a_forward": launches["act_quant"] / 2,
+           "launches": launches, "launches_expected": want_launches,
+           "k6q_quantizations_a_forward": quantizations,
+           "plan_sites": sites,
            "predict_batches": 2, "other_kernel_launches": kernel_launches,
            "ragged_batch_vs_eager_padded_rel_l2": tail_rel,
            "kernel_vs_plain_bitwise": plain_equal,
            "kernel_vs_plain_rel_l2": rel_l2(got, plain),
            "kernel_vs_plain_max_abs": float((got - plain).abs().max()),
+           "kernel_vs_unfused_plain_bitwise": unfused_equal,
            "first_difference": first_diff,
            "vs_fp32_rel_l2": rel_l2(got, fp32),
            "vs_fp32_top1_agreement": agree, "gate_ok": gate_ok,
            "gate": gate_detail, "images_per_s": rates,
+           "k7_launches_fp32_bf16_eval": float_k7,
            "int8_forward_device_ms": busy_ms,
            "k6_share": shares["int8_conv"] + shares["int8_conv_gather"],
-           "k6q_share": shares["act_quant"], "shares": shares,
+           "k6q_share": shares["act_quant"], "k7_share": shares["bn_act"],
+           "shares": shares,
            "int8_forward_ms_by_kind": by_kind,
            "replay_kernels": len(replay),
            "replay_kernels_pytorch_quantizer": len(torch_quant_replay),
@@ -3915,10 +4117,12 @@ def int8_resnet(card):
            "peak_allocated_bytes": peak, "card": card}
     emit(row)
     if not (same_quantizers and n_q == RESNET_CONVS and
-            tail_rel <= INT8_PLAIN_RTOL and plain_equal and
-            launches == {"int8_conv": 2 * (RESNET_CONVS - 1),
-                         "int8_conv_gather": 2,
-                         "act_quant": 2 * (RESNET_CONVS + 1)} and
+            tail_rel <= INT8_PLAIN_RTOL and plain_equal and unfused_equal and
+            sites == {"fused_sites": RESNET_K7_SITES, "unfused_sites": 0} and
+            sum(quantizations.values()) == RESNET_QUANTIZATIONS and
+            float_k7 == 0 and
+            quantizations.get("act_quant_given") == RESNET_GIVEN and
+            launches == want_launches and
             all(0 < by_name[k] <= n for k, n in expected_names.items()) and
             not quant_passes and kernel_launches == 0 and gate_ok and
             fp32_bytes / int8_bytes >= 3.5 and packed_bytes > 0 and
@@ -3934,10 +4138,8 @@ def int8_serving(card, model, xs):
     scale is taken over the padded rows too), bitwise; K6's launches
     counted from the engine's construction (its gate) to its close, and
     K6q's."""
-    from bigdl_tpu_torch.ops import act_quant as k6q
     from bigdl_tpu_torch.ops import cross_entropy as ce
     from bigdl_tpu_torch.ops import flash_attention as fa
-    from bigdl_tpu_torch.ops import int8_conv as k6
     from bigdl_tpu_torch.serving import ServingEngine
     from bigdl_tpu_torch.serving.buckets import pad_batch_axis
 
@@ -3945,8 +4147,7 @@ def int8_serving(card, model, xs):
             "max_logit_rmse": INT8_GATE_RMSE}
     fa.reset_launch_counts()
     ce.reset_launch_counts()
-    k6.reset_launch_counts()
-    k6q.reset_launch_counts()
+    _reset_int8_launches()
     t0 = time.perf_counter()
     served = []
     with ServingEngine(model, max_batch_size=8, quantize=True,
@@ -3958,7 +4159,7 @@ def int8_serving(card, model, xs):
             served.append((req, fut.result(timeout=300), fut))
         twin, detail = eng._qmodel, eng._gate_detail
     torch.cuda.synchronize()
-    launches = dict(k6.LAUNCHES, **k6q.LAUNCHES)
+    launches = _int8_launches()
     other = sum(fa.LAUNCHES.values()) + sum(ce.LAUNCHES.values())
     mismatched = []
     for i, (req, got, fut) in enumerate(served):
@@ -3975,12 +4176,19 @@ def int8_serving(card, model, xs):
            "launches": launches, "other_kernel_launches": other,
            "card": card}
     emit(row)
-    # a forward each for the gate's batch and each request
+    # a forward each for the gate's batch and each request; the image, the
+    # max-pool's output and the head's input take the small route or the
+    # three-node route by their size, which the rung sets
     forwards = INT8_SERVE_REQUESTS + 1
-    if mismatched or other or launches != {
+    if mismatched or other or {k: launches[k] for k in (
+            "int8_conv", "int8_conv_gather", "bn_act",
+            "act_quant_given")} != {
             "int8_conv": (RESNET_CONVS - 1) * forwards,
             "int8_conv_gather": forwards,
-            "act_quant": (RESNET_CONVS + 1) * forwards}:
+            "bn_act": RESNET_K7_SITES * forwards,
+            "act_quant_given": RESNET_GIVEN * forwards} or \
+            launches["act_quant"] + launches["act_quant_small"] != \
+            (RESNET_QUANTIZATIONS - RESNET_GIVEN) * forwards:
         raise AssertionError(f"int8 serving: {row}")
     return row
 
@@ -4223,14 +4431,27 @@ def supervisor_drill(card):
 
 
 def int8_phase(card):
-    """Phase 13 (module docstring): K6's and K6q's rows, int8 ResNet-50,
-    serving, the recipe's host services and the supervisor.  Returns the
-    rows the kernel line reports and the main path's K6 and K6q launches
-    by leg."""
+    """Phase 13 (module docstring): K6's, K7's and K6q's rows, int8
+    ResNet-50, serving, the recipe's host services and the supervisor.
+    Returns the rows the kernel line reports and the main path's K6, K7
+    and K6q launches by leg."""
     t0 = time.perf_counter()
     conv_rows = int8_conv_rows(card)
-    quant_rows = act_quant_rows(card)
-    resnet, model, twin, xs = int8_resnet(card)
+    k7_sites, quant_sites, quantizations, k7_launches = \
+        resnet50_fused_sites()
+    emit({"phase": "int8_fused_sites", "k7_sites": [
+        [str(shape), K7_FORMS[form]] for shape, form in k7_sites],
+        "k6q_sites": [[str(shape), route] for shape, route in quant_sites],
+        "k6q_quantizations_a_forward": quantizations,
+        "k7_launches_a_forward": k7_launches, "card": card})
+    if k7_launches != RESNET_K7_SITES:
+        raise AssertionError(f"K7 sites a forward: {k7_launches}")
+    k7_rows = dict(bn_act_row(card, (RESNET_BATCH,) + shape[1:], form, i)
+                   for i, (shape, form) in enumerate(k7_sites))
+    torch.cuda.empty_cache()
+    quant_rows = act_quant_rows(card, [((RESNET_BATCH,) + shape[1:], route)
+                                       for shape, route in quant_sites])
+    resnet, model, twin, xs = int8_resnet(card, quantizations)
     del twin
     serving = int8_serving(card, model, xs)
     del model, xs
@@ -4242,7 +4463,9 @@ def int8_phase(card):
           "card": card})
     rows = {"int8_conv": conv_rows[INT8_CONV_KEY_ROW],
             "int8_conv_gather": conv_rows[INT8_GATHER_KEY_ROW],
-            "act_quant": quant_rows[ACT_QUANT_KEY_ROW]}
+            "bn_act": k7_rows[BN_ACT_KEY_ROW],
+            **{route: quant_rows[(shape, route)]
+               for route, shape in ACT_QUANT_KEY_ROWS.items()}}
     return rows, {"int8_resnet": resnet["launches"],
                   "int8_resnet_serving": serving["launches"]}
 
@@ -4252,7 +4475,7 @@ def main():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
-    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import _build, bn_act
     from bigdl_tpu_torch.ops import cross_entropy as ce
     from bigdl_tpu_torch.ops import flash_attention as fa
 
@@ -4284,12 +4507,19 @@ def main():
     rows.update(int8_kernel_phase(fa, card))
     # the same weights again (seed 0), so the training phases' peak
     # memory holds no serving model
-    int8_serving = int8_serving_phase(fa, card, *serving_models(),
-                                      fp32_tok_s)
+    int8_serving, rows["act_quant_small"] = int8_serving_phase(
+        fa, card, *serving_models(), fp32_tok_s)
     phase10 = eval_phase(fa, ce, card)
     rows.update(large_kernel_rows(fa, card))
     phase11 = large_phase(fa, ce, card)
+    # the float CNN path (phase 12's training legs and eval) keeps its
+    # modules: no K7 launch
+    bn_act.reset_launch_counts()
     resnet_phase(card)
+    emit({"phase": "resnet_float_k7_launches",
+          "bn_act": bn_act.LAUNCHES["bn_act"], "card": card})
+    if bn_act.LAUNCHES["bn_act"]:
+        raise AssertionError("phase 12's float ResNet-50 launched K7")
     int8_rows, phase13 = int8_phase(card)
     rows.update(int8_rows)
 
@@ -4321,11 +4551,20 @@ def main():
         "int8_conv_gather": ("bigdl_tpu_torch/csrc/int8_conv.cu",
                              "bigdl_tpu/nn/quantized.py:110 (int8_conv, cin "
                              "a group off 16: the stem; no pallas_call)"),
-        "act_quant": ("bigdl_tpu_torch/csrc/act_quant.cu",
-                      "bigdl_tpu/nn/quantized.py:88 _quantize_activation "
-                      "(pure JAX in int8_conv :110 and int8_matmul :96, no "
-                      "pallas_call)"),
     }
+    quantizer = ("bigdl_tpu/nn/quantized.py:88 _quantize_activation (pure "
+                 "JAX in int8_conv :110 and int8_matmul :96, no "
+                 "pallas_call)")
+    for route, what in (("act_quant", "the three-node route"),
+                        ("act_quant_given", "the given route, after K7"),
+                        ("act_quant_small", "the small route, one cluster")):
+        kernels_of[route] = ("bigdl_tpu_torch/csrc/act_quant.cu",
+                             f"{quantizer}: {what}")
+    kernels_of["bn_act"] = (
+        "bigdl_tpu_torch/csrc/bn_act.cu",
+        "none: bigdl_tpu/nn/normalization.py:102 (BatchNormalization's "
+        "eval output), nn/activations.py:33 (ReLU) and "
+        "nn/containers.py:150 (CAddTable), fused by XLA, no pallas_call")
     # the head_dim 96 instantiations ("large"), launched by phase 11 only
     for name in ("flash_attention", "flash_attention_bf16",
                  "flash_attention_bwd", "flash_attention_bwd_bf16",

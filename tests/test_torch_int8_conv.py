@@ -39,8 +39,12 @@ from bigdl_tpu_torch import models as tmodels
 from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.interop import (load_jax_params, load_jax_state,
                                      to_jax_params)
+from bigdl_tpu_torch.models import resnet as tres
+from bigdl_tpu_torch.nn import fused
 from bigdl_tpu_torch.nn import quantized as tq
 from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.ops import act_quant as k6q
+from bigdl_tpu_torch.ops import bn_act as k7
 from bigdl_tpu_torch.ops import int8_conv as k6
 from bigdl_tpu_torch.serving import ServingEngine
 
@@ -225,11 +229,34 @@ MODELS = {
 }
 
 
-def _pair(name, seed=0):
+def _bottleneck_stack(pkg, **kw):
+    """Two bottlenecks built by the package's ``models/resnet.py``: the
+    first downsamples (a projection shortcut with its BatchNorm), the
+    second keeps the identity shortcut."""
+    res = jres if pkg is jnn else tres
+    return (pkg.Sequential().add(res.bottleneck(16, 4, 2, **kw))
+            .add(res.bottleneck(16, 4, **kw)))
+
+
+#: the int8 twins held with their fused eval plan (``nn/fused.py``)
+FUSED_MODELS = {
+    "ResNetCifar8": MODELS["ResNetCifar8"],
+    "ResNet18": (lambda: jres.ResNet(18, 10),
+                 lambda: tmodels.ResNet(18, 10, device="cpu"),
+                 (4, 32, 32, 3)),
+    "bottleneck_stack": (
+        lambda: _bottleneck_stack(jnn),
+        lambda: _bottleneck_stack(
+            nn, generator=torch.Generator().manual_seed(0)).to("cpu"),
+        (4, 8, 8, 16)),
+}
+
+
+def _pair(name, seed=0, models=MODELS):
     """A built JAX model with non-trivial running statistics (one
     training apply) and the port's model on its weights and state, both
     in eval mode, and an eval batch."""
-    jbuild, tbuild, shape = MODELS[name]
+    jbuild, tbuild, shape = models[name]
     rng = np.random.default_rng(seed)
     x_train = rng.standard_normal(shape).astype(np.float32)
     x = rng.standard_normal(shape).astype(np.float32)
@@ -294,6 +321,49 @@ def test_quantize_in_place_matches_jax(name):
         got = tm(torch.from_numpy(x)).numpy()
         np.testing.assert_array_equal(twin(torch.from_numpy(x)).numpy(), got)
     _hold_model(got, _jax_out(jm, x))
+
+
+@pytest.mark.parametrize("name", list(FUSED_MODELS))
+def test_fused_twin_matches_the_unfused_twin_and_jax(name, monkeypatch):
+    """The twin's fused eval plan (BatchNorm, the residual add and ReLU
+    through K7's plain version here) against the same twin with its
+    modules, bitwise, every site through K7 and every K7 output handed to
+    the quantizer after it; then against JAX's ``quantize_model`` twin."""
+    jm, tm, x = _pair(name, models=FUSED_MODELS)
+    twin, _ = tq.quantize_model(tm)
+    jtwin, _ = jq.quantize_model(jm)
+    calls, routes = [], []
+    real_k7, real_route = k7.bn_act, k6q.quantize_route
+
+    def k7_spy(*a, **kw):
+        calls.append(kw)
+        return real_k7(*a, **kw)
+
+    def route_spy(x, route, absmax=None):
+        routes.append(route)
+        return real_route(x, route, absmax)
+
+    monkeypatch.setattr(k7, "bn_act", k7_spy)
+    monkeypatch.setattr(k6q, "quantize_route", route_spy)
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        got = twin(xt).numpy()
+        fused_routes = list(routes)
+        with fused.unfused():
+            want = twin(xt).numpy()
+    counts = fused.site_counts(twin)
+    assert counts["unfused_sites"] == 0
+    assert len(calls) == counts["fused_sites"] > 0
+    assert all(kw["absmax"] for kw in calls)
+    assert "act_quant_given" in fused_routes
+    # a projection shortcut's convolution shares its block's input's
+    # quantization with the block's conv1 in the plan, not unfused
+    projections = sum(type(m) is nn.ConcatTable and
+                      type(m._modules["1"]) is nn.Sequential
+                      for m in twin.modules())
+    assert len(routes) - 2 * len(fused_routes) == projections > 0
+    np.testing.assert_array_equal(got, want)
+    _hold_model(got, _jax_out(jtwin, x))
 
 
 def test_module_quantize_returns_self_in_eval_mode():

@@ -11,8 +11,10 @@ own build directory, and times phase 3's rows (K1, K2, K3, and the
 empty-kernel floor where the checkout has it) and, where the checkout
 has it, phase 8's (K3q) and phase 13's K6 rows (``int8_conv_rows``:
 ResNet-50's convolutions at batch 128 and two coverage shapes, each
-held bitwise against its plain version), then K1 and K1-bwd at phase 3's and
-phase 6's shapes (``K1_SHAPES``, ``K1_BWD_SHAPES``: fp32, H 12, D 64,
+held bitwise against its plain version) and its K7 and K6q rows
+(``INT8_ELEMENTWISE_ROWS``: ``bn_act_row`` and ``act_quant_rows`` at
+ResNet-50's shapes at batch 128, bitwise too), then K1 and K1-bwd at
+phase 3's and phase 6's shapes (``K1_SHAPES``, ``K1_BWD_SHAPES``: fp32, H 12, D 64,
 causal, q/k/v views of one fused buffer) through the checkout's own
 wrappers, so that a checkout without a row still gets it timed: device
 time from CUDA-graph replays.
@@ -39,6 +41,14 @@ from pathlib import Path
 #: (B, T) of the K1 forward rows and of the K1-bwd rows
 K1_SHAPES = ((2, 1024), (1, 200), (8, 1024))
 K1_BWD_SHAPES = ((8, 1024), (8, 200))
+#: K7's rows (shape, form: 1 BN + ReLU, 2 BN + add + ReLU) and K6q's
+#: (shape, route), at ResNet-50's sizes at batch 128
+INT8_ELEMENTWISE_ROWS = (
+    (((128, 112, 112, 64), 1), ((128, 56, 56, 256), 2),
+     ((128, 14, 14, 1024), 2)),
+    (((128, 56, 56, 256), "act_quant_given"),
+     ((128, 14, 14, 1024), "act_quant_given"),
+     ((128, 56, 56, 64), "act_quant")))
 
 
 def attention_rows(cs, fa):
@@ -67,6 +77,17 @@ def attention_rows(cs, fa):
     return out
 
 
+def row_key(r):
+    phase = r.get("phase")
+    if phase == "int8_conv":
+        return f"K6_{r['shape']}"
+    if phase == "bn_act":
+        return f"K7_{r['shape']} {r['form']}"
+    if phase == "act_quant":
+        return f"K6q_{r['route']}_{r['shape']}"
+    return f"{r['name']}_{r['case']}"
+
+
 def one(root):
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
@@ -84,10 +105,13 @@ def one(root):
         cs.int8_kernel_phase(fa, card)
     if hasattr(cs, "int8_conv_rows"):
         cs.int8_conv_rows(card)
+    if hasattr(cs, "bn_act_row"):
+        k7_rows, k6q_rows = INT8_ELEMENTWISE_ROWS
+        for i, (shape, form) in enumerate(k7_rows):
+            cs.bn_act_row(card, shape, form, i)
+        cs.act_quant_rows(card, k6q_rows)
     print(json.dumps({"checkout": root, "card": card,
-                      **{f"K6_{r['shape']}" if r.get("phase") == "int8_conv"
-                         else f"{r['name']}_{r['case']}": r["ms"]
-                         for r in rows},
+                      **{row_key(r): r["ms"] for r in rows},
                       **attention_rows(cs, fa)}), flush=True)
 
 
