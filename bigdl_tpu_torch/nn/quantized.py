@@ -196,6 +196,38 @@ def packed_weight(layer):
     return cache.packed
 
 
+@torch.no_grad()
+def repack_in_place(model) -> int:
+    """Re-pack every packed copy the layers of ``model`` hold from their
+    current ``weight_q``, into the same buffer, and key it to the weight
+    as it is now; returns the copies re-packed.  A CUDA graph captured
+    over a layer reads its packed copy at the address it had then, and
+    ``packed_weight`` re-packs (into a new buffer) only in an eager
+    forward: after ``weight_q`` is loaded in place under a captured graph
+    (``ServingEngine.commit_staged``), this brings the graph's copy up to
+    date.  A copy whose shape no longer fits raises."""
+    from bigdl_tpu_torch.ops.int8_conv import pack_weight
+
+    n = 0
+    for layer in model.modules():
+        cache = layer.__dict__.get("_k6_packed")
+        if cache is None or cache.packed is None:
+            continue
+        w_q = layer.weight_q
+        packed = pack_weight(w_q.detach(), layer.n_group)
+        if packed.shape != cache.packed.shape or \
+                packed.dtype != cache.packed.dtype:
+            raise ValueError(
+                f"{type(layer).__name__}: the packed weight cannot be "
+                f"written in place ({tuple(packed.shape)} into "
+                f"{tuple(cache.packed.shape)})")
+        cache.packed.copy_(packed)
+        cache.weight = weakref.ref(w_q)
+        cache.key = (w_q.data_ptr(), w_q._version)
+        n += 1
+    return n
+
+
 def packed_weight_bytes(model) -> int:
     """Bytes of the packed copies (``packed_weight``) that the layers of
     ``model`` hold now, beside ``model_bytes`` of its parameters: on the

@@ -15,7 +15,8 @@ from bigdl_tpu_torch.optim.optim_method import (
     Ftrl, Fused, LearningRateSchedule, MultiStep, NaturalExp, OptimMethod,
     ParallelAdam, Plateau, Poly, RMSprop, SequentialSchedule, Step, Warmup,
     build_composite_method, clip_by_global_norm, clip_by_value)
-from bigdl_tpu_torch.optim.predictor import Predictor, evaluate
+from bigdl_tpu_torch.optim.predictor import (PredictionService, Predictor,
+                                             evaluate)
 from bigdl_tpu_torch.optim.recovery import (ChaosKillTrigger, RunSupervisor,
                                             parse_chaos)
 from bigdl_tpu_torch.optim.regularizer import (L1L2Regularizer,
@@ -41,8 +42,8 @@ __all__ = ["MAE", "NDCG", "AccuracyDeltaGate", "Adadelta", "Adagrad",
            "L1L2Regularizer", "L1Regularizer", "L2Regularizer",
            "LearningRateSchedule", "LocalOptimizer", "Loss", "MultiStep",
            "NaturalExp", "OptimMethod", "Optimizer", "ParallelAdam",
-           "Plateau", "Poly", "Predictor", "RMSprop", "Regularizer",
-           "RunSupervisor", "SGD",
+           "Plateau", "Poly", "PredictionService", "Predictor", "RMSprop",
+           "Regularizer", "RunSupervisor", "SGD",
            "SequentialSchedule", "Step", "Top1Accuracy", "Top5Accuracy",
            "TreeNNAccuracy", "Trigger", "ValidationMethod",
            "ValidationResult", "Warmup", "build_composite_method",

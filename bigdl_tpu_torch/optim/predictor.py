@@ -1,5 +1,5 @@
 """Batch inference (counterpart of ``bigdl_tpu/optim/predictor.py``:
-``Predictor`` :36 and ``evaluate`` :291).
+``Predictor`` :36, ``PredictionService`` :189 and ``evaluate`` :291).
 
 ``Predictor`` runs the model's compiled eval step
 (``validation.compiled_eval_step``), the one validation builds, so a
@@ -8,14 +8,22 @@ batch (a dataset's tail) is zero-padded up to a bucket before it runs,
 so the set of shapes stays closed: by default the largest batch seen in
 the run (one graph for a dataset of uniform batches), or the smallest
 rung of a ``serving.BucketLadder`` that holds it.  The padded rows are
-sliced off on the host.  ``PredictionService`` (the semaphore and
-coalescing front of JAX's :189) is not ported: coalescing goes through
-the serving engine (ROADMAP A2).
+sliced off on the host.  The step is shared with every other user of the
+(model, dtype), so a run and the read of its output hold the step's
+lock.
+
+``PredictionService`` serves single requests from many threads: by
+default each runs the compiled step at batch 1 behind a semaphore of
+``num_threads`` permits; with ``coalesce=True`` the requests go through a
+``serving.ServingEngine``, which batches them.
 """
 
+import io
+import threading
 from typing import List
 
 import numpy as np
+import torch
 
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.minibatch import (MiniBatch, Sample,
@@ -42,12 +50,15 @@ class Predictor:
         self.batch_size = batch_size
         self.ladder = None if ladder is None else ladder.copy()
         self._eval = compiled_eval_step(model, compute_dtype)
+        #: the step's lock: a run and the read of its output hold it
+        self._lock = self._eval.lock
 
     def predict_minibatch(self, batch):
         """The model's output on one batch, a tensor of its own: on the
         card the eval step returns its graph's static output, which the
         next batch of the shape overwrites, so this returns a copy."""
-        return _tree_clone(self._run(batch))
+        with self._lock:
+            return _tree_clone(self._run(batch))
 
     def _run(self, batch):
         """The eval step's own output (``predict`` reads it before the
@@ -81,9 +92,10 @@ class Predictor:
             except TypeError:          # leaves that cannot be zero-padded
                 staged, bucket = batch, n
             run_max = max(run_max, bucket)
-            y = self._run(staged)
-            next_batch = next(it, None)
-            y = _host(y)
+            with self._lock:
+                y = self._run(staged)
+                next_batch = next(it, None)
+                y = _host(y)
             if isinstance(y, (tuple, list)):
                 outs.extend(tuple(rows) for rows in
                             zip(*(leaf[:n] for leaf in y)))
@@ -107,6 +119,103 @@ class Predictor:
                 yield samples_to_minibatch(chunk)
             else:
                 yield MiniBatch(np.stack(chunk))
+
+
+class PredictionService:
+    """Thread-safe concurrent serving (JAX ``optim/predictor.py:189``,
+    reference ``optim/PredictionService.scala:56``).
+
+    By default ``num_threads`` bounds the requests in flight, each run at
+    batch 1 through the model's compiled eval step (one graph, shared by
+    every thread, as the reference's pooled clones share weights); a
+    permit is released whatever the request's outcome.  ``coalesce=True``
+    sends the requests through a ``ServingEngine`` instead (``engine_kw``
+    are its arguments, ``device`` among them), which pads concurrent
+    requests into one batch a tick (``max_batch_size`` /
+    ``max_wait_ms``); its bounded queue then does the admission control.
+    ``close()`` (or the context manager) stops the engine."""
+
+    def __init__(self, model, num_threads: int = 4, compute_dtype=None,
+                 coalesce: bool = False, max_batch_size: int = 16,
+                 max_wait_ms: float = 2.0, **engine_kw):
+        self.predictor = Predictor(model, compute_dtype=compute_dtype)
+        self._sem = threading.Semaphore(num_threads)
+        self.engine = None
+        if coalesce:
+            from bigdl_tpu_torch.serving import ServingEngine
+
+            self.engine = ServingEngine(
+                model, max_batch_size=max_batch_size,
+                max_wait_ms=max_wait_ms, compute_dtype=compute_dtype,
+                **engine_kw)
+        elif engine_kw:
+            raise TypeError(
+                f"unexpected arguments {sorted(engine_kw)}: engine options "
+                "require coalesce=True")
+
+    def predict(self, activity):
+        """One activity (an array or a tuple of them, without the batch
+        axis) -> its output rows (numpy).  A failure inside (a bad
+        payload, a device error) releases the permit and reaches the
+        caller."""
+        if self.engine is not None:
+            return self.engine.predict(activity)
+        self._sem.acquire()
+        try:
+            step = self.predictor._eval
+            x = _batch_of_one(activity, step.device)
+            return _tree_row0(step.host(x))
+        finally:
+            self._sem.release()
+
+    def predict_bytes(self, data: bytes) -> bytes:
+        """The byte API (reference :128-255 uses protobuf): an npz of the
+        activity's arrays in, taken in sorted key order, an npz of the
+        outputs (``out0``, ``out1``, ...) back."""
+        with io.BytesIO(data) as f:
+            arrs = np.load(f, allow_pickle=False)
+            activity = tuple(arrs[k] for k in sorted(arrs.files))
+        if len(activity) == 1:
+            activity = activity[0]
+        out = self.predict(activity)
+        buf = io.BytesIO()
+        if isinstance(out, tuple):
+            np.savez(buf, **{f"out{i}": np.asarray(o)
+                             for i, o in enumerate(out)})
+        else:
+            np.savez(buf, out0=np.asarray(out))
+        return buf.getvalue()
+
+    def precompile(self, buckets=None, example_feature=None):
+        """Warm the coalescing engine's ladder (``ServingEngine.
+        precompile``); 0 on the semaphore path, whose one batch-1 shape is
+        built by its first request."""
+        if self.engine is not None:
+            return self.engine.precompile(buckets, example_feature)
+        return 0
+
+    def close(self):
+        if self.engine is not None:
+            self.engine.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def _batch_of_one(activity, device):
+    if isinstance(activity, (tuple, list)):
+        return tuple(_batch_of_one(a, device) for a in activity)
+    return torch.as_tensor(np.asarray(activity), device=device)[None]
+
+
+def _tree_row0(y):
+    if isinstance(y, (tuple, list)):
+        return tuple(_tree_row0(e) for e in y)
+    return y[0]
 
 
 def evaluate(model, dataset, methods, compute_dtype=None):

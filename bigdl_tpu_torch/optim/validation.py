@@ -19,7 +19,11 @@ fails raises: nothing is evaluated eagerly in its place.  The set of
 graphs is never evicted; past ``max_executables`` shapes a warning says
 that a shape is leaking past the bucket ladder.  On the CPU nothing is
 captured: each shape gets its static buffer and each call runs the eager
-step on it.
+step on it.  The step is shared by every caller of the (model, dtype),
+on any thread: a call and the read of the static output it returns must
+not meet another call of the same shape, so callers on several threads
+hold ``step.lock`` from the call to the copy (``host`` does both under
+it).
 
 Each validation method is a function of tensors, ``batch_result(output,
 target) -> (numerator, denominator)``; the results merge with ``+``
@@ -32,6 +36,7 @@ divides by B (:295-304), as the reference does.
 """
 
 import logging
+import threading
 
 import numpy as np
 import torch
@@ -58,6 +63,12 @@ def _tree_clone(x):
     if isinstance(x, (tuple, list)):
         return type(x)(_tree_clone(e) for e in x)
     return x.clone()
+
+
+def _tree_host(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree_host(e) for e in x)
+    return x.detach().cpu().numpy()
 
 
 def _tree_copy(dst, src):
@@ -96,20 +107,42 @@ class CompiledEvalStep:
         self._warned_at = 0
         #: calls served (on the card: replays)
         self.replays = 0
+        #: held by a call; callers on several threads hold it from the
+        #: call to the read of its output (module docstring)
+        self.lock = threading.RLock()
 
     def __call__(self, x):
-        key = _tree_key(x)
-        k = self._keys.get(key)
-        if k is None:
-            k = self._build(key, x)
-        else:
-            _tree_copy(k.input, x)
-        self.replays += 1
-        self._check_bound()
-        if k.graph is None:
-            return self.step_fn(k.input)
-        Capturer.replay(k.graph, k.launches)
-        return k.output
+        with self.lock:
+            key = _tree_key(x)
+            k = self._keys.get(key)
+            if k is None:
+                k = self._build(key, x)
+            else:
+                _tree_copy(k.input, x)
+            self.replays += 1
+            self._check_bound()
+            if k.graph is None:
+                return self.step_fn(k.input)
+            Capturer.replay(k.graph, k.launches)
+            return k.output
+
+    def host(self, x):
+        """``self(x)`` copied to the host as numpy (a tuple of them for a
+        model with several outputs), the call and the copy under
+        ``lock``."""
+        with self.lock:
+            return _tree_host(self(x))
+
+    def warm_like(self, other):
+        """Build every input shape ``other`` (a step of another model
+        copy) has built, on copies of its static inputs; returns the
+        shapes built."""
+        with other.lock:
+            inputs = [_tree_clone(k.input) for k in other._keys.values()]
+        before = self.executables()
+        for x in inputs:
+            self(x)
+        return self.executables() - before
 
     def executables(self):
         """Shapes built (on the card: CUDA graphs captured)."""

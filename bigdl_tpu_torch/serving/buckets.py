@@ -4,7 +4,8 @@
 Batch sizes and prompt lengths round up to a fixed geometric ladder, so
 the set of shapes the serving steps see is closed and can be warmed up
 front (``ServingEngine.precompile``); padded rows ride along as zeros
-and are discarded on return.
+and are discarded on return.  A length ladder does the same for the time
+axis of sequence inputs (``pad_length_axis``).
 """
 
 import bisect
@@ -117,6 +118,64 @@ def pad_batch_axis(tree, target: int):
     if isinstance(tree, (tuple, list)):
         return type(tree)(pad_batch_axis(e, target) for e in tree)
     return _pad0(tree, target)
+
+
+def walk_length_leaves(tree, select, leaf_fn, batched: bool = True):
+    """The one depth-first walk behind length bucketing: ``leaf_fn`` on
+    every leaf eligible for time-axis bucketing, the others passed
+    through.  ``pad_length_axis`` (traffic, batched-rank leaves) and
+    ``ServingEngine.precompile`` (warm-up, sample-rank leaves,
+    ``batched=False``) share it, so their leaf numbering, rank gate and
+    ``select`` semantics agree; ``select`` always sees the leaf at
+    batched rank."""
+    counter = [0]
+    min_rank = 2 if batched else 1
+
+    def walk(t):
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(e) for e in t)
+        a = np.asarray(t)
+        i = counter[0]
+        counter[0] += 1
+        if a.ndim < min_rank:
+            return a
+        if select is not None and not select(i, a if batched else a[None]):
+            return a
+        return leaf_fn(a)
+
+    return walk(tree)
+
+
+def pad_length_axis(tree, ladder: BucketLadder, select=None):
+    """Round every rank >= 2 leaf's time axis (1) up to the length ladder
+    with zeros (tokens past the true length are padding the model must
+    mask, as in training).  A length past the ladder's largest rung adds
+    that length as a rung, so it is reused.
+
+    ``select``: optional ``(leaf_index, leaf) -> bool`` choosing which
+    rank >= 2 leaves are bucketed (depth-first numbering over the whole
+    tree, the leaf at batched rank).  By default all are, which is wrong
+    for a fixed-width rank >= 2 side input: exclude it here
+    (``ServingEngine(length_select=)``)."""
+
+    def pad(a):
+        target = ladder.bucket_for(a.shape[1])
+        if target is None:
+            target = ladder.add(a.shape[1])
+        if target == a.shape[1]:
+            return a
+        out = np.zeros((a.shape[0], target) + a.shape[2:], a.dtype)
+        out[:, : a.shape[1]] = a
+        return out
+
+    return walk_length_leaves(tree, select, pad, batched=True)
+
+
+def slice_batch_axis(tree, n: int):
+    """Inverse of ``pad_batch_axis``: the first ``n`` (real) rows."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(slice_batch_axis(e, n) for e in tree)
+    return tree[:n]
 
 
 def ladder_or_default(ladder: Optional[BucketLadder], max_size: int,

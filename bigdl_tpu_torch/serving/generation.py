@@ -199,7 +199,8 @@ class GenerateScheduler:
 
     def __init__(self, model, slots: int = 8, max_len: Optional[int] = None,
                  prompt_ladder: Optional[BucketLadder] = None,
-                 queue_capacity: int = 1024, admission_check=None):
+                 queue_capacity: int = 1024, admission_check=None,
+                 exhausted_hook=None):
         if not hasattr(model, "init_cache"):
             raise TypeError(
                 f"{type(model).__name__} has no init_cache(): generation "
@@ -215,6 +216,9 @@ class GenerateScheduler:
         #: callable run under this scheduler's lock right before a request
         #: enqueues (raising refuses it): the engine's drain/close check
         self._admission_check = admission_check
+        #: called with a ``BlockPoolExhausted`` before the shed request
+        #: sees it (the engine's memory forensics)
+        self._exhausted_hook = exhausted_hook
         self.prompt_ladder = prompt_ladder.copy() \
             if prompt_ladder is not None \
             else BucketLadder(self.max_len, min_size=min(8, self.max_len))
@@ -708,6 +712,7 @@ class PagedGenerateScheduler(GenerateScheduler):
     def __init__(self, model, slots: int = 8, max_len: Optional[int] = None,
                  prompt_ladder: Optional[BucketLadder] = None,
                  queue_capacity: int = 1024, admission_check=None,
+                 exhausted_hook=None,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  cache_dtype=torch.float32):
@@ -740,7 +745,8 @@ class PagedGenerateScheduler(GenerateScheduler):
         super().__init__(model, slots=slots, max_len=max_len,
                          prompt_ladder=prompt_ladder,
                          queue_capacity=queue_capacity,
-                         admission_check=admission_check)
+                         admission_check=admission_check,
+                         exhausted_hook=exhausted_hook)
 
     def _setup_steps(self):
         self._chunk_fn, self._decode_fn, self._copy_fn = \
@@ -770,6 +776,12 @@ class PagedGenerateScheduler(GenerateScheduler):
             self.num_blocks, self.block_size, kv_dtype=self.kv_dtype(),
             bytes_per_block=_tree_bytes(self._cache)
             // (self.num_blocks + 1))
+
+    def flush_prefix_cache(self):
+        """Forget every cached prefix block (a weight swap calls this:
+        K/V computed under the old weights must not serve new prompts;
+        live sequences keep their blocks)."""
+        self._alloc.flush_cached()
 
     def stats(self):
         st = super().stats()
@@ -864,6 +876,13 @@ class PagedGenerateScheduler(GenerateScheduler):
             except BlockPoolExhausted as e:
                 with self._lock:
                     self._free.append(idx)
+                hook = self._exhausted_hook
+                if hook is not None:
+                    # the forensics before the caller sees the failure
+                    try:
+                        hook(e)
+                    except Exception:
+                        log.exception("exhausted_hook failed")
                 f._stream.put(e)
                 f._stream.put(None)
                 f.set_exception(e)

@@ -107,6 +107,9 @@ class StepGraphs:
         self.captured = 0
         self.captured_after_precompile = 0
         self.replays = 0
+        #: device memory the captures reserved (on the card; the engine's
+        #: memory ledger reads it)
+        self.pool_bytes = 0
 
     def stats(self):
         return {"captured": self.captured,
@@ -154,7 +157,9 @@ class StepGraphs:
 
     def _capture(self, fn, inputs):
         self._capturer.warm_up(fn)
+        reserved = torch.cuda.memory_reserved(self.device)
         graph, outputs, rec = self._capturer.capture(fn)
+        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         return _Step(fn, inputs, graph, outputs, rec)
 
     def step(self, key) -> _Step:

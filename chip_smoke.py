@@ -262,6 +262,56 @@ Phases, each printing JSON lines:
     SIGKILLed by ``ChaosKillTrigger(5)``, restarted from its snapshot and
     finishes at step 10, its parameters and statistics against a straight
     child's (``RESUME_RTOL``), and the recovery event.
+14. the serving engine (``serving/engine.py``: ``predict`` as one CUDA
+    graph per (batch rung, length rung), staging, refresh, the memory
+    ledger, ``optim.PredictionService``): (a) ``ServingEngine(resnet50,
+    quantize=True, accuracy_gate=..., max_batch_size=32)`` (seed 0, the
+    statistics of one training forward, 224 x 224): ``precompile``
+    captures one graph a rung (6); 64 requests in mixed bursts from 8
+    threads capture none, each tick's outputs bitwise a replay of its
+    padded batch, the twin's eager eval of it and the twin with every
+    int8 layer through its plain version (K6, K7 and K6q held at the
+    shapes the main path gave them, and a replay at each rung), a
+    request that rode alone bitwise ``predict_at`` (the activation scale
+    is taken over the
+    whole padded batch, so a request sharing a tick is reproducible only
+    with its tick's batch), K6 52 + 1, K7 49 and K6q 50 launches a replay
+    counted through the replays, requests/s and the graph pools' bytes;
+    the batch-1 request time (median of 50 sequential calls) through
+    ``predict``, ``predict_at`` and the twin's eager eval (the old
+    ``predict`` path); the served rate over a window of 4,096 requests,
+    and at each rung a tick's copy in, replay, copy out and whole eval
+    timed apart; (b) TransformerLM "small" (seed 0) through an fp32
+    engine (with paged generation) and a ``compute_dtype=torch.bfloat16``
+    one, ``length_ladder`` rungs 64-1024 and batch rungs 1-4: captures
+    equal to batch rungs x length rungs (plus generation's), none after
+    ``precompile`` under 16 mixed-length requests from 8 threads, each
+    result bitwise ``predict_at`` of its request zero-padded to its
+    result's length rung, K1 once a layer a replay and held against its
+    plain version at every (batch rung, length rung), a request against
+    the plain model (1e-4), the served rate over 320 requests and a
+    tick's parts at the smallest and largest rung; (c) on (a)'s engine, a candidate from seed 1:
+    ``eval_staged`` bitwise the candidate twin's eager eval, a canary of
+    0.25 serving 2 of 8 sequential ticks on it, ``commit_staged`` making
+    the replay bitwise the candidate twin's eager eval (K6's packed copy
+    re-packed in place), the ``capture_staged`` handle rolling back
+    bitwise, a truncated tree refused by ``refresh_params`` with the
+    outputs unchanged, ``refresh_from_snapshot`` of the checkpoint of one
+    ``LocalOptimizer`` step bitwise the trained twin's eager eval; the
+    commit and rollback again on an fp32 and a bf16 ResNet-50 engine,
+    bitwise against the candidate's own graph and within
+    ``ENGINE_EAGER_RTOL`` of its eager eval; each commit's time;
+    (d) on (b)'s fp32 engine: two prompts on a shared 256-token prefix
+    (the second hits the cache), a candidate (seed 1) committed, the
+    cache flushed and not hit after it, the next greedy stream (K3
+    counted) equal to a fresh engine's on the candidate except at a
+    ``TIE_MARGIN`` near-tie, the predict replay bitwise the candidate's
+    own graph, the rollback bitwise, and the memory ledger (params, the
+    KV block split, the graphs' pools, the staged handles, the card's
+    headroom); (e) ``PredictionService`` on (b)'s model, 16 requests of
+    128 tokens from 8 threads, on the semaphore path and with
+    ``coalesce=True``: each output bitwise ``predict_at`` at the rung it
+    rode, no capture.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -4028,16 +4078,7 @@ def int8_resnet(card, quantizations):
             unfused_plain = twin(x).cpu()
     plain_equal = bool(torch.equal(got, plain))
     unfused_equal = bool(torch.equal(got, unfused_plain))
-    first_diff = None
-    if not plain_equal:
-        kernel_outs = _conv_outputs(twin, x)
-        with _plain_int8():
-            plain_outs = _conv_outputs(twin, x)
-        for name, o in kernel_outs.items():
-            d = float((o - plain_outs[name]).abs().max())
-            if d:
-                first_diff = {"layer": name, "max_abs": d}
-                break
+    first_diff = None if plain_equal else _first_int8_diff(twin, x)
     with torch.no_grad():
         fp32 = model(x).cpu()
     agree = float((fp32.argmax(-1) == got.argmax(-1)).float().mean())
@@ -4470,6 +4511,825 @@ def int8_phase(card):
                   "int8_resnet_serving": serving["launches"]}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: the serving engine's predict graphs, staging and the service
+# --------------------------------------------------------------------------- #
+
+#: (a) int8 ResNet-50's engine: its largest rung, the requests of the
+#: mixed bursts and the threads sending them, the burst sizes each thread
+#: cycles through, and the sequential calls of the batch-1 timing
+ENGINE_RESNET_MAX_BATCH = 32
+ENGINE_REQUESTS, ENGINE_THREADS = 64, 8
+ENGINE_BURSTS = (1, 3, 4)
+ENGINE_B1_CALLS = 50
+#: the served-rate windows after each engine's checked main path: int8
+#: ResNet-50's requests (its 64 images in turn) and each LM engine's (its
+#: request lengths in turn), a few seconds each; and the sequential calls
+#: that time each part of one tick at a rung
+ENGINE_RATE_REQUESTS, ENGINE_LM_RATE_REQUESTS = 4096, 320
+ENGINE_TICK_CALLS = 20
+#: (b) TransformerLM "small"'s engines: the length ladder's rungs (64,
+#: 128, 256, 512, 1024), the largest batch rung, the request lengths
+#: (two of each, mixed over the rungs) and (e)'s service requests
+ENGINE_LENGTHS = (64, 1024)
+ENGINE_LM_MAX_BATCH = 4
+ENGINE_LM_REQUEST_LENGTHS = (17, 64, 100, 200, 300, 513, 700, 1000) * 2
+ENGINE_SERVICE_REQUESTS, ENGINE_SERVICE_LEN = 16, 128
+#: (d) the shared prefix of the two generations and their new tokens
+ENGINE_PREFIX, ENGINE_NEW = 256, 16
+#: (c) the fp32 and bf16 ResNet-50 engines' logits after a commit against
+#: the candidate's eager eval, relative to the largest logit (a capture may
+#: pick other cuBLAS algorithms for the head; the check that holds the
+#: commit is bitwise against the candidate's own graph)
+ENGINE_EAGER_RTOL = {None: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _resnet50_with_stats(seed):
+    """ResNet-50 (1000 classes) from ``seed`` on the card in eval mode,
+    its running statistics those of one training forward on 4 images."""
+    from bigdl_tpu_torch.models import ResNet
+
+    model = ResNet(50, 1000, device="cuda", seed=seed)
+    rng = np.random.default_rng(100 + seed)
+    with torch.no_grad():
+        model.train()(torch.from_numpy(rng.standard_normal(
+            (4, RESNET_SIDE, RESNET_SIDE, 3), dtype=np.float32)).cuda())
+    return model.eval()
+
+
+def _padded(x, bucket):
+    batch = np.zeros((bucket,) + x.shape, x.dtype)
+    batch[0] = x
+    return batch
+
+
+def _eager_rows(model, batch, dtype=None):
+    """``model``'s eager eval of a padded numpy batch, numpy out."""
+    from bigdl_tpu_torch import optim
+
+    out = optim.make_eval_step(model, dtype)(torch.from_numpy(batch).cuda())
+    return out.cpu().numpy()
+
+
+def _max_rel(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _median_ms(fn, calls):
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def _mixed_bursts(eng, features, threads=ENGINE_THREADS, keep=True):
+    """``features`` sent from ``threads`` threads, each cycling bursts of
+    ``ENGINE_BURSTS`` requests (submitted together, then awaited); returns
+    ``(result, bucket)`` a request, in order (the result None unless
+    ``keep``), and the wall seconds."""
+    out = [None] * len(features)
+    errors = []
+
+    def worker(k):
+        mine = list(range(k, len(features), threads))
+        i = 0
+        try:
+            while i < len(mine):
+                size = ENGINE_BURSTS[(k + i) % len(ENGINE_BURSTS)]
+                burst = mine[i:i + size]
+                futs = [(j, eng.submit(features[j])) for j in burst]
+                for j, fut in futs:
+                    y = fut.result(timeout=600)
+                    out[j] = (y if keep else None, fut.bucket)
+                i += size
+        except Exception as e:            # re-raised on the main thread
+            errors.append(e)
+
+    workers = [threading.Thread(target=worker, args=(k,))
+               for k in range(threads)]
+    t0 = time.perf_counter()
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in workers):
+        raise AssertionError(f"mixed bursts failed: {errors}")
+    return out, wall
+
+
+def _settle(eng, timeout=60.0):
+    """Wait until ``eng`` holds no request and runs no tick: a tick's
+    shadow runs after its results are delivered, inside the tick."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        st = eng.stats()
+        if not (st["pending"] or st["in_tick"]):
+            return
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"engine still busy: {st}")
+        time.sleep(0.001)
+
+
+def _rate_window(eng, features):
+    """The served rate over ``features`` in mixed bursts from
+    ``ENGINE_THREADS`` threads, the results dropped as they come (no
+    shadow, no check): requests/s, the wall seconds, the ticks and the
+    rungs they rode."""
+    before = eng.stats()["ticks"]
+    out, wall = _mixed_bursts(eng, features, keep=False)
+    ticks = eng.stats()["ticks"] - before
+    return {"requests": len(features), "wall_s": wall,
+            "requests_per_s": len(features) / wall, "ticks": ticks,
+            "requests_per_tick": len(features) / max(ticks, 1),
+            "request_buckets": collections.Counter(b for _, b in out)}
+
+
+def _tick_breakdown(eng, batch, calls=ENGINE_TICK_CALLS):
+    """One tick's parts at ``batch``'s rung, host-clock medians of
+    ``calls`` calls (median, min, max ms), each synced: the pageable copy
+    of the padded batch to the card, the replay alone (its input already
+    there), the copy of its output to the host, and the engine's whole
+    eval of the batch (the three in turn, under the step's lock)."""
+    step = eng._backend.step
+    xd = torch.as_tensor(batch, device="cuda")
+
+    def copy_in():
+        torch.as_tensor(batch, device="cuda")
+        torch.cuda.synchronize()
+
+    def replay():
+        with step.lock:
+            step(xd)
+            torch.cuda.synchronize()
+
+    with step.lock:
+        out = step(xd)
+        torch.cuda.synchronize()
+        copy_out = _median_ms(lambda: out.cpu(), calls)
+    return {"rung": list(batch.shape[:2]), "bytes_in": batch.nbytes,
+            "bytes_out": out.numel() * out.element_size(),
+            "copy_in_ms": _median_ms(copy_in, calls),
+            "replay_ms": _median_ms(replay, calls),
+            "copy_out_ms": copy_out,
+            "eval_ms": _median_ms(lambda: eng._backend.eval(batch), calls)}
+
+
+def _plain_int8_rows(twin, batch):
+    """The int8 twin's eval of a numpy batch with every int8 layer through
+    its plain version (K6's, K7's and K6q's), numpy out."""
+    with _plain_int8(), torch.no_grad():
+        return twin(torch.from_numpy(batch).cuda()).cpu().numpy()
+
+
+def _first_int8_diff(twin, x):
+    """The first convolution whose output differs between the kernels and
+    the plain versions on the card tensor ``x``, with its largest
+    difference, or None."""
+    kernel_outs = _conv_outputs(twin, x)
+    with _plain_int8():
+        plain_outs = _conv_outputs(twin, x)
+    for name, o in kernel_outs.items():
+        d = float((o - plain_outs[name]).abs().max())
+        if d:
+            return {"layer": name, "max_abs": d}
+    return None
+
+
+def engine_int8(card):
+    """(a) ``ServingEngine(resnet50, quantize=True, accuracy_gate=...,
+    max_batch_size=32)``: ``precompile`` captures a graph a rung; 64
+    requests in mixed bursts from 8 threads (the main path: K6, K7 and
+    K6q launches counted through its replays) capture nothing; every
+    tick's outputs are bitwise a replay of its padded batch, the twin's
+    eager eval of it and the twin's eval with every int8 layer through
+    its plain version (the kernels held at the shapes the main path gave
+    them; a replay at each rung too), and a request that rode alone is
+    bitwise ``predict_at``; one replay's K6, K7 and K6q launches; the
+    batch-1 request time through the replayed graph against the twin's
+    eager eval, the old ``predict`` path; the served rate over
+    ``ENGINE_RATE_REQUESTS`` requests, and one tick's copies against its
+    replay at each rung.  Returns the engine, its model, the images, the
+    row and the main path's launches."""
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.ops import cross_entropy as ce
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    model = _resnet50_with_stats(0)
+    rng = np.random.default_rng(14)
+    images = rng.standard_normal((ENGINE_REQUESTS + 8, RESNET_SIDE,
+                                  RESNET_SIDE, 3), dtype=np.float32)
+    gate = {"features": images[-8:], "min_top1_agreement": INT8_GATE_TOP1,
+            "max_logit_rmse": INT8_GATE_RMSE}
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, quantize=True, accuracy_gate=gate,
+                        max_batch_size=ENGINE_RESNET_MAX_BATCH)
+    start_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built = eng.precompile(example_feature=images[0])
+    precompile_s = time.perf_counter() - t0
+    step_stats = eng._backend.step.stats()
+    if built != len(eng.ladder) or eng.executables() != built:
+        raise AssertionError(f"int8 engine: precompile built {built}, "
+                             f"ladder {list(eng.ladder)}")
+    ticks = []
+    eng.set_shadow(lambda x, y, bucket, n, tick:
+                   ticks.append((x, y, bucket, n)), 1.0)
+    feats = list(images[:ENGINE_REQUESTS])
+    gc.collect()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    ce.reset_launch_counts()
+    _reset_int8_launches()
+    # ---- the int8 engine's main path: counts read right after it ------
+    served, wall = _mixed_bursts(eng, feats)
+    _settle(eng)
+    torch.cuda.synchronize()
+    launches = _int8_launches()
+    other = sum(fa.LAUNCHES.values()) + sum(ce.LAUNCHES.values())
+    # ---------------------------------------------------------------------
+    eng.set_shadow(None)
+    replays = len(ticks)
+    twin = eng._qmodel
+    tick_mismatch, alone_mismatch, alone, shared_equal = [], [], 0, 0
+    plain_mismatch = []
+    row_of = {x[i].tobytes(): (t, i) for t, (x, _, _, n) in enumerate(ticks)
+              for i in range(n)}
+    for t, (x, y, bucket, n) in enumerate(ticks):
+        again = eng._backend.eval(x)
+        eager = _eager_rows(twin, x)
+        if not (np.array_equal(again, y) and np.array_equal(eager, y)):
+            tick_mismatch.append((t, bucket, _max_rel(eager, y)))
+        if not np.array_equal(_plain_int8_rows(twin, x), y):
+            plain_mismatch.append({"tick": t, "bucket": bucket,
+                                   "first": _first_int8_diff(
+                                       twin, torch.from_numpy(x).cuda())})
+    # every rung's replay, full of images, against the plain versions
+    for b in eng.ladder:
+        x = np.ascontiguousarray(images[:b])
+        if not np.array_equal(_plain_int8_rows(twin, x),
+                              eng._backend.eval(x)):
+            plain_mismatch.append({"rung": b, "first": _first_int8_diff(
+                twin, torch.from_numpy(x).cuda())})
+    for j, (y, bucket) in enumerate(served):
+        t, i = row_of[feats[j].tobytes()]
+        at = eng.predict_at(feats[j], bucket)
+        if ticks[t][3] == 1:
+            alone += 1
+            if not np.array_equal(y, at):
+                alone_mismatch.append(j)
+        else:
+            shared_equal += bool(np.array_equal(y, at))
+        if not np.array_equal(y, ticks[t][1][i]):
+            tick_mismatch.append(("row", j))
+    _reset_int8_launches()
+    eng.predict_at(images[0], 1)
+    torch.cuda.synchronize()
+    one = _int8_launches()
+    per_replay = {"int8_conv": one["int8_conv"] + one["int8_conv_gather"],
+                  "bn_act": one["bn_act"],
+                  "act_quant": one["act_quant"] + one["act_quant_given"]
+                  + one["act_quant_small"]}
+    # the batch-1 request: the engine's predict (queue, max_wait_ms, the
+    # replay, the copy to the host), predict_at (the replay and the copy)
+    # and the twin's eager eval of the same padded request (the old path)
+    x1 = images[1]
+    eager_step = optim.make_eval_step(twin)
+    torch.cuda.synchronize()
+    b1 = {"predict": _median_ms(lambda: eng.predict(x1), ENGINE_B1_CALLS),
+          "predict_at": _median_ms(lambda: eng.predict_at(x1, 1),
+                                   ENGINE_B1_CALLS),
+          "eager": _median_ms(
+              lambda: eager_step(torch.from_numpy(x1[None]).cuda())
+              .cpu().numpy(), ENGINE_B1_CALLS)}
+    # the served rate over a window of seconds, then a tick's parts
+    rate = _rate_window(eng, [images[j % ENGINE_REQUESTS]
+                              for j in range(ENGINE_RATE_REQUESTS)])
+    ticks_parts = [_tick_breakdown(eng, np.ascontiguousarray(images[:b]))
+                   for b in eng.ladder]
+    captured_after = eng.executables() - built
+    row = {"phase": "engine_int8_resnet50", "engine_start_s": start_s,
+           "precompile_s": precompile_s, "ladder": list(eng.ladder),
+           "captured": built, "captured_after_precompile": captured_after,
+           "graph_pool_bytes": step_stats["pool_bytes"],
+           "requests": ENGINE_REQUESTS, "threads": ENGINE_THREADS,
+           "bursts": ENGINE_BURSTS, "wall_s": wall,
+           "requests_per_s": ENGINE_REQUESTS / wall, "ticks": replays,
+           "tick_buckets": collections.Counter(b for _, _, b, _ in ticks),
+           "tick_mismatch": tick_mismatch,
+           "plain_mismatch": plain_mismatch,
+           "rungs_held_against_plain": list(eng.ladder),
+           "rate_window": rate, "tick_parts": ticks_parts,
+           "requests_alone": alone,
+           "alone_mismatch": alone_mismatch,
+           "shared_tick_requests_equal_to_predict_at": shared_equal,
+           "launches": launches, "other_kernel_launches": other,
+           "launches_one_replay": per_replay,
+           "batch1_ms_median_min_max": b1, "max_wait_ms":
+           eng.max_wait_s * 1e3, "gate": eng._gate_detail, "card": card}
+    emit(row)
+    want_path = {"int8_conv": (RESNET_CONVS - 1) * replays,
+                 "int8_conv_gather": replays,
+                 "bn_act": RESNET_K7_SITES * replays,
+                 "act_quant_given": RESNET_GIVEN * replays}
+    if captured_after or tick_mismatch or plain_mismatch or \
+            alone_mismatch or other or \
+            {k: launches[k] for k in want_path} != want_path or \
+            launches["act_quant"] + launches["act_quant_small"] != \
+            (RESNET_QUANTIZATIONS - RESNET_GIVEN) * replays or \
+            per_replay != {"int8_conv": RESNET_CONVS,
+                           "bn_act": RESNET_K7_SITES,
+                           "act_quant": RESNET_QUANTIZATIONS} or \
+            any(not np.isfinite(y).all() or y.shape != (1000,)
+                for y, _ in served):
+        raise AssertionError(f"int8 engine: {row}")
+    return eng, model, images, row, launches
+
+
+def _commit_check(eng, label, cand_eval, x, bucket, dtype, card):
+    """Stage ``cand_eval``'s model as the candidate, commit it, hold the
+    replay against the candidate's own graph (bitwise) and its eager
+    eval, roll back through a captured handle (bitwise); the commit's
+    time."""
+    batch = _padded(x, bucket)
+    y0 = eng.predict_at(x, bucket)
+    execs = eng._executables()
+    back = eng.capture_staged()
+    cand = cand_eval["ref"]
+    t0 = time.perf_counter()
+    h = eng.stage_weights(cand.parameters_tree(), cand.state_tree())
+    stage_s = time.perf_counter() - t0
+    staged_y = eng.eval_staged(h, batch)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.commit_staged(h)
+    commit_s = time.perf_counter() - t0
+    got = eng.predict_at(x, bucket)
+    eager = _eager_rows(cand_eval["eval"], batch, dtype)[0]
+    t0 = time.perf_counter()
+    eng.commit_staged(back)
+    rollback_s = time.perf_counter() - t0
+    rolled = eng.predict_at(x, bucket)
+    row = {"phase": "engine_commit", "engine": label, "bucket": bucket,
+           "stage_s": stage_s, "commit_s": commit_s,
+           "rollback_s": rollback_s,
+           "staged_captures": h["staged"].step.executables(),
+           "staged_pool_bytes": h["staged"].step.stats()["pool_bytes"],
+           "committed_equals_staged_graph": bool(np.array_equal(got,
+                                                               staged_y)),
+           "committed_equals_eager": bool(np.array_equal(got, eager)),
+           "committed_vs_eager_rel": _max_rel(got, eager),
+           "changed": not bool(np.array_equal(got, y0)),
+           "rollback_bitwise": bool(np.array_equal(rolled, y0)),
+           "captured_on_live_step": eng._executables() - execs,
+           "card": card}
+    emit(row)
+    bitwise_eager = dtype is None and eng.quantized
+    if not (row["committed_equals_staged_graph"] and row["changed"]
+            and row["rollback_bitwise"] and not row["captured_on_live_step"]
+            and (row["committed_equals_eager"] if bitwise_eager else
+                 row["committed_vs_eager_rel"] <= ENGINE_EAGER_RTOL[dtype])):
+        raise AssertionError(f"commit on the {label} engine: {row}")
+    return h, row
+
+
+def engine_staging(card, eng, model, images):
+    """(c) staging on (a)'s engine (a candidate from seed 1): the staged
+    eval bitwise the candidate twin's eager eval; a canary of 0.25 serving
+    1 tick in 4 on it; a commit making the replay bitwise the candidate
+    twin's eager eval (so K6's packed copies were re-packed in place);
+    the captured handle rolling back bitwise; a truncated tree refused by
+    ``refresh_params`` with the outputs unchanged; ``refresh_from_snapshot``
+    of a checkpoint the port's ``LocalOptimizer`` wrote; the commit check
+    again on an fp32 and a bf16 engine (the compute copy re-cast in
+    place)."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.nn import quantized as tq
+    from bigdl_tpu_torch.optim.train_step import compute_copy
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    cand = _resnet50_with_stats(1)
+    cand_twin = tq.quantize_model(cand)[0]
+    x = images[2]
+    h, commit = _commit_check(eng, "int8", {"ref": cand, "eval": cand_twin},
+                              x, 4, None, card)
+    staged = eng.eval_staged(h, _padded(x, 4))[0]
+    want = _eager_rows(cand_twin, _padded(x, 4))[0]
+    # the canary: 8 sequential requests, each its own tick of rung 1
+    live1 = eng.predict_at(x, 1)
+    cand1 = eng.eval_staged(h, _padded(x, 1))[0]
+    eng.set_canary(h, 0.25, version=2)
+    outs = [eng.predict(x) for _ in range(8)]
+    canary = eng.canary_stats()
+    eng.set_canary(None)
+    on_cand = sum(np.array_equal(o, cand1) for o in outs)
+    on_live = sum(np.array_equal(o, live1) for o in outs)
+    # a half-written tree: refused, nothing changes
+    y0 = eng.predict_at(x, 4)
+    params = model.parameters_tree()
+    truncated = {k: v for k, v in params.items() if k != list(params)[-1]}
+    try:
+        eng.refresh_params(truncated)
+        refused = None
+    except ValueError as e:
+        refused = str(e)[:200]
+    unchanged = bool(np.array_equal(eng.predict_at(x, 4), y0))
+    # a checkpoint the port's LocalOptimizer wrote: one SGD step of
+    # another ResNet-50 on 2 images, its snapshot at neval 2
+    trained = _resnet50_with_stats(2)
+    rng = np.random.default_rng(15)
+    xt = rng.standard_normal((2, RESNET_SIDE, RESNET_SIDE, 3),
+                             dtype=np.float32)
+    yt = rng.integers(0, 1000, 2)
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_engine_"))
+    try:
+        opt = optim.Optimizer(
+            trained, array_dataset(xt, yt, shuffle_on_epoch=False) >>
+            SampleToMiniBatch(2), nn.CrossEntropyCriterion(),
+            optim.SGD(learning_rate=1e-3))
+        opt.set_end_when(optim.Trigger.max_iteration(1))
+        opt.set_checkpoint(str(ckpt), optim.Trigger.several_iteration(2))
+        opt.optimize()
+        snaps = sorted(os.listdir(ckpt))
+        t0 = time.perf_counter()
+        eng.refresh_from_snapshot(str(ckpt))
+        refresh_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    trained.eval()
+    got = eng.predict_at(x, 4)
+    want_trained = _eager_rows(tq.quantize_model(trained)[0],
+                               _padded(x, 4))[0]
+    row = {"phase": "engine_staging", "staged_equals_eager_twin":
+           bool(np.array_equal(staged, want)),
+           "canary_stats": canary, "canary_outputs_on_candidate": on_cand,
+           "canary_outputs_on_live": on_live, "truncated_refused": refused,
+           "outputs_unchanged_after_refusal": unchanged,
+           "snapshot_files": snaps, "refresh_from_snapshot_s": refresh_s,
+           "refreshed_equals_eager_twin": bool(np.array_equal(
+               got, want_trained)), "gate": eng._gate_detail, "card": card}
+    emit(row)
+    if not (row["staged_equals_eager_twin"] and canary["ticks"] == 2
+            and canary["failures"] == 0 and on_cand == 2 and on_live == 6
+            and refused and unchanged
+            and row["refreshed_equals_eager_twin"]):
+        raise AssertionError(f"int8 staging: {row}")
+    del h
+    commits = {"int8": commit}
+    for dtype, label in ((None, "fp32"), (torch.bfloat16, "bf16")):
+        with ServingEngine(model, max_batch_size=4,
+                           compute_dtype=dtype) as other:
+            other.precompile(example_feature=images[0])
+            ref_eval = cand if dtype is None else compute_copy(cand, dtype)
+            _, commits[label] = _commit_check(
+                other, label, {"ref": cand, "eval": ref_eval}, x, 4, dtype,
+                card)
+        del ref_eval
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, commits
+
+
+def _lm_requests(seed, lengths):
+    from bigdl_tpu_torch.models import synthetic_corpus
+
+    toks, _ = synthetic_corpus(len(lengths), max(lengths), SERVE_VOCAB,
+                               seed=seed)
+    return [toks[i, :n].astype(np.int32) for i, n in enumerate(lengths)]
+
+
+def engine_lm(card, model, plain_model, dtype, engine_kw):
+    """(b) TransformerLM "small" through an engine with the length ladder
+    (fp32, or ``compute_dtype``): ``precompile`` captures batch rungs x
+    length rungs (plus generation's, fp32); mixed lengths from 8 threads
+    capture none (the main path: K1 counted through its replays); each
+    result is bitwise ``predict_at`` of its request zero-padded to the
+    result's length rung, at its tick's batch rung; one replay launches K1
+    once a layer; K1 held against its plain version at every (batch rung,
+    length rung) the engine's graphs run it at; a request against the
+    plain model (fp32); the served rate over ``ENGINE_LM_RATE_REQUESTS``
+    requests, and one tick's copies against its replay at the smallest
+    and the largest rung.  Returns the engine, the row and the main
+    path's launches."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.serving import BucketLadder, ServingEngine
+
+    label = "bf16" if dtype else "fp32"
+    ladder = BucketLadder(ENGINE_LENGTHS[1], min_size=ENGINE_LENGTHS[0])
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, max_batch_size=ENGINE_LM_MAX_BATCH,
+                        length_ladder=ladder, compute_dtype=dtype,
+                        **engine_kw)
+    reqs = _lm_requests(20, ENGINE_LM_REQUEST_LENGTHS)
+    built = eng.precompile(example_feature=reqs[0])
+    precompile_s = time.perf_counter() - t0
+    predict_built = eng._executables()
+    step_stats = eng._backend.step.stats()
+    gen = eng.stats().get("generate", {}).get("graphs", {})
+    execs = eng.executables()
+    gc.collect()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    # ---- the LM engine's main path: counts read right after it --------
+    served, wall = _mixed_bursts(eng, reqs)
+    torch.cuda.synchronize()
+    bf16_k1 = fa.BF16_LAUNCHES["flash_attention"]
+    fp32_k1 = fa.LAUNCHES["flash_attention"] - bf16_k1
+    k1 = {kernel_key("flash_attention", dtype):
+          bf16_k1 if dtype else fp32_k1}
+    k1_other = fp32_k1 if dtype else bf16_k1
+    # ---------------------------------------------------------------------
+    mismatched = []
+    for j, (y, bucket) in enumerate(served):
+        x = np.zeros(y.shape[0], np.int32)
+        x[:len(reqs[j])] = reqs[j]
+        if not np.array_equal(y, eng.predict_at(x, bucket)) or \
+                not np.isfinite(y).all():
+            mismatched.append(j)
+    fa.reset_launch_counts()
+    eng.predict_at(reqs[0], 1)
+    torch.cuda.synchronize()
+    one = fa.BF16_LAUNCHES["flash_attention"] if dtype \
+        else fa.LAUNCHES["flash_attention"]
+    plain_rel = None
+    if dtype is None:
+        n = len(reqs[2])
+        with torch.no_grad():
+            want = plain_model(torch.from_numpy(reqs[2][None]).cuda())[0]
+        got = eng.predict_at(reqs[2], 1)[:n]
+        plain_rel = _max_rel(got, want.cpu().numpy())
+    # K1 at every shape the graphs run it at, on random q, k, v views of
+    # one fused qkv buffer in the engine's dtype
+    g = torch.Generator(device="cuda").manual_seed(16)
+    tol = BF16_TOL if dtype else ATOL
+    k1_err = {}
+    for b in eng.ladder:
+        for t in eng.length_ladder:
+            qkv = torch.randn(b, t, 3 * HEADS * HEAD_DIM, generator=g,
+                              device="cuda").to(dtype or torch.float32)
+            q, k, v = (a.unflatten(-1, (HEADS, HEAD_DIM))
+                       for a in qkv.split(HEADS * HEAD_DIM, dim=-1))
+            k1_err[f"B{b}_T{t}"] = check_close(
+                f"flash_attention {label} B{b} T{t}",
+                fa.flash_attention(q, k, v, causal=True),
+                fa.flash_attention_reference(q, k, v, causal=True), tol, tol)
+    del qkv, q, k, v
+    # the served rate over a window of seconds, then a tick's parts
+    rate = _rate_window(eng, [reqs[j % len(reqs)]
+                              for j in range(ENGINE_LM_RATE_REQUESTS)])
+    parts = []
+    rungs, lengths = list(eng.ladder), list(eng.length_ladder)
+    for b, t in ((rungs[0], lengths[0]), (rungs[-1], lengths[-1])):
+        parts.append(_tick_breakdown(eng, np.stack(_lm_requests(25,
+                                                                (t,) * b))))
+    captured_after = eng.executables() - execs
+    combos = len(eng.ladder) * len(eng.length_ladder)
+    row = {"phase": "engine_lm", "dtype": label, "ladder": list(eng.ladder),
+           "length_ladder": list(eng.length_ladder), "captured": built,
+           "predict_captured": predict_built, "batch_x_length_rungs": combos,
+           "generation_captured": gen.get("captured", 0),
+           "precompile_s": precompile_s,
+           "captured_after_precompile": captured_after,
+           "predict_graph_pool_bytes": step_stats["pool_bytes"],
+           "requests": len(reqs), "wall_s": wall,
+           "requests_per_s": len(reqs) / wall, "rate_window": rate,
+           "tick_parts": parts, "k1_vs_plain_max_abs": k1_err,
+           "k1_tolerance": tol,
+           "result_lengths": sorted({y.shape[0] for y, _ in served}),
+           "mismatched": mismatched, "launches": k1,
+           "other_k1_launches": k1_other, "k1_one_replay": one,
+           "vs_plain_model_rel": plain_rel, "card": card}
+    emit(row)
+    from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+
+    layers = sum(isinstance(m, MultiHeadAttention) for m in model.modules())
+    if predict_built != combos or captured_after or mismatched or \
+            one != layers or k1_other or not next(iter(k1.values())) or \
+            (plain_rel is not None and plain_rel > RTOL):
+        raise AssertionError(f"LM engine ({label}): {row}")
+    return eng, row, k1
+
+
+def engine_swap_generation(card, eng, model, images_unused=None):
+    """(d) generation on (b)'s fp32 engine across a commit: a prompt with
+    a shared prefix leaves cached blocks; a candidate (seed 1) is
+    committed (the cache flushed, no hit after it); the next prompt's
+    greedy stream equals a fresh engine's on the candidate, except at a
+    near-tie (``TIE_MARGIN``, the candidate's plain model); the predict
+    replay is bitwise the candidate's own graph and rolls back bitwise;
+    the memory ledger's snapshot.  Returns the row and the main path's
+    launches (the generation after the commit)."""
+    from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    prefix = _lm_requests(21, (ENGINE_PREFIX,))[0]
+    tails = _lm_requests(22, (5, 6, 7))
+    p0, p1, p2 = (np.concatenate([prefix, t]) for t in tails)
+    # the second prompt maps the first one's prefix blocks (a hit)
+    for p in (p0, p1):
+        eng.generate(p, max_new_tokens=ENGINE_NEW).result(timeout=600)
+    kv = eng.stats()["generate"]["kv"]
+    cached_before, hits_before = kv["blocks_cached"], kv["prefix_hits"]
+    cand = transformer_lm("small", vocab_size=SERVE_VOCAB, device="cuda",
+                          seed=1)
+    back = eng.capture_staged()
+    h = eng.stage_weights(cand.parameters_tree())
+    # a request off its length rung, zero-padded to it for eval_staged
+    x = _lm_requests(23, (ENGINE_LENGTHS[0] * 3 // 2,))[0]
+    rung = eng.length_ladder.bucket_for(len(x))
+    y0 = eng.predict_at(x, 2)
+    staged_y = eng.eval_staged(h, _padded(np.pad(x, (0, rung - len(x))),
+                                          2))[0]
+    t0 = time.perf_counter()
+    eng.commit_staged(h, version=2)
+    commit_s = time.perf_counter() - t0
+    kv = eng.stats()["generate"]["kv"]
+    cached_after, hits = kv["blocks_cached"], kv["prefix_hits"]
+    committed_y = eng.predict_at(x, 2)
+    fa.reset_launch_counts()
+    # ---- generation on the committed weights: counts read after it ----
+    stream = eng.generate(p2, max_new_tokens=ENGINE_NEW).result(timeout=600)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in fa.LAUNCHES.items() if n}
+    # ---------------------------------------------------------------------
+    hits_after = eng.stats()["generate"]["kv"]["prefix_hits"]
+    ledger = eng.memory_ledger().snapshot()
+    handle_bytes = {"candidate": h["staged"].nbytes(),
+                    "rollback": back["staged"].nbytes()}
+    headroom = eng.memory_headroom()
+    with ServingEngine(cand, decode_slots=eng.decode_slots,
+                       decode_max_len=eng.decode_max_len) as fresh:
+        want = fresh.generate(p2, max_new_tokens=ENGINE_NEW).result(
+            timeout=600)
+    ties = []
+    if stream != want:
+        k = next(i for i, (a, b) in enumerate(zip(stream, want)) if a != b)
+        plain = transformer_lm("small", vocab_size=SERVE_VOCAB,
+                               device="cuda", seed=1, use_flash="never")
+        seq = np.concatenate([p2, np.asarray(stream[:k], np.int32)])
+        with torch.no_grad():
+            row_logits = plain(torch.from_numpy(seq[None]).cuda())[0, -1]
+        ties.append({"at": k, "gap": abs(row_logits[stream[k]].item()
+                                         - row_logits[want[k]].item())})
+        del plain
+    eng.commit_staged(back, version=1)
+    rolled = eng.predict_at(x, 2)
+    subsystems = {k: (v if k != "kv_cache" else {
+        kk: vv for kk, vv in v.items()}) for k, v in
+        ledger["subsystems"].items()}
+    row = {"phase": "engine_swap_generation", "prefix_tokens": ENGINE_PREFIX,
+           "blocks_cached_before_commit": cached_before,
+           "blocks_cached_after_commit": cached_after,
+           "prefix_hits": {"before_commit": hits_before,
+                           "at_commit": hits, "after_commit": hits_after},
+           "commit_s": commit_s, "stream": stream, "fresh_stream": want,
+           "ties": ties, "launches": launches,
+           "committed_equals_staged_graph": bool(np.array_equal(
+               committed_y, staged_y)),
+           "rollback_bitwise": bool(np.array_equal(rolled, y0)),
+           "staged_handle_bytes": handle_bytes,
+           "ledger": {"subsystems": subsystems,
+                      "attributed_bytes": ledger["attributed_bytes"],
+                      "live_bytes": ledger["live_bytes"],
+                      "limit_bytes": ledger["limit_bytes"],
+                      "residual_bytes": ledger["residual_bytes"],
+                      "headroom_bytes": ledger["headroom_bytes"]},
+           "headroom": headroom, "card": card}
+    emit(row)
+    kvl = subsystems["kv_cache"]
+    if not (cached_before > 0 and hits_before > 0 and cached_after == 0
+            and hits == hits_after
+            and all(t["gap"] <= TIE_MARGIN for t in ties)
+            and len(stream) == ENGINE_NEW
+            and row["committed_equals_staged_graph"]
+            and row["rollback_bitwise"]
+            and launches.get("flash_paged_decode_attention")
+            and ledger["headroom_bytes"] is not None
+            and subsystems["staged"]["handles"] >= 1
+            and kvl["blocks_total"] > 0
+            and kvl["active_bytes"] + kvl["cached_bytes"]
+            + kvl["free_bytes"] > 0):
+        raise AssertionError(f"generation across a commit: {row}")
+    del h, back, cand
+    return row, launches
+
+
+def engine_service(card, eng, model):
+    """(e) ``PredictionService`` on (b)'s fp32 model, 16 requests of 128
+    tokens from 8 threads: the semaphore path (the shared compiled step at
+    batch 1) bitwise ``predict_at`` at rung 1, and ``coalesce=True`` (an
+    engine on the same model and step) bitwise ``predict_at`` at the rung
+    each rode; no capture on either."""
+    from bigdl_tpu_torch.optim import PredictionService
+    from bigdl_tpu_torch.serving import BucketLadder
+
+    reqs = _lm_requests(24, (ENGINE_SERVICE_LEN,) * ENGINE_SERVICE_REQUESTS)
+    execs = eng._executables()
+    at1 = [eng.predict_at(x, 1) for x in reqs]
+
+    def run(svc):
+        out = [None] * len(reqs)
+
+        def worker(k):
+            for j in range(k, len(reqs), ENGINE_THREADS):
+                out[j] = svc.predict(reqs[j])
+
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(ENGINE_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        return out, time.perf_counter() - t0
+
+    with PredictionService(model, num_threads=4) as svc:
+        sem_out, sem_wall = run(svc)
+    buckets = []
+    with PredictionService(model, coalesce=True,
+                           max_batch_size=ENGINE_LM_MAX_BATCH,
+                           length_ladder=BucketLadder(
+                               ENGINE_LENGTHS[1],
+                               min_size=ENGINE_LENGTHS[0]),
+                           decode_slots=0) as svc:
+        svc.engine.set_shadow(lambda x, y, b, n, t: buckets.append(b), 1.0)
+        co_out, co_wall = run(svc)
+        _settle(svc.engine)
+        rungs = sorted(set(buckets))
+        ats = {b: [svc.engine.predict_at(x, b) for x in reqs]
+               for b in rungs}
+    sem_bad = [j for j, y in enumerate(sem_out)
+               if y is None or not np.array_equal(y, at1[j])]
+    co_bad = [j for j, y in enumerate(co_out) if y is None or not any(
+        np.array_equal(y, ats[b][j]) for b in rungs)]
+    row = {"phase": "engine_prediction_service",
+           "requests": len(reqs), "threads": ENGINE_THREADS,
+           "semaphore_wall_s": sem_wall, "coalesced_wall_s": co_wall,
+           "coalesced_tick_buckets": collections.Counter(buckets),
+           "semaphore_mismatched": sem_bad, "coalesced_mismatched": co_bad,
+           "captured": eng._executables() - execs, "card": card}
+    emit(row)
+    if sem_bad or co_bad or row["captured"]:
+        raise AssertionError(f"PredictionService: {row}")
+    return row
+
+
+def engine_phase(card):
+    """Phase 14 (module docstring).  Returns the main paths' launches."""
+    t0 = time.perf_counter()
+    eng, model, images, row_a, int8_launches = engine_int8(card)
+    staging, commits = engine_staging(card, eng, model, images)
+    eng.close()
+    del eng, model, images
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm, plain_model = serving_models()
+    fp32, row_b, k1 = engine_lm(card, lm, plain_model, None,
+                                dict(decode_slots=4, decode_max_len=1024))
+    bf16, row_b16, k1_bf16 = engine_lm(card, lm, plain_model,
+                                       torch.bfloat16, dict(decode_slots=0))
+    bf16.close()
+    del bf16, plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    row_d, gen_launches = engine_swap_generation(card, fp32, lm)
+    row_e = engine_service(card, fp32, lm)
+    fp32.close()
+    del fp32, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "engine_phase_done", "seconds": time.perf_counter() - t0,
+          "batch1_ms": row_a["batch1_ms_median_min_max"],
+          "checked_burst_requests_per_s": {
+              "int8_resnet50": row_a["requests_per_s"],
+              "lm_fp32": row_b["requests_per_s"],
+              "lm_bf16": row_b16["requests_per_s"]},
+          "rate_window_requests_per_s": {
+              "int8_resnet50": row_a["rate_window"]["requests_per_s"],
+              "lm_fp32": row_b["rate_window"]["requests_per_s"],
+              "lm_bf16": row_b16["rate_window"]["requests_per_s"]},
+          "captures": {"int8_resnet50": row_a["captured"],
+                       "lm_fp32": row_b["captured"],
+                       "lm_bf16": row_b16["captured"]},
+          "graph_pool_bytes": {
+              "int8_resnet50": row_a["graph_pool_bytes"],
+              "lm_fp32_predict": row_b["predict_graph_pool_bytes"],
+              "lm_bf16_predict": row_b16["predict_graph_pool_bytes"]},
+          "commit_s": {k: v["commit_s"] for k, v in commits.items()},
+          "card": card})
+    return {"engine_int8_resnet": int8_launches, "engine_lm_fp32": k1,
+            "engine_lm_bf16": k1_bf16, "engine_swap_generate": gen_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4522,6 +5382,7 @@ def main():
         raise AssertionError("phase 12's float ResNet-50 launched K7")
     int8_rows, phase13 = int8_phase(card)
     rows.update(int8_rows)
+    phase14 = engine_phase(card)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -4574,7 +5435,8 @@ def main():
         kernels_of[f"{name}_d96"] = (source, replaces + ", head_dim 96")
     paths = (("serving", serving), ("training", training),
              ("training_bf16", training_bf16), ("int8_serving", int8_serving),
-             *phase10.items(), *phase11.items(), *phase13.items())
+             *phase10.items(), *phase11.items(), *phase13.items(),
+             *phase14.items())
     if len(dict(paths)) != len(paths):
         raise AssertionError(f"two paths share a name: "
                              f"{[p for p, _ in paths]}")
