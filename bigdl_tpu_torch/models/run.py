@@ -1,5 +1,5 @@
 """Training entry points of the port (counterpart of
-``bigdl_tpu/models/run.py``), single device:
+``bigdl_tpu/models/run.py``), on one device or data-parallel:
 
     python -m bigdl_tpu_torch.models.run lenet-train -b 64
     python -m bigdl_tpu_torch.models.run lenet-test
@@ -10,6 +10,8 @@
     python -m bigdl_tpu_torch.models.run inception-train --version v2
     python -m bigdl_tpu_torch.models.run transformer-train \\
         --size small --vocab 32000 --seq-len 1024 -b 8 --maxIteration 8
+    torchrun --nproc-per-node 4 -m bigdl_tpu_torch.models.run \\
+        resnet-train -b 128 --distributed
 
 Each trains through ``Optimizer(...).optimize()`` with the JAX recipe's
 model, criterion, method, flags and defaults, on the JAX recipe's
@@ -25,9 +27,16 @@ under ``D/<appName>/train`` (``visualization.TrainSummary``);
 ahead of the loop (``dataset.prefetch``, ``--queueDepth`` batches held
 ready).
 
+``--distributed`` trains through ``DistriOptimizer`` (ZeRO-1 over the
+``torch.distributed`` group that ``utils.engine.Engine`` joins from
+``BIGDL_COORDINATOR`` / torchrun's variables, or a world of one), in
+every recipe whose JAX counterpart routes it; ``lenet-test`` runs no
+optimizer and refuses it.
+
 Refused, each naming its ROADMAP item: ``--folder`` (dataset sources,
-A9), ``--model`` (the serializer, A9), ``--distributed`` (A4), and for
-``transformer-train`` ``--sp``/``--pp`` above 1 (A7).
+A9), ``--model`` (the serializer, A9), ``--distributed`` for
+``lenet-test`` (A4), and for ``transformer-train`` ``--sp``/``--pp``
+above 1 (A7).
 ``--compilationCache`` names JAX's XLA cache: the port has no
 counterpart (its CUDA graphs are captured per run) and ignores it.
 
@@ -58,8 +67,6 @@ def _refuse_unported(args):
                    "(ROADMAP A9)"),
         ("model", "--model: loading a saved module needs the serializer, "
                   "not ported yet (ROADMAP A9)"),
-        ("distributed", "--distributed: DistriOptimizer is not ported yet "
-                        "(ROADMAP A4)"),
     ]
     for attr, why in refused:
         if getattr(args, attr, None):
@@ -113,15 +120,18 @@ def _to_dataset(x, y, batch):
 
 def _build_optimizer(args, model, train_ds, val_ds, criterion, method,
                      val_methods):
-    """``Optimizer`` with the JAX recipe's prefetch workers, end trigger,
-    sync cadence, validation every epoch, checkpoint every epoch and
-    train summary (JAX :62-82)."""
+    """``Optimizer`` with the JAX recipe's prefetch workers, route
+    (``--distributed``: ``DistriOptimizer`` over the process group of
+    ``utils.engine.Engine``, a world of one when none is initialized),
+    end trigger, sync cadence, validation every epoch, checkpoint every
+    epoch and train summary (JAX :55-82)."""
     from bigdl_tpu_torch.optim import Optimizer, Trigger
 
     if getattr(args, "num_workers", 0):
         train_ds = train_ds.prefetch(num_workers=args.num_workers,
                                      queue_depth=args.queue_depth)
-    opt = Optimizer(model, train_ds, criterion, method, device=args.device)
+    opt = Optimizer(model, train_ds, criterion, method,
+                    distributed=args.distributed, device=args.device)
     opt.set_end_when(Trigger.max_epoch(args.max_epoch)
                      if args.max_iteration is None
                      else Trigger.max_iteration(args.max_iteration))
@@ -163,6 +173,11 @@ def cmd_lenet_test(args):
     from bigdl_tpu_torch.models.lenet import LeNet5
 
     _refuse_unported(args)
+    if args.distributed:
+        raise NotImplementedError(
+            "--distributed: lenet-test evaluates on one device; the JAX "
+            "recipe routes no optimizer here and the port has no "
+            "data-parallel evaluation (ROADMAP A4)")
     _, (xte, yte) = _mnist(args.synth_n)
     results = optim.validate(LeNet5(device=args.device),
                              _to_dataset(xte, yte, args.batch),
@@ -317,7 +332,7 @@ def _common_flags(p, default_epochs):
                    help="TensorBoard summaries under DIR/<appName>/train")
     p.add_argument("--appName", default="bigdl_tpu", dest="app_name")
     p.add_argument("--distributed", action="store_true",
-                   help="refused: ROADMAP A4")
+                   help="DistriOptimizer over the process group")
     p.add_argument("--model", default=None,
                    help="snapshot to load (refused: ROADMAP A9)")
     p.add_argument("--synthN", type=int, default=2048, dest="synth_n")
@@ -392,6 +407,8 @@ def main(argv=None):
     p.add_argument("--summaryDir", default=None, dest="summary_dir",
                    help="TensorBoard summaries under DIR/<appName>/train")
     p.add_argument("--appName", default="bigdl_tpu", dest="app_name")
+    p.add_argument("--distributed", action="store_true",
+                   help="DistriOptimizer over the process group")
     _prefetch_flags(p)
     p.add_argument("--vocab", type=int, default=256)
     p.add_argument("--seq-len", type=int, default=64, dest="seq_len")

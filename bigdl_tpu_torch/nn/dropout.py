@@ -44,16 +44,23 @@ def _mix(x):
     return x ^ (x >> 16)
 
 
+def hash_bits(key, salt: int, n: int, device):
+    """``n`` 32-bit values (int64), a hash of (``key``, ``salt``, each
+    index): the draws of a counter-based stream (also the int8 wire's
+    stochastic rounding, ``ops/quantization.py``)."""
+    seed = _mix((key.to(device=device, dtype=torch.int64) * 0x2545F491
+                 + int(salt) * 0x68E31DA5) & _MASK32)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return _mix(_mix(idx ^ seed) ^ ((seed * 0x3C6EF35F) & _MASK32))
+
+
 def keep_mask(key, salt: int, shape, keep: float, device):
     """Boolean mask of ``shape``, each element True with probability
     ``keep``: a hash of (``key``, ``salt``, its flat index)."""
-    seed = _mix((key.to(device=device, dtype=torch.int64) * 0x2545F491
-                 + int(salt) * 0x68E31DA5) & _MASK32)
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    bits = _mix(_mix(idx ^ seed) ^ ((seed * 0x3C6EF35F) & _MASK32))
+    bits = hash_bits(key, salt, n, device)
     return (bits < int(keep * 2 ** 32)).reshape(shape)
 
 

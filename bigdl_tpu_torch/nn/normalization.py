@@ -12,6 +12,12 @@ BatchNorm's running statistics are buffers under the JAX state keys
 with the unbiased batch variance, ``(1 - momentum) * running + momentum *
 batch``, so a captured step updates them at every replay; a
 rematerialised recompute leaves them alone (``nn.module.frozen_state``).
+
+SyncBN (``sync_batchnorm``, :24): inside the context a BatchNorm layer in
+training mode pools its fp32 moments over the ranks of a process group
+(``PMean``, whose gradient is a ``pmean`` too, as JAX differentiates
+``lax.pmean``), and counts ``n * world`` values, so a data-parallel step
+normalizes with the global batch's statistics.
 """
 
 import contextlib
@@ -20,17 +26,34 @@ import torch
 
 from bigdl_tpu_torch.nn import dropout as _dropout
 from bigdl_tpu_torch.nn.module import Module, state_updates
-from bigdl_tpu_torch.utils.errors import UnsupportedFeatureError
+
+#: the collectives BatchNorm pools its moments over, while a
+#: ``sync_batchnorm`` context is open (None: per-rank statistics)
+_SYNC = None
 
 
 @contextlib.contextmanager
-def sync_batchnorm(axis):
-    """Refused: cross-replica statistics need the distributed optimizer
-    (ROADMAP A4)."""
-    raise UnsupportedFeatureError(
-        "sync_batchnorm: cross-replica BatchNorm statistics wait for the "
-        "distributed optimizer (ROADMAP A4)")
-    yield  # pragma: no cover
+def sync_batchnorm(axis="data"):
+    """Within this context BatchNormalization layers in training mode
+    normalize with statistics pooled over the ranks (SyncBN).  ``axis``
+    is a ``parallel.collectives.Collectives``, a process group, or a
+    mesh axis name, which means the default group
+    (``utils.engine.Engine.mesh()``, a world of one when none is
+    initialized)."""
+    from bigdl_tpu_torch.parallel.collectives import Collectives
+
+    global _SYNC
+    if not isinstance(axis, Collectives):
+        if isinstance(axis, str):
+            from bigdl_tpu_torch.utils.engine import Engine
+
+            axis = Engine.mesh()
+        axis = Collectives(axis)
+    prev, _SYNC = _SYNC, axis
+    try:
+        yield axis
+    finally:
+        _SYNC = prev
 
 
 class _Moments(torch.autograd.Function):
@@ -108,6 +131,12 @@ class BatchNormalization(Module):
         if self.training:
             mean, sq = _Moments.apply(x, self.reduce_axes)
             n = x.numel() // x.shape[-1]
+            if _SYNC is not None:
+                from bigdl_tpu_torch.parallel.collectives import PMean
+
+                mean = PMean.apply(mean, _SYNC)
+                sq = PMean.apply(sq, _SYNC)
+                n *= _SYNC.world
             var = torch.clamp_min(sq - mean.square(), 0.0)
             if state_updates():
                 with torch.no_grad():

@@ -1,9 +1,12 @@
 """Training of the PyTorch port: optim methods and learning-rate
 schedules, regularizers, triggers, the train step and its compiled form,
 the single-device optimizer with validation and checkpoints, the
+data-parallel optimizer (ZeRO-1 over ``torch.distributed``), the
 validation methods and the compiled eval step, prediction, L-BFGS, and
 the int8 accuracy gate."""
 
+from bigdl_tpu_torch.optim.distri_optimizer import (DistriOptimizer,
+                                                   ParallelOptimizer)
 from bigdl_tpu_torch.optim.graphs import CompiledTrainStep
 from bigdl_tpu_torch.optim.lbfgs import LBFGS, line_search_wolfe
 from bigdl_tpu_torch.optim.local_optimizer import (BaseOptimizer,
@@ -36,12 +39,13 @@ from bigdl_tpu_torch.optim.validation import (MAE, NDCG, AccuracyDeltaGate,
 __all__ = ["MAE", "NDCG", "AccuracyDeltaGate", "Adadelta", "Adagrad",
            "Adam", "Adamax", "BaseOptimizer", "CompiledEvalStep",
            "ChaosKillTrigger", "CompiledTrainStep", "CompositeOptimMethod",
-           "Default",
+           "Default", "DistriOptimizer",
            "EpochDecay", "EpochDecayWithWarmUp", "EpochSchedule",
            "EpochStep", "Exponential", "Ftrl", "Fused", "HitRatio", "LBFGS",
            "L1L2Regularizer", "L1Regularizer", "L2Regularizer",
            "LearningRateSchedule", "LocalOptimizer", "Loss", "MultiStep",
            "NaturalExp", "OptimMethod", "Optimizer", "ParallelAdam",
+           "ParallelOptimizer",
            "Plateau", "Poly", "PredictionService", "Predictor", "RMSprop",
            "Regularizer", "RunSupervisor", "SGD",
            "SequentialSchedule", "Step", "Top1Accuracy", "Top5Accuracy",

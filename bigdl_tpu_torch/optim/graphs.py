@@ -69,17 +69,26 @@ class CompiledTrainStep:
     the batch, the update written into ``model``'s parameters and
     ``opt_state`` in place (module docstring).  ``step_kw`` are
     ``make_train_step``'s options (clipping, ``compute_dtype``,
-    ``grad_transform``)."""
+    ``grad_transform``).
+
+    ``step_fn`` replaces ``make_train_step``'s step by another of its
+    signature, ``step_fn(opt_state, input, target) -> (opt_state,
+    loss)``, whose ``live`` attribute lists the tensors it writes beyond
+    the model's and ``opt_state``'s (the data-parallel step,
+    ``optim/distri_optimizer.py``).  ``capture=False`` runs every step
+    eagerly on the static buffers, on the card too (a step whose
+    collectives a graph cannot capture)."""
 
     def __init__(self, model, criterion, optim_method, opt_state, device,
-                 **step_kw):
+                 step_fn=None, capture=True, **step_kw):
         self.model = model
         self.opt_state = opt_state
         self.device = torch.device(device)
         self.on_card = self.device.type == "cuda"
-        self.step_fn = make_train_step(model, criterion, optim_method,
-                                       **step_kw)
-        self._capturer = Capturer(self.device) if self.on_card else None
+        self.step_fn = step_fn or make_train_step(model, criterion,
+                                                  optim_method, **step_kw)
+        self._capturer = Capturer(self.device) \
+            if self.on_card and capture else None
         self._keys = {}
         #: keys built (on the card: graphs captured) and steps run
         self.captured = 0
@@ -90,7 +99,7 @@ class CompiledTrainStep:
                 "keys": list(self._keys),
                 "pool_bytes": sum(k.pool_bytes for k in self._keys.values()),
                 "warmup_launches": self._capturer.warmup_launches
-                if self.on_card else {}}
+                if self._capturer is not None else {}}
 
     @staticmethod
     def key_of(input, target):
@@ -118,7 +127,7 @@ class CompiledTrainStep:
 
     def _build(self, key, input, target):
         k = _Key(input.clone(), None if target is None else target.clone())
-        if self.on_card:
+        if self._capturer is not None:
             self._capture(k)
         else:
             note_capture()
@@ -131,7 +140,8 @@ class CompiledTrainStep:
         and the dropout key."""
         key = self.step_fn.dropout_key
         return [*self.model.parameters(), *self.model.buffers(),
-                *_tensors(self.opt_state), *([] if key is None else [key])]
+                *_tensors(self.opt_state), *([] if key is None else [key]),
+                *getattr(self.step_fn, "live", ())]
 
     def _capture(self, k):
         live = self._live()

@@ -47,10 +47,13 @@ parameter.  A prefetching dataset (``dataset.prefetch()``) adds its queue
 occupancy to each step's event, and its threads are shut down when
 ``optimize()`` returns or raises.
 
+``Optimizer(..., distributed=True)`` is the data-parallel
+``DistriOptimizer`` (``optim/distri_optimizer.py``), which shares this
+loop.
+
 Not ported yet (each raises or is absent): sharded (orbax) checkpoints
 (refused, as JAX's ``LocalOptimizer`` refuses them), telemetry and
-health monitoring (ROADMAP A8), ``distributed=True`` (ROADMAP A4) and
-``strategy=`` (ROADMAP A7).
+health monitoring (ROADMAP A8) and ``strategy=`` (ROADMAP A7).
 """
 
 import gc
@@ -91,20 +94,26 @@ def _to_device(x, device, pinned=False):
 
 
 class _Stager:
-    """Moves ``(input, target)`` numpy batches to the device.  On a CUDA
-    device the copy goes from pinned memory on a side stream; ``wait``
-    makes the compute stream wait for it before the step uses it."""
+    """Moves ``(input, target)`` numpy batches to the device (``select``,
+    when given, picks what of the batch's tree is moved: a data-parallel
+    rank's rows).  On a CUDA device the copy goes from pinned memory on a
+    side stream; ``wait`` makes the compute stream wait for it before the
+    step uses it."""
 
-    def __init__(self, device):
+    def __init__(self, device, select=None):
         self.device = device
+        self.select = select
         self.stream = torch.cuda.Stream(device) \
             if device.type == "cuda" else None
 
     def stage(self, batch):
+        tree = batch.tree()
+        if self.select is not None:
+            tree = self.select(tree)
         if self.stream is None:
-            return _to_device(batch.tree(), self.device), None
+            return _to_device(tree, self.device), None
         with torch.cuda.stream(self.stream):
-            staged = _to_device(batch.tree(), self.device, pinned=True)
+            staged = _to_device(tree, self.device, pinned=True)
             ready = torch.cuda.Event()
             ready.record(self.stream)
         return staged, ready
@@ -565,7 +574,8 @@ class BaseOptimizer:
 
     def _run_driver_loop(self, train_iter, first_batch, dispatch,
                          extra_summaries=None, validate_cb=None,
-                         feed_plateau=None, checkpoint_cb=None):
+                         feed_plateau=None, checkpoint_cb=None,
+                         select=None):
         """The driver loop: stage, dispatch, fetch and stage the next
         batch, sync the loss every ``sync_every``-th step, update the
         driver state, run validation and checkpoints where their triggers
@@ -573,11 +583,13 @@ class BaseOptimizer:
         trigger.  ``dispatch(staged) -> device loss``;
         ``extra_summaries(state)`` adds train-summary scalars after
         ``Loss`` and ``Throughput``; ``validate_cb() -> results``, then
-        ``feed_plateau(state)``; ``checkpoint_cb(state)`` writes one."""
+        ``feed_plateau(state)``; ``checkpoint_cb(state)`` writes one;
+        ``select(tree)`` picks what of each batch is staged (the records
+        counted are the whole batch's)."""
         self._reshuffle_pending = False
         epoch_size = self.dataset.size()
         state = self.driver_state
-        stager = _Stager(self.device)
+        stager = _Stager(self.device, select)
         queue_stats = getattr(self.dataset, "queue_stats", None)
         sync_every = self._effective_sync_every()
         loss = float("nan")          # the last synced loss
@@ -813,16 +825,20 @@ def validate(model, dataset, methods, compute_dtype=None):
 class Optimizer:
     """Factory: ``Optimizer(model, dataset, criterion, optim_method,
     device=None)`` is a ``LocalOptimizer`` on the card (``device=None``)
-    or on the device asked for.  The distributed and model-parallel
-    routes are not ported yet."""
+    or on the device asked for; with ``distributed=True`` a
+    ``DistriOptimizer`` over the process group (``utils.engine.Engine``;
+    a world of one when none is initialized).  The model-parallel routes
+    are not ported yet."""
 
     def __new__(cls, model=None, dataset=None, criterion=None,
                 optim_method=None, distributed=None, strategy=None,
                 device=None, **strategy_kw):
         if distributed:
-            raise NotImplementedError(
-                "distributed=True: DistriOptimizer is not ported yet "
-                "(ROADMAP A4)")
+            from bigdl_tpu_torch.optim.distri_optimizer import \
+                DistriOptimizer
+
+            return DistriOptimizer(model, dataset, criterion, optim_method,
+                                   device=device)
         if strategy is not None or strategy_kw:
             raise NotImplementedError(
                 f"strategy={strategy!r}: the model-parallel engines are not "

@@ -13,7 +13,9 @@ step's own graph pool (``utils/cuda_graphs.py``); every later call of
 that shape is one copy and one replay, which returns the graph's static
 output (overwritten by the shape's next replay).  The graph reads the
 model's parameters where they lie, which training and resume update in
-place, so an eval after step k sees step k's weights; in a compute dtype
+place, so an eval after step k sees step k's weights (the data-parallel
+trainer's first bind moves the parameters into a flat plane and drops
+the model's graphs: ``reset_compiled_eval_steps``); in a compute dtype
 the casts of the fp32 masters are inside the graph.  A capture that
 fails raises: nothing is evaluated eagerly in its place.  The set of
 graphs is never evicted; past ``max_executables`` shapes a warning says
@@ -155,6 +157,16 @@ class CompiledEvalStep:
                 "warmup_launches": self._capturer.warmup_launches
                 if self._capturer is not None else {}}
 
+    def reset(self):
+        """Drop every shape's graph and static input, and the graph pool
+        (``reset_compiled_eval_steps``); the next call of a shape builds
+        it again in a new pool (PyTorch 2.11 fails an internal assert on
+        a capture into a pool whose graphs were all dropped)."""
+        with self.lock:
+            self._keys.clear()
+            self._capturer = None
+            self._warned_at = 0
+
     def _check_bound(self):
         n = self.executables()
         if n > self.max_executables and n > self._warned_at:
@@ -224,6 +236,17 @@ def compiled_eval_step(model, compute_dtype=None) -> CompiledEvalStep:
     if step is None:
         step = cache[key] = CompiledEvalStep(model, compute_dtype)
     return step
+
+
+def reset_compiled_eval_steps(model):
+    """Drop the graphs of every eval step kept on ``model`` or on one of
+    its modules, whose parameters moved to new storage
+    (``parallel.zero.FlatParamSpace.bind``): a graph reads the tensors it
+    was captured on.  Callers keep their steps; each shape captures again
+    on its next call."""
+    for m in model.modules():
+        for step in m.__dict__.get("_compiled_eval_steps", {}).values():
+            step.reset()
 
 
 class AccuracyDeltaGate:

@@ -135,6 +135,11 @@ def _flat_leaves(tree):
     return _flatten(tree) if isinstance(tree, dict) else {}
 
 
+def _clean_state(mstate):
+    """A snapshot's model state, or None where it holds no leaf."""
+    return mstate if _flat_leaves(mstate) else None
+
+
 def _dtype_name(leaf):
     dt = getattr(leaf, "dtype", None)
     if dt is None:
@@ -1266,8 +1271,12 @@ class ServingEngine:
         ``checkpoint.<tag>.pkl`` file (either package writes the same
         pickle layout) or a checkpoint directory, whose newest intact
         snapshot is taken (corrupt ones are quarantined, as resume
-        does).  Then ``refresh_params``, gate and all.  A sharded (orbax)
-        snapshot is not ported: ROADMAP A4."""
+        does).  A data-parallel snapshot's flat plane
+        (``model_params_flat`` and the manifest's ``layout`` block,
+        ``optim.DistriOptimizer``) unravels through this model's
+        parameter tree, as JAX's ``reshard.to_model_layout`` does.  Then
+        ``refresh_params``, gate and all.  A sharded (orbax) snapshot is
+        not ported: ROADMAP A4."""
         p = self._resolve_snapshot(path)
         params, mstate = self._load_snapshot_weights(p)
         return self.refresh_params(params, mstate)
@@ -1302,13 +1311,35 @@ class ServingEngine:
         payload = file_io.load(p)
         mp = payload["model_params"]
         if isinstance(mp, dict) and "model_params_flat" in mp:
+            return self._unravel_flat(p, mp["model_params_flat"]), \
+                _clean_state(payload.get("model_state"))
+        return to_port_tree(mp, is_scanned(self.model)), \
+            _clean_state(payload.get("model_state"))
+
+    def _unravel_flat(self, p, flat):
+        """A snapshot's flat plane as this model's parameter tree (the
+        JAX keys): the padding dropped, the leaves in the JAX tree's
+        order.  The manifest's ``layout`` must be data-parallel and hold
+        this model's parameter count."""
+        from bigdl_tpu_torch.interop.jax_params import _nest
+        from bigdl_tpu_torch.parallel.zero import FlatParamSpace
+        from bigdl_tpu_torch.utils import file_io
+
+        layout = (file_io.read_manifest(p) or {}).get("layout") or {}
+        if layout.get("kind", "dp") != "dp":
             raise UnsupportedFeatureError(
-                f"{p} holds data-parallel flat parameter planes: the "
-                f"distributed layouts are not ported (ROADMAP A4)")
-        mstate = payload.get("model_state")
-        if not _flat_leaves(mstate):
-            mstate = None
-        return to_port_tree(mp, is_scanned(self.model)), mstate
+                f"{p} was written under a {layout['kind']!r} layout: "
+                f"redistributing it (parallel/reshard) is not ported, "
+                f"ROADMAP A7")
+        space = FlatParamSpace(dict(self.model.named_parameters()), 1)
+        flat = np.asarray(flat, np.float32)
+        true = int(layout.get("true_size", space.true_size))
+        if true != space.true_size or flat.shape[-1] < space.true_size:
+            raise ValueError(
+                f"{p}'s flat plane holds {true} parameters, this model "
+                f"{space.true_size}")
+        return _nest({k: torch.from_numpy(np.ascontiguousarray(v))
+                      for k, v in space.unflatten(flat).items()})
 
     def refresh_params(self, params=None, mstate=None, src_layout=None):
         """Swap in new weights.  With ``params`` (and optionally

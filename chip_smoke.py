@@ -312,6 +312,36 @@ Phases, each printing JSON lines:
     128 tokens from 8 threads, on the semaphore path and with
     ``coalesce=True``: each output bitwise ``predict_at`` at the rung it
     rode, no capture.
+15. data-parallel training (``optim/distri_optimizer.py``): (a) "small"
+    at phase 7's setting through ``Optimizer(distributed=True)`` at a
+    world of one on NCCL, fp32 then bf16, 8 steps each against
+    ``LocalOptimizer`` on the same weights and batches (per-step losses
+    and parameters within ``DISTRI_W1_RTOL``, bitwise equality printed),
+    K1, K1-bwd, K4 and K5 counted through the replays (12, 12, 1 and 1 a
+    step), the step one CUDA graph with NCCL's collectives captured in
+    it, its time and tokens/s beside ``LocalOptimizer``'s over steps
+    5-8 and both graph pools' bytes; the fp32 run checkpoints after 4
+    steps; one DP step on the plain model (plain attention and
+    cross-entropy) against the kernels' first loss; the bf16 wire and
+    the int8 wire with error feedback, with and without the compressed
+    weight gather, 3 steps each at world 1, captured on NCCL and bitwise
+    the same legs eager on a gloo group; (b) a world of two
+    processes sharing the card on gloo (this script with
+    ``--distri-rank``), eager, four rows a rank: 4 steps on each wire
+    (fp32 against (a)'s losses and its checkpointed parameters; bf16,
+    int8 with error feedback, and with the compressed weight gather,
+    against the fp32 wire within JAX's own bounds), every wire's
+    parameters relative to its reference's update (``DISTRI_UPD_*``;
+    a leg with no update reads 1), each wire's
+    ``wire_summary``, labelled as host-routed correctness runs; (c)
+    SyncBN ResNet-50 one step at global batch 16 on the two ranks
+    against ``LocalOptimizer`` at the full batch (first loss and running
+    statistics within ``DISTRI_SYNCBN_RTOL``); (d) the int8-EF world's
+    checkpoint (after 2 steps) resumed at world 1 (the 2 -> 1 refit and
+    the residual's repartition) and (a)'s resumed at world 2, each
+    against its straight run (losses within ``DISTRI_W2_LOSS_RTOL``,
+    parameters relative to the straight run's update; a resume that
+    loads nothing reads 350).
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -5330,7 +5360,680 @@ def engine_phase(card):
             "engine_lm_bf16": k1_bf16, "engine_swap_generate": gen_launches}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 15: data-parallel training (optim/distri_optimizer.py)
+# --------------------------------------------------------------------------- #
+
+#: (a) the world-1 run against LocalOptimizer: per-step losses and the
+#: parameters' relative L2 after phase 7's 8 steps (at world 1 the
+#: reduce is an identity; the update runs on the flat chunk)
+DISTRI_W1_RTOL = 1e-5
+#: (a) checkpoint after 4 steps (neval 5), which (d) resumes at world 2
+DISTRI_CKPT_AT = 5
+#: (b) steps of each wire at world 2, and the int8-EF world's checkpoint
+#: (neval 3, after 2 steps) that (d) resumes at world 1
+DISTRI_W2_STEPS, DISTRI_W2_CKPT_AT = 4, 3
+#: (b), (d): world 2 against world 1 on the fp32 wire: two 4-row halves'
+#: gradients summed against one 8-row batch's (other GEMM shapes, so
+#: other cuBLAS algorithms and summation orders), through Adam, which
+#: moves a noise-size gradient by the full rate: per-step losses, and
+#: the parameters' relative L2
+DISTRI_W2_LOSS_RTOL, DISTRI_W2_PARAM_REL = 1e-4, 1e-3
+#: (b) the compressed wires against the fp32 wire at world 2, JAX's own
+#: bounds (tests/test_quant_collectives.py:313, 336, 362): bf16 per step;
+#: int8 with error feedback at the last step and over the run; with the
+#: compressed weight gather over the run
+DISTRI_CAST_RTOL = 1e-2
+DISTRI_INT8_LAST_RTOL, DISTRI_INT8_RTOL, DISTRI_GATHER_RTOL = \
+    5e-3, 2e-2, 5e-2
+#: (c) SyncBN ResNet-50 at world 2 (8 rows a rank) against world 1 at the
+#: full batch 16: the first loss and the running statistics, relative
+#: (JAX claims about 1e-6 on its CPU mesh; cuDNN may pick other
+#: algorithms for 8 and 16 rows)
+DISTRI_SYNCBN_RTOL, DISTRI_SYNCBN_BATCH = 1e-4, 16
+#: the int8 wire of (a), (b) and (d)
+DISTRI_EF = {"wire": "int8", "block_size": 256, "error_feedback": True}
+#: (a) steps of each compressed wire at world 1 (bf16, int8-EF with and
+#: without the compressed weight gather), captured on NCCL and eager on
+#: a gloo group of the same rank; the two routes' losses and parameters
+#: are held to this relative L2 (0: bitwise)
+DISTRI_WIRE_W1_STEPS, DISTRI_ROUTE_REL = 3, 0.0
+#: the parameters of a run against its reference run, relative to the
+#: update the reference applied since its start (``_update_rel``; a run
+#: that applies no update reads 1, a resume that loads nothing 350):
+#: (b) the fp32 wire against (a), each other wire against the fp32 wire;
+#: (d) each resume against its straight run.  Each limit lies between
+#: the sound reading on the H100 (3.6e-5, 7.5e-3, 4.1e-2, 4.1e-2; 7.9e-6,
+#: 1.4e-2; PERF.md) and the control's
+DISTRI_UPD_FP32, DISTRI_UPD_BF16, DISTRI_UPD_INT8, DISTRI_UPD_GATHER = \
+    1e-3, 5e-2, 0.25, 0.25
+DISTRI_UPD_RESUME_FP32, DISTRI_UPD_RESUME_INT8 = 1e-3, 0.1
+#: the children's own limit
+DISTRI_CHILD_TIMEOUT_S = 420
+
+
+def _distri_opt(model, x, y, batch, crit, method, **kw):
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+
+    ds = array_dataset(x, y) >> SampleToMiniBatch(batch)
+    return optim.DistriOptimizer(model, ds, crit, method, **kw)
+
+
+def _lm_crit(plain=False):
+    from bigdl_tpu_torch import nn
+
+    return nn.TimeDistributedCriterion(
+        nn.CrossEntropyCriterion() if plain
+        else nn.FusedSoftmaxCrossEntropyCriterion())
+
+
+def _flat_params(model):
+    """``model``'s parameters in the JAX tree's order, one fp32 vector
+    (``parallel.zero.FlatParamSpace``, unpadded)."""
+    from bigdl_tpu_torch.parallel.zero import FlatParamSpace
+
+    params = dict(model.named_parameters())
+    return FlatParamSpace(params, 1).flatten(params)
+
+
+def _update_rel(got, want, start):
+    """``|got - want| / |want - start|`` (L2, over the true size): the
+    distance of a run's parameters from its reference run's, relative to
+    the update the reference applied since ``start``.  A run that
+    applies no update reads 1."""
+    n = min(got.size, want.size, start.size)
+    got, want, start = got[:n], want[:n], start[:n]
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want - start))
+
+
+def _timed_run(opt, steps, first=0, ckpt=None):
+    """``opt.optimize()`` for ``steps`` steps with a loss summary; the
+    mean step time over the steps after ``first`` (each a replay)."""
+    summary = _Losses()
+    opt.set_train_summary(summary)
+    clock = StepClock(opt, steps, sync_at=(first, steps))
+    opt.set_end_when(clock)
+    if ckpt is not None:
+        opt.set_checkpoint(str(ckpt),
+                           lambda s: s["neval"] == DISTRI_CKPT_AT)
+    torch.cuda.synchronize()
+    opt.optimize()
+    torch.cuda.synchronize()
+    step_s = (clock.marks[steps][0] - clock.marks[first][0]) \
+        / (steps - first)
+    return summary.scalars["Loss"], step_s
+
+
+def distri_world1(fa, ce, card, root, x, y):
+    """Phase 15 (a): "small" through ``Optimizer(distributed=True)`` at a
+    world of one on NCCL, fp32 then bf16, against LocalOptimizer on the
+    same weights and batches; the DP step's launches, its graph and
+    whether NCCL's collectives were captured in it; one step with the
+    kernels swapped for their plain versions."""
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.utils import cuda_graphs
+
+    paths = {}
+    # the timed window: steps 5-8, after (a)'s checkpoint at neval 5
+    first = DISTRI_CKPT_AT - 1
+    for dtype in (None, torch.bfloat16):
+        label = "bf16" if dtype else "fp32"
+        runs = {}
+        for route in ("local", "distri"):
+            model = transformer_lm("small", VOCAB, max_len=SEQ,
+                                   device="cuda", seed=0)
+            opt = optim.Optimizer(
+                model, array_dataset(x, y) >> SampleToMiniBatch(BATCH),
+                _lm_crit(), optim.Adam(learning_rate=1e-4),
+                distributed=route == "distri")
+            opt.set_compute_dtype(dtype)
+            fa.reset_launch_counts()
+            ce.reset_launch_counts()
+            captures = cuda_graphs.capture_count()
+            # ---- the data-parallel main path: counts read right after
+            losses, step_s = _timed_run(
+                opt, TRAIN_ITERS, first,
+                ckpt=root / "a" if route == "distri" and dtype is None
+                else None)
+            launches = {k: n - fa.BF16_LAUNCHES.get(k, 0)
+                        for k, n in fa.LAUNCHES.items()}
+            launches.update({f"{k}_bf16": n
+                             for k, n in fa.BF16_LAUNCHES.items()})
+            launches.update(ce.LAUNCHES)
+            # ------------------------------------------------------------
+            stats = opt.compiled_stats
+            runs[route] = {
+                "losses": losses, "step_s": step_s,
+                "tokens_per_s": BATCH * SEQ / step_s,
+                "graphs": stats["captured"], "replays": stats["replays"],
+                "graph_pool_bytes": stats["pool_bytes"],
+                "captures": cuda_graphs.capture_count() - captures,
+                "launches": launches,
+                "flat": _flat_params(model).detach()}
+            if route == "distri":
+                runs[route].update(
+                    captured_route=opt.captured_route,
+                    nccl_captured=opt.captured_route == "nccl-graph"
+                    and stats["captured"] == 1,
+                    wire_summary=opt.wire_summary)
+            del model, opt
+            torch.cuda.empty_cache()
+        d, l = runs["distri"], runs["local"]
+        step_rel = [abs(a - b) / abs(b) for a, b in zip(d["losses"],
+                                                        l["losses"])]
+        param_rel = rel_l2(d["flat"], l["flat"])
+        bitwise = d["losses"] == l["losses"] and torch.equal(d["flat"],
+                                                              l["flat"])
+        # the path's kernels under the kernels line's names: bf16 K1 and
+        # K1-bwd in the bf16 run, where no fp32 K1 may launch
+        names = [f"{k}_bf16" if dtype is not None and k.startswith("flash")
+                 else k for k in TRAIN_KERNELS]
+        kernels = {k: d["launches"].get(k, 0) for k in names}
+        want = {k: n for k, n in zip(names, TRAIN_WANT.values())}
+        if dtype is not None:
+            kernels.update(flash_attention=d["launches"]["flash_attention"],
+                           flash_attention_bwd=d["launches"][
+                               "flash_attention_bwd"])
+            want.update(flash_attention=0, flash_attention_bwd=0)
+        row = {"phase": "distri_world1", "compute_dtype": label,
+               "world": 1, "backend": torch.distributed.get_backend(),
+               "nccl_captured_in_graph": d["nccl_captured"],
+               "route": d["captured_route"], "graphs": d["graphs"],
+               "captures": d["captures"], "replays": d["replays"],
+               "graph_pool_bytes": d["graph_pool_bytes"],
+               "step_s": d["step_s"], "tokens_per_s": d["tokens_per_s"],
+               "local_step_s": l["step_s"],
+               "local_tokens_per_s": l["tokens_per_s"],
+               "local_graph_pool_bytes": l["graph_pool_bytes"],
+               "losses": d["losses"], "local_losses": l["losses"],
+               "max_step_loss_rel": max(step_rel),
+               "param_rel_l2": param_rel, "bitwise_equal": bitwise,
+               "tolerance": DISTRI_W1_RTOL, "launches": kernels,
+               "wire_summary": d["wire_summary"], "card": card}
+        emit(row)
+        if len(d["losses"]) != TRAIN_ITERS or \
+                max(step_rel) > DISTRI_W1_RTOL or \
+                param_rel > DISTRI_W1_RTOL:
+            raise AssertionError(f"DP world 1 against LocalOptimizer: {row}")
+        if not d["nccl_captured"] or d["graphs"] != 1 or \
+                d["replays"] != TRAIN_ITERS:
+            raise AssertionError(f"the NCCL step was not one captured "
+                                 f"graph: {row}")
+        if any(kernels[k] != n for k, n in want.items()):
+            raise AssertionError(f"DP launches {kernels}, want {want}")
+        paths["distri" if dtype is None else "distri_bf16"] = {
+            k: kernels[k] for k in names}
+        if dtype is None:
+            final_fp32 = d["flat"]
+            fp32_losses = d["losses"]
+        del runs, d, l
+        torch.cuda.empty_cache()
+
+    # one step of the DP graph on the plain model (attention and the
+    # cross-entropy in plain PyTorch), against the kernels' first step
+    model = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                           seed=0, use_flash="never")
+    opt = _distri_opt(model, x, y, BATCH, _lm_crit(plain=True),
+                      optim.Adam(learning_rate=1e-4))
+    fa.reset_launch_counts()
+    ce.reset_launch_counts()
+    summary = _Losses()
+    opt.set_train_summary(summary)
+    opt.set_end_when(optim.Trigger.max_iteration(1))
+    opt.optimize()
+    plain = {"loss": summary.scalars["Loss"][0],
+             "kernels_loss": fp32_losses[0],
+             "launches": sum(fa.LAUNCHES.values()) + sum(
+                 ce.LAUNCHES.values()),
+             "graphs": opt.compiled_stats["captured"]}
+    emit({"phase": "distri_plain_step", **plain, "tolerance": ATOL,
+          "card": card})
+    if abs(plain["loss"] - plain["kernels_loss"]) > ATOL or \
+            plain["launches"] or plain["graphs"] != 1:
+        raise AssertionError(f"DP step, plain against kernels: {plain}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return paths, final_fp32.cpu(), fp32_losses
+
+
+def distri_world1_wires(card, x, y):
+    """Phase 15 (a), the compressed wires on NCCL: the bf16 leg and the
+    int8-EF legs, with and without the compressed weight gather, at a
+    world of one, captured in the step's graph (``all_to_all_single`` of
+    the payload and the scales, ``all_gather_into_tensor`` of the int8
+    delta), held against the same legs on a gloo group of the same
+    rank, which runs them eagerly through ``all_reduce``."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.ops.quantization import CompressionSpec
+
+    gloo = dist.new_group(backend="gloo")
+    legs = {}
+    try:
+        wires = (("bf16", "bf16"),
+                 ("int8_ef", CompressionSpec(**DISTRI_EF)),
+                 ("int8_ef_gather", CompressionSpec(
+                     **DISTRI_EF, compress_weight_gather=True)))
+        for label, wire in wires:
+            for route, mesh in (("nccl", None), ("gloo", gloo)):
+                model = transformer_lm("small", VOCAB, max_len=SEQ,
+                                       device="cuda", seed=0)
+                opt = _distri_opt(model, x, y, BATCH, _lm_crit(),
+                                  optim.Adam(learning_rate=1e-4), mesh=mesh,
+                                  grad_compression=wire)
+                summary = _Losses()
+                opt.set_train_summary(summary)
+                opt.set_end_when(optim.Trigger.max_iteration(
+                    DISTRI_WIRE_W1_STEPS))
+                t0 = time.perf_counter()
+                opt.optimize()
+                torch.cuda.synchronize()
+                legs[label, route] = {
+                    "losses": summary.scalars["Loss"],
+                    "wall_s": time.perf_counter() - t0,
+                    "route": opt.captured_route,
+                    "graphs": opt.compiled_stats["captured"],
+                    "replays": opt.compiled_stats["replays"],
+                    "flat": _flat_params(model).cpu().numpy()}
+                del model, opt
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group(gloo)
+    row = {"phase": "distri_world1_wires", "world": 1,
+           "steps": DISTRI_WIRE_W1_STEPS, "tolerance": DISTRI_ROUTE_REL,
+           "card": card}
+    bad = []
+    for label in ("bf16", "int8_ef", "int8_ef_gather"):
+        nc, gl = legs[label, "nccl"], legs[label, "gloo"]
+        rel = float(np.linalg.norm(nc["flat"] - gl["flat"])
+                    / np.linalg.norm(gl["flat"]))
+        loss_rel = _max_step_rel(nc["losses"], gl["losses"])
+        row[label] = {
+            "nccl_losses": nc["losses"], "gloo_losses": gl["losses"],
+            "max_step_loss_rel": loss_rel, "param_rel_l2": rel,
+            "bitwise_equal": nc["losses"] == gl["losses"]
+            and np.array_equal(nc["flat"], gl["flat"]),
+            "nccl_route": nc["route"], "nccl_graphs": nc["graphs"],
+            "nccl_replays": nc["replays"], "gloo_route": gl["route"],
+            "nccl_wall_s": nc["wall_s"], "gloo_wall_s": gl["wall_s"]}
+        if nc["route"] != "nccl-graph" or nc["graphs"] != 1 or \
+                nc["replays"] != DISTRI_WIRE_W1_STEPS or \
+                gl["route"] != "eager" or \
+                len(nc["losses"]) != DISTRI_WIRE_W1_STEPS or \
+                not np.isfinite(nc["flat"]).all() or \
+                loss_rel > DISTRI_ROUTE_REL or rel > DISTRI_ROUTE_REL:
+            bad.append(label)
+    emit(row)
+    if bad:
+        raise AssertionError(f"wires, NCCL captured against gloo: "
+                             f"{bad}: {row}")
+
+
+def distri_child(rank, world, init, job_path, out):
+    """Phase 15 (b)-(d), one rank of the gloo world sharing the card:
+    each wire for ``DISTRI_W2_STEPS`` steps (the int8-EF leg writes its
+    checkpoint), (a)'s checkpoint resumed to step 8, and SyncBN
+    ResNet-50 for one step.  Results to ``out/rank<r>.json`` and, from
+    rank 0, each leg's and the resume's final parameters."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.interop import to_jax_state
+    from bigdl_tpu_torch.models import ResNet, synthetic_corpus, \
+        transformer_lm
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops.quantization import CompressionSpec
+
+    torch.cuda.set_device(0)
+    _build.load()
+    with open(job_path) as f:
+        job = json.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            world_size=world, rank=rank)
+    out = Path(out)
+    res = {}
+    try:
+        x, y = synthetic_corpus(64, SEQ, VOCAB)
+        legs = [("fp32", None), ("bf16", "bf16"),
+                ("int8_ef", CompressionSpec(**DISTRI_EF)),
+                ("int8_ef_gather", CompressionSpec(
+                    **DISTRI_EF, compress_weight_gather=True))]
+        for label, wire in legs:
+            model = transformer_lm("small", VOCAB, max_len=SEQ,
+                                   device="cuda", seed=0)
+            opt = _distri_opt(model, x, y, BATCH, _lm_crit(),
+                              optim.Adam(learning_rate=1e-4),
+                              grad_compression=wire)
+            summary = _Losses()
+            opt.set_train_summary(summary)
+            opt.set_end_when(optim.Trigger.max_iteration(DISTRI_W2_STEPS))
+            if label == "int8_ef":
+                opt.set_checkpoint(job["ckpt_w2"], lambda s: s["neval"]
+                                   == DISTRI_W2_CKPT_AT)
+            t0 = time.perf_counter()
+            opt.optimize()
+            torch.cuda.synchronize()
+            res[label] = {"losses": summary.scalars["Loss"],
+                          "wall_s": time.perf_counter() - t0,
+                          "route": opt.captured_route,
+                          "wire_summary": opt.wire_summary}
+            if rank == 0:
+                np.save(out / f"flat_{label}.npy",
+                        _flat_params(model).cpu().numpy())
+            del model, opt
+            torch.cuda.empty_cache()
+        # (d): (a)'s checkpoint (world 1, after 4 steps) resumed here
+        model = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                               seed=1)
+        opt = _distri_opt(model, x, y, BATCH, _lm_crit(),
+                          optim.Adam(learning_rate=1e-4))
+        summary = _Losses()
+        opt.set_train_summary(summary)
+        opt.resume_from_checkpoint(job["ckpt_a"])
+        opt.set_end_when(optim.Trigger.max_iteration(TRAIN_ITERS))
+        opt.optimize()
+        res["resume_a"] = {"losses": summary.scalars["Loss"],
+                           "neval": opt.driver_state["neval"]}
+        if rank == 0:
+            np.save(out / "flat_resume.npy",
+                    _flat_params(model).cpu().numpy())
+        del model, opt
+        torch.cuda.empty_cache()
+        # (c): SyncBN ResNet-50, one step
+        xr, yr = job_resnet_data()
+        model = ResNet(50, class_num=1000, device="cuda", seed=0)
+        opt = _distri_opt(model, xr, yr, DISTRI_SYNCBN_BATCH,
+                          nn.CrossEntropyCriterion(),
+                          optim.SGD(learning_rate=0.1, momentum=0.9,
+                                    dampening=0.0))
+        opt.set_sync_batchnorm()
+        summary = _Losses()
+        opt.set_train_summary(summary)
+        opt.set_end_when(optim.Trigger.max_iteration(1))
+        opt.optimize()
+        res["syncbn"] = {"loss": summary.scalars["Loss"][0]}
+        if rank == 0:
+            np.save(out / "syncbn_state.npy", _state_vector(
+                to_jax_state(model)))
+    finally:
+        dist.destroy_process_group()
+    with open(out / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def job_resnet_data():
+    """(c)'s 16 images at 224 and labels (numpy seed 15)."""
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal((DISTRI_SYNCBN_BATCH, RESNET_SIDE,
+                             RESNET_SIDE, 3), dtype=np.float32)
+    return x, rng.integers(0, 1000, DISTRI_SYNCBN_BATCH)
+
+
+def _state_vector(tree):
+    """The leaves of a model-state tree in the JAX order, one vector."""
+    from bigdl_tpu_torch.optim.local_optimizer import _tree_leaves
+
+    return np.concatenate([np.ravel(v) for _, v in _tree_leaves(tree)])
+
+
+def _spawn_world2(root, job):
+    """Start the two gloo ranks (this script, ``--distri-rank``), wait
+    for them under ``DISTRI_CHILD_TIMEOUT_S``, kill both on a hang or a
+    failure; returns their results."""
+    out = root / "w2"
+    out.mkdir()
+    job_path = root / "job.json"
+    job_path.write_text(json.dumps(job))
+    init = root / "rendezvous"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--distri-rank",
+         str(r), "2", str(init), str(job_path), str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = [None, None]
+    try:
+        deadline = time.monotonic() + DISTRI_CHILD_TIMEOUT_S
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"world-2 rank {bad[0]} failed:\n"
+                             f"{(logs[bad[0]] or '')[-3000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(2)], out
+
+
+def _max_step_rel(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def distri_phase(fa, ce, card):
+    """Phase 15: the data-parallel path."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.interop import to_jax_state
+    from bigdl_tpu_torch.models import ResNet, synthetic_corpus, \
+        transformer_lm
+    from bigdl_tpu_torch.ops.quantization import CompressionSpec
+    from bigdl_tpu_torch.utils import file_io
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_distri_"))
+    try:
+        Engine.init()                  # NCCL, a world of one on the card
+        x, y = synthetic_corpus(64, SEQ, VOCAB)
+        paths, final_a, losses_a = distri_world1(fa, ce, card, root, x, y)
+        ckpt_a = root / "a" / f"checkpoint.{DISTRI_CKPT_AT}.pkl"
+        flat_a4 = np.asarray(file_io.load(str(ckpt_a))["model_params"]
+                             ["model_params_flat"])
+        distri_world1_wires(card, x, y)
+        # the weights every seed-0 run starts from
+        theta0 = _flat_params(transformer_lm(
+            "small", VOCAB, max_len=SEQ, device="cuda", seed=0)).cpu().numpy()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b)-(d) in a world of two processes sharing the card, on gloo
+        t0 = time.perf_counter()
+        ranks, out = _spawn_world2(root, {
+            "ckpt_a": str(root / "a"), "ckpt_w2": str(root / "w2_ckpt")})
+        world2_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        for r in ranks[1:]:
+            for leg in ("fp32", "bf16", "int8_ef", "int8_ef_gather",
+                        "resume_a"):
+                if r[leg]["losses"] != r0[leg]["losses"]:
+                    raise AssertionError(f"ranks' {leg} losses differ")
+        fp32 = r0["fp32"]["losses"]
+        wires = ("fp32", "bf16", "int8_ef", "int8_ef_gather")
+        flats = {leg: np.load(out / f"flat_{leg}.npy") for leg in wires}
+        flat_fp32 = flats["fp32"]
+        n = flat_a4.size
+        # each wire's parameters against the fp32 wire's, relative to
+        # the fp32 wire's update; the fp32 wire against (a)'s after the
+        # same 4 steps; a leg that applies no update reads 1
+        upd = {leg: _update_rel(flats[leg], flat_fp32, theta0)
+               for leg in wires[1:]}
+        upd["fp32_vs_world1"] = _update_rel(flat_fp32, flat_a4, theta0)
+        upd["no_update"] = _update_rel(theta0, flat_fp32, theta0)
+        upd_limits = {"fp32_vs_world1": DISTRI_UPD_FP32,
+                      "bf16": DISTRI_UPD_BF16, "int8_ef": DISTRI_UPD_INT8,
+                      "int8_ef_gather": DISTRI_UPD_GATHER}
+        b_row = {
+            "phase": "distri_world2_wires", "world": 2, "backend": "gloo",
+            "note": "host-routed correctness runs (gloo on CUDA tensors, "
+                    "eager), not NCCL's speed",
+            "rows_per_rank": BATCH // 2,
+            "fp32_vs_world1_max_step_loss_rel": _max_step_rel(
+                fp32, losses_a[:DISTRI_W2_STEPS]),
+            "fp32_vs_world1_param_rel_l2": float(
+                np.linalg.norm(flat_fp32[:n] - flat_a4[:n])
+                / np.linalg.norm(flat_a4[:n])),
+            "bf16_max_step_rel": _max_step_rel(r0["bf16"]["losses"], fp32),
+            "int8_ef_last_rel": _max_step_rel(
+                r0["int8_ef"]["losses"][-1:], fp32[-1:]),
+            "int8_ef_max_step_rel": _max_step_rel(r0["int8_ef"]["losses"],
+                                                  fp32),
+            "int8_ef_gather_max_step_rel": _max_step_rel(
+                r0["int8_ef_gather"]["losses"], fp32),
+            "param_update_rel": upd, "param_update_limits": upd_limits,
+            "fp32_update_rel_l2": float(
+                np.linalg.norm(flat_fp32[:n] - theta0[:n])
+                / np.linalg.norm(theta0[:n])),
+            "losses": {leg: r0[leg]["losses"] for leg in
+                       ("fp32", "bf16", "int8_ef", "int8_ef_gather")},
+            "wall_s": {leg: r0[leg]["wall_s"] for leg in
+                       ("fp32", "bf16", "int8_ef", "int8_ef_gather")},
+            "routes": {leg: r0[leg]["route"] for leg in
+                       ("fp32", "bf16", "int8_ef", "int8_ef_gather")},
+            "wire_summary": {leg: r0[leg]["wire_summary"] for leg in
+                             ("fp32", "bf16", "int8_ef", "int8_ef_gather")},
+            "tolerances": {"fp32_loss": DISTRI_W2_LOSS_RTOL,
+                           "fp32_param": DISTRI_W2_PARAM_REL,
+                           "bf16": DISTRI_CAST_RTOL,
+                           "int8_ef_last": DISTRI_INT8_LAST_RTOL,
+                           "int8_ef": DISTRI_INT8_RTOL,
+                           "int8_ef_gather": DISTRI_GATHER_RTOL},
+            "world2_wall_s": world2_s, "card": card}
+        emit(b_row)
+        if b_row["fp32_vs_world1_max_step_loss_rel"] > DISTRI_W2_LOSS_RTOL \
+                or b_row["fp32_vs_world1_param_rel_l2"] > \
+                DISTRI_W2_PARAM_REL or \
+                b_row["bf16_max_step_rel"] > DISTRI_CAST_RTOL or \
+                b_row["int8_ef_last_rel"] > DISTRI_INT8_LAST_RTOL or \
+                b_row["int8_ef_max_step_rel"] > DISTRI_INT8_RTOL or \
+                b_row["int8_ef_gather_max_step_rel"] > DISTRI_GATHER_RTOL \
+                or any(upd[k] > lim for k, lim in upd_limits.items()) \
+                or set(b_row["routes"].values()) != {"eager"} or \
+                not all(np.isfinite(v).all()
+                        for v in b_row["losses"].values()):
+            raise AssertionError(f"world-2 wires: {b_row}")
+
+        # (c) SyncBN against world 1 at the full batch
+        xr, yr = job_resnet_data()
+        model = ResNet(50, class_num=1000, device="cuda", seed=0)
+        opt = optim.LocalOptimizer(
+            model, array_dataset(xr, yr)
+            >> SampleToMiniBatch(DISTRI_SYNCBN_BATCH),
+            nn.CrossEntropyCriterion(),
+            optim.SGD(learning_rate=0.1, momentum=0.9, dampening=0.0))
+        summary = _Losses()
+        opt.set_train_summary(summary)
+        opt.set_end_when(optim.Trigger.max_iteration(1))
+        opt.optimize()
+        want_state = _state_vector(to_jax_state(model))
+        got_state = np.load(out / "syncbn_state.npy")
+        c_row = {"phase": "distri_syncbn", "model": "ResNet-50",
+                 "world": 2, "backend": "gloo",
+                 "global_batch": DISTRI_SYNCBN_BATCH,
+                 "loss_world2": r0["syncbn"]["loss"],
+                 "loss_world1": summary.scalars["Loss"][0],
+                 "loss_rel": abs(r0["syncbn"]["loss"]
+                                 - summary.scalars["Loss"][0])
+                 / abs(summary.scalars["Loss"][0]),
+                 "running_stats_rel_l2": float(
+                     np.linalg.norm(got_state - want_state)
+                     / np.linalg.norm(want_state)),
+                 "tolerance": DISTRI_SYNCBN_RTOL, "card": card}
+        emit(c_row)
+        if ranks[1]["syncbn"]["loss"] != r0["syncbn"]["loss"] or \
+                c_row["loss_rel"] > DISTRI_SYNCBN_RTOL or \
+                c_row["running_stats_rel_l2"] > DISTRI_SYNCBN_RTOL:
+            raise AssertionError(f"SyncBN world 2 against world 1: {c_row}")
+        del model, opt
+        torch.cuda.empty_cache()
+
+        # (d) resumes: (b)'s int8-EF checkpoint at world 1 (the 2 -> 1
+        # refit and the residual's repartition), (a)'s at world 2
+        model = transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                               seed=1)
+        # what a resume that loads nothing would continue from
+        theta1 = _flat_params(model).cpu().numpy()
+        opt = _distri_opt(model, x, y, BATCH, _lm_crit(),
+                          optim.Adam(learning_rate=1e-4),
+                          grad_compression=CompressionSpec(**DISTRI_EF))
+        summary = _Losses()
+        opt.set_train_summary(summary)
+        opt.resume_from_checkpoint(str(root / "w2_ckpt"))
+        opt.set_end_when(optim.Trigger.max_iteration(DISTRI_W2_STEPS))
+        opt.optimize()
+        resumed_w1 = summary.scalars["Loss"]
+        straight = r0["int8_ef"]["losses"][DISTRI_W2_CKPT_AT - 1:]
+        flat_w2_ckpt = np.asarray(file_io.load(str(
+            root / "w2_ckpt" / f"checkpoint.{DISTRI_W2_CKPT_AT}.pkl"))
+            ["model_params"]["model_params_flat"])
+        flat_resume_w1 = _flat_params(model).cpu().numpy()
+        flat_resume = np.load(out / "flat_resume.npy")
+        final = final_a.numpy()
+        d_row = {
+            "phase": "distri_resume",
+            "int8_ef_world2_to_world1": {
+                "losses": resumed_w1, "straight_world2": straight,
+                "max_step_rel": _max_step_rel(resumed_w1, straight),
+                "param_update_rel": _update_rel(
+                    flat_resume_w1, flats["int8_ef"], flat_w2_ckpt),
+                "param_rel_l2": float(
+                    np.linalg.norm(flat_resume_w1 - flats["int8_ef"])
+                    / np.linalg.norm(flats["int8_ef"])),
+                "no_load_update_rel": _update_rel(
+                    theta1, flats["int8_ef"], flat_w2_ckpt),
+                "tolerances": [DISTRI_W2_LOSS_RTOL,
+                               DISTRI_UPD_RESUME_INT8]},
+            "fp32_world1_to_world2": {
+                "losses": r0["resume_a"]["losses"],
+                "straight_world1": losses_a[DISTRI_CKPT_AT - 1:],
+                "max_step_rel": _max_step_rel(
+                    r0["resume_a"]["losses"],
+                    losses_a[DISTRI_CKPT_AT - 1:]),
+                "param_rel_l2": float(np.linalg.norm(flat_resume - final)
+                                      / np.linalg.norm(final)),
+                "param_update_rel": _update_rel(flat_resume, final,
+                                                flat_a4),
+                "tolerances": [DISTRI_W2_LOSS_RTOL, DISTRI_W2_PARAM_REL,
+                               DISTRI_UPD_RESUME_FP32]},
+            "card": card}
+        emit(d_row)
+        a, b = d_row["int8_ef_world2_to_world1"], \
+            d_row["fp32_world1_to_world2"]
+        if len(resumed_w1) != len(straight) or \
+                a["max_step_rel"] > DISTRI_W2_LOSS_RTOL or \
+                a["param_update_rel"] > DISTRI_UPD_RESUME_INT8 or \
+                len(b["losses"]) != TRAIN_ITERS - DISTRI_CKPT_AT + 1 or \
+                b["max_step_rel"] > DISTRI_W2_LOSS_RTOL or \
+                b["param_rel_l2"] > DISTRI_W2_PARAM_REL or \
+                b["param_update_rel"] > DISTRI_UPD_RESUME_FP32:
+            raise AssertionError(f"DP resume: {d_row}")
+        del model, opt
+        torch.cuda.empty_cache()
+        emit({"phase": "distri_done",
+              "seconds": time.perf_counter() - t_phase, "card": card})
+        return paths
+    finally:
+        Engine.reset()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--distri-rank":
+        # one rank of phase 15's gloo world (started by _spawn_world2)
+        return distri_child(int(sys.argv[2]), int(sys.argv[3]),
+                            *sys.argv[4:7])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -5383,6 +6086,7 @@ def main():
     int8_rows, phase13 = int8_phase(card)
     rows.update(int8_rows)
     phase14 = engine_phase(card)
+    phase15 = distri_phase(fa, ce, card)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -5436,7 +6140,7 @@ def main():
     paths = (("serving", serving), ("training", training),
              ("training_bf16", training_bf16), ("int8_serving", int8_serving),
              *phase10.items(), *phase11.items(), *phase13.items(),
-             *phase14.items())
+             *phase14.items(), *phase15.items())
     if len(dict(paths)) != len(paths):
         raise AssertionError(f"two paths share a name: "
                              f"{[p for p, _ in paths]}")

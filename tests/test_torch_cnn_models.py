@@ -493,8 +493,7 @@ def test_resnet_imagenet_recipe(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--folder", "data"], "A9"), (["--model", "m.bigdl"], "A9"),
-    (["--distributed"], "A4")])
+    (["--folder", "data"], "A9"), (["--model", "m.bigdl"], "A9")])
 @pytest.mark.parametrize("recipe", ["lenet-train", "lenet-test",
                                     "vgg-train", "resnet-train",
                                     "resnet-imagenet-train",
@@ -502,3 +501,43 @@ def test_resnet_imagenet_recipe(monkeypatch):
 def test_recipes_refuse_unported_flags(recipe, flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         trun.main([recipe, "--device", "cpu"] + flag)
+
+
+#: tiny settings of each recipe for one iteration on the CPU
+_TINY = {"lenet-train": ["-b", "4", "--synthN", "16"],
+         "vgg-train": ["-b", "4", "--synthN", "16"],
+         "resnet-train": ["-b", "4", "--synthN", "16", "--depth", "8"],
+         "resnet-imagenet-train": ["-b", "2", "--synthN", "8", "--fused"],
+         "inception-train": ["-b", "2", "--synthN", "16", "--classes", "4"]}
+
+
+@pytest.mark.parametrize("recipe", ["lenet-train", "lenet-test",
+                                    "vgg-train", "resnet-train",
+                                    "resnet-imagenet-train",
+                                    "inception-train"])
+def test_recipes_route_distributed(recipe, monkeypatch):
+    """``--distributed`` routes through ``DistriOptimizer`` wherever the
+    JAX recipe routes it (JAX ``models/run.py:67``): one iteration at the
+    world of one the engine starts on gloo.  ``lenet-test`` runs no
+    optimizer and keeps its refusal (ROADMAP A4)."""
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    if recipe == "lenet-test":
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            trun.main([recipe, "--device", "cpu", "--distributed"])
+        return
+    if recipe == "resnet-imagenet-train":
+        from bigdl_tpu_torch.models import resnet
+
+        real = resnet.ResNet
+        monkeypatch.setattr(resnet, "ResNet",
+                            lambda depth=50, **kw: real(18, **kw))
+    try:
+        opt = trun.main([recipe, "--device", "cpu", "--distributed",
+                         "--maxIteration", "1"] + _TINY[recipe])
+    finally:
+        Engine.reset()
+    assert isinstance(opt, optim.DistriOptimizer)
+    assert opt.driver_state["neval"] == 2
+    assert np.isfinite(opt.driver_state["loss"])
+    assert opt.compiled_stats["replays"] == 1

@@ -401,9 +401,42 @@ def test_batchnorm_keys_and_state_tree():
     assert [k for k, _ in bn.named_parameters()] == ["weight", "bias"]
     assert sorted(bn.state_tree()) == ["running_mean", "running_var"]
     assert nn.BatchNormalization(3, affine=False).jax_empty_params == {}
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        with nn.normalization.sync_batchnorm("data"):
-            pass
+    # SyncBN (ROADMAP A4, ported): inside the context a training-mode
+    # BatchNorm pools its moments over the world -- here the world of one
+    # the engine starts on gloo, where pooling is the identity but runs
+    # through the group's all_reduce; worlds of 2 and 4 in
+    # tests/test_torch_distri_optimizer.py
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.parallel import collectives
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 3, 3, 3)).astype(np.float32)).requires_grad_()
+    plain = nn.SpatialBatchNormalization(3)
+    synced = nn.SpatialBatchNormalization(3)
+    calls = []
+    real = dist.all_reduce
+    try:
+        Engine.init(device="cpu")
+        dist.all_reduce = lambda t, **kw: (calls.append(t.shape),
+                                           real(t, **kw))[1]
+        with nn.normalization.sync_batchnorm("data") as coll:
+            assert isinstance(coll, collectives.Collectives)
+            assert (coll.world, coll.backend) == (1, "gloo")
+            y = synced(x)
+            y.square().sum().backward()
+        g = x.grad.clone()
+        x.grad = None
+        y_plain = plain(x)
+        y_plain.square().sum().backward()
+        assert len(calls) == 4    # E[x] and E[x^2], forward and backward
+        assert torch.equal(y, y_plain)
+        assert torch.equal(g, x.grad)
+        assert torch.equal(synced.running_var, plain.running_var)
+    finally:
+        dist.all_reduce = real
+        Engine.reset()
 
 
 @pytest.mark.parametrize("size,fmt", [(5, "NHWC"), (4, "NHWC"),

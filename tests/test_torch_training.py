@@ -172,9 +172,12 @@ def test_unported_schedules_and_options_raise():
         optim.make_train_step(m, nn.CrossEntropyCriterion(), optim.SGD(),
                               health_stats=True)
     ds = array_dataset(np.zeros((4, 8), np.int32), np.zeros((4, 8), np.int32))
-    with pytest.raises(NotImplementedError, match="A4"):
-        optim.Optimizer(m, ds, nn.CrossEntropyCriterion(), distributed=True,
-                        device="cpu")
+    # distributed=True is the data-parallel DistriOptimizer (ROADMAP A4,
+    # ported: tests/test_torch_distri_optimizer.py)
+    opt = optim.Optimizer(m, ds, nn.CrossEntropyCriterion(),
+                          distributed=True, device="cpu")
+    assert isinstance(opt, optim.DistriOptimizer)
+    assert opt.device == torch.device("cpu") and opt.sync_bn is False
     with pytest.raises(NotImplementedError, match="A7"):
         optim.Optimizer(m, ds, nn.CrossEntropyCriterion(), strategy="tp",
                         device="cpu")
