@@ -40,7 +40,8 @@ CUDA device switches TF32 matrix products off
 (``utils.device.require_fp32_matmul``).
 
 Not ported: the sharded and round-robin layouts (``mesh=``,
-``round_robin=``: ROADMAP A6), a checkpoint from another layout
+``round_robin=``: they need a machine with more than one card, ROADMAP
+A6), a checkpoint from another layout
 (``src_layout=``: A7), sharded (orbax) snapshots (A4), request tracing
 and spans (``trace=``: A8).
 """
@@ -369,13 +370,14 @@ class ServingEngine:
                              f"on {model_device}")
         if mesh is not None and _axis_size(mesh, axis) > 1:
             raise UnsupportedFeatureError(
-                "the sharded serving layout (mesh=) is not ported: "
-                "ROADMAP A6")
+                "the sharded serving layout (mesh=) is not ported: it "
+                "needs a machine with more than one card (ROADMAP A6)")
         if round_robin and device.type == "cuda" \
                 and torch.cuda.device_count() > 1:
             raise UnsupportedFeatureError(
                 "the round-robin serving layout over several cards is not "
-                "ported: ROADMAP A6")
+                "ported: it needs a machine with more than one card "
+                "(ROADMAP A6)")
         if max_batch_size < 1:
             raise ValueError(f"max_batch_size must be >= 1, got "
                              f"{max_batch_size}")

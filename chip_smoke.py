@@ -342,6 +342,35 @@ Phases, each printing JSON lines:
     against its straight run (losses within ``DISTRI_W2_LOSS_RTOL``,
     parameters relative to the straight run's update; a resume that
     loads nothing reads 350).
+16. the serving fleet (``serving/transport.py``, ``worker.py``,
+    ``fleet.py``, ``deploy.py``): replica 0 in this process and two
+    ``SubprocessReplica`` workers (this script, ``--fleet-worker``, each
+    a fresh interpreter on the card serving "small" from seed 0 behind
+    two replica servers sharing its weights, fp32 KV and int8 KV) over
+    the binary wire with a minted run token; every engine has batch
+    rungs 1-4 and length rungs 128-512.  (a) The main path: 64
+    ``predict`` and 16 ``generate`` requests from 8 client threads
+    through ``ServingFleet`` (the smoke burst), then the same 16
+    prompts through the int8-KV servers of the three processes in turn;
+    each prediction against replica 0's ``predict_at`` at batch rung 1
+    (``FLEET_TOL`` relative, bitwise equality counted), each greedy
+    stream equal to replica 0's except at a ``TIE_MARGIN`` near-tie; K1,
+    K3 and K3q counted inside each worker (read by the worker role's
+    ``smoke`` verb) and required of each; then the served rates:
+    windows of 256 predicts and 64 generations, results dropped, taken
+    by the fleet and by replica 0's engine alone in turns, each one's
+    requests/s over all its windows and p50 / p99 over all their
+    requests; (b) worker 1 SIGKILLed after 12 of 48 predictions:
+    zero failed requests, one ``FleetSupervisor`` restart, the rejoined
+    worker's probe digest equal to replica 0's; (c) a seed-1 candidate
+    registered, shadowed and canaried on replica 0 and rolled across the
+    fleet on the int8 weight wire (every replica then serves the tree as
+    the wire delivers it): every digest equal, outputs within
+    ``FLEET_TOL`` of a fresh engine on that tree, the wire's fp32 and
+    int8 bytes and each commit's seconds; then a seed-2 candidate whose
+    gate fails on worker 1 rolls back replica 0 only, every digest as
+    before; (d) each worker's boot seconds (spawn to port file) and each
+    process's card memory (allocator and ``nvidia-smi``).
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -6029,7 +6058,633 @@ def distri_phase(fa, ce, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: phase 16: the fleet's engines -- batch rungs 1-4 and length rungs
+#: 128-512 (three sets of graphs fit on the card and build in time), 8
+#: decode slots of up to 512 positions
+FLEET_MAX_BATCH, FLEET_LENGTHS, FLEET_DECODE_LEN = 4, (128, 512), 512
+#: phase 16 (a): the traffic of the fleet's main path
+FLEET_PREDICTS, FLEET_GENERATES, FLEET_THREADS, FLEET_NEW = 64, 16, 8, 16
+FLEET_PREDICT_LENGTHS = (17, 100, 128, 200, 256, 300, 480, 512)
+FLEET_PROMPT_LENGTHS = (9, 33, 60, 120, 200, 17, 80, 150)
+#: phase 16: a fleet prediction against replica 0's ``predict_at`` at
+#: batch rung 1, relative to the largest logit (another batch rung may
+#: reduce in another order)
+FLEET_TOL = 1e-5
+#: phase 16 (a): the served-rate windows, (predicts, generations) each,
+#: taken by the fleet and by replica 0's engine alone in turns
+FLEET_RATE_WINDOW, FLEET_RATE_WINDOWS = (256, 64), 2
+#: phase 16 (b): predictions of the chaos window, and the request count
+#: at which worker 1 is SIGKILLed
+FLEET_CHAOS_PREDICTS, FLEET_KILL_AT = 48, 12
+#: seconds a worker may take from spawn to its port file, and a rejoin
+FLEET_BOOT_TIMEOUT_S, FLEET_REJOIN_TIMEOUT_S = 300, 300
+
+
+def _fleet_engine(model, kv):
+    from bigdl_tpu_torch.serving import BucketLadder, ServingEngine
+
+    return ServingEngine(model, max_batch_size=FLEET_MAX_BATCH,
+                         max_wait_ms=1.0,
+                         length_ladder=BucketLadder(FLEET_LENGTHS[1],
+                                                    min_size=FLEET_LENGTHS[0]),
+                         decode_max_len=FLEET_DECODE_LEN,
+                         kv_cache_dtype=kv)
+
+
+def _fleet_probe_rows():
+    return _lm_requests(41, (FLEET_LENGTHS[0],) * 4)
+
+
+def _process_memory():
+    return {"pid": os.getpid(),
+            "allocated_bytes": torch.cuda.memory_allocated(),
+            "max_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved()}
+
+
+def fleet_worker(rid, port_file, registry):
+    """Phase 16, one worker process on the card (this script,
+    ``--fleet-worker``): "small" from seed 0 behind two replica servers
+    on 127.0.0.1:0 sharing its weights, fp32 KV and int8 KV; boots the
+    registry's committed version; the port file (written atomically)
+    holds the fp32 server's port.  A ``smoke`` verb of this role reads
+    (and resets) the process's kernel launches and reports its card
+    memory and the int8 server's port."""
+    from tools.torch_serve_fleet import exit_with_parent, write_port_file
+
+    from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.serving.worker import (ReplicaServer,
+                                                boot_from_registry)
+
+    exit_with_parent()
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    _build.load()
+    servers = {}
+
+    class SmokeServer(ReplicaServer):
+        def _op_smoke(self, req):
+            torch.cuda.synchronize()
+            out = {"launches": {k: n for k, n in fa.LAUNCHES.items() if n},
+                   "memory": _process_memory(),
+                   "int8_port": servers["int8"].port}
+            if req.get("reset"):
+                fa.reset_launch_counts()
+            return out
+
+    t0 = time.perf_counter()
+    model = transformer_lm("small", vocab_size=SERVE_VOCAB, device="cuda",
+                           seed=0)
+    probe = _fleet_probe_rows()
+    engines = {kv: _fleet_engine(model, kv) for kv in ("fp32", "int8")}
+    for eng in engines.values():
+        eng.precompile(example_feature=probe[0])
+    booted = boot_from_registry(engines["fp32"], registry)
+    for kv, eng in engines.items():
+        servers[kv] = SmokeServer(eng, port=0, probe_features=probe,
+                                  probe_bucket=FLEET_MAX_BATCH)
+    servers["int8"].start()
+    write_port_file(port_file, servers["fp32"].port)
+    print(json.dumps({"worker": rid, "boot_s": time.perf_counter() - t0,
+                      "booted": booted,
+                      "ports": [s.port for s in servers.values()]}),
+          flush=True)
+    servers["fp32"].serve_forever()
+    servers["int8"].close()
+    for eng in engines.values():
+        eng.close()
+    return 0
+
+
+class _FleetWorkers:
+    """The phase's worker processes: ``spawn(rid)`` is the ``spawn(attempt)
+    -> (proc, port)`` that ``SubprocessReplica`` wants (the drill tool's
+    environment and port-file wait), each spawn's boot seconds (spawn to
+    port file) kept aside.  ``start(rid)`` starts a worker ahead of its
+    first spawn, so several boot at once."""
+
+    def __init__(self, root, registry, token):
+        self.root, self.registry, self.token = root, registry, token
+        self.boot_s, self.procs, self._started = [], [], {}
+
+    def _popen(self, rid):
+        from tools.torch_serve_live import child_env
+
+        port_file = self.root / f"worker{rid}.port"
+        if port_file.exists():
+            port_file.unlink()
+        with open(self.root / f"worker{rid}.log", "a") as log:
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--fleet-worker", str(rid), str(port_file),
+                 str(self.registry)], stdout=log, stderr=subprocess.STDOUT,
+                env=dict(child_env(), BIGDL_RUN_TOKEN=self.token))
+        self.procs.append(proc)
+        return proc, port_file, time.perf_counter()
+
+    def start(self, rid):
+        self._started[rid] = self._popen(rid)
+
+    def spawn(self, rid):
+        from tools.torch_serve_fleet import wait_port_file
+
+        def spawn(attempt):
+            proc, port_file, t0 = self._started.pop(rid, None) \
+                or self._popen(rid)
+            log = self.root / f"worker{rid}.log"
+            try:
+                port = wait_port_file(proc, str(port_file),
+                                      f"fleet worker {rid}", log.name,
+                                      timeout=FLEET_BOOT_TIMEOUT_S)
+            except RuntimeError as e:
+                raise AssertionError(f"{e}:\n{log.read_text()[-3000:]}") \
+                    from e
+            self.boot_s.append({"replica": rid,
+                                "seconds": time.perf_counter() - t0})
+            return proc, port
+        return spawn
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(30)
+
+
+class _Recorder:
+    def __init__(self):
+        self.events = []
+
+    def record(self, kind, **fields):
+        self.events.append({"kind": kind, **fields})
+
+    def set_serving_info(self, info):
+        pass
+
+
+def _percentiles(lat):
+    from bigdl_tpu_torch.observability.profiling import percentile
+
+    s = sorted(lat)
+    return {"p50_ms": percentile(s, 50.0) * 1e3,
+            "p99_ms": percentile(s, 99.0) * 1e3}
+
+
+def _fleet_traffic(predict, generate, reqs, threads=FLEET_THREADS,
+                   keep=True):
+    """``reqs`` (("predict" | "generate", tokens)) from ``threads``
+    threads, each taking every ``threads``-th; returns each result (None
+    where not ``keep``), each request's latency, the wall seconds and
+    the failures."""
+    out, lat = [None] * len(reqs), [None] * len(reqs)
+    failures = []
+
+    def client(k):
+        for j in range(k, len(reqs), threads):
+            kind, toks = reqs[j]
+            t0 = time.perf_counter()
+            try:
+                y = predict(toks) if kind == "predict" else generate(toks)
+                out[j] = y if keep else None
+            except Exception as e:
+                failures.append(f"{kind} {j}: {type(e).__name__}: {e}")
+            lat[j] = time.perf_counter() - t0
+
+    workers = [threading.Thread(target=client, args=(k,))
+               for k in range(threads)]
+    t0 = time.perf_counter()
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in workers):
+        raise AssertionError("phase 16: a client thread hung")
+    return out, lat, wall, failures
+
+
+def _traffic_row(reqs, lat, wall):
+    kinds = {k: [l for (kk, _), l in zip(reqs, lat) if kk == k]
+             for k in ("predict", "generate")}
+    return {"requests": len(reqs), "wall_s": wall,
+            "requests_per_s": len(reqs) / wall,
+            **{k: {"requests": len(v), **_percentiles(v)}
+               for k, v in kinds.items() if v}}
+
+
+def _fleet_requests(seed, n_predict, n_generate):
+    """The fleet's traffic mix: predicts over the length rungs' range and
+    greedy generations, shuffled."""
+    lengths = FLEET_PREDICT_LENGTHS
+    feats = _lm_requests(seed, tuple(lengths[j % len(lengths)]
+                                     for j in range(n_predict)))
+    prompts = _lm_requests(seed + 1, tuple(
+        FLEET_PROMPT_LENGTHS[j % len(FLEET_PROMPT_LENGTHS)]
+        for j in range(n_generate)))
+    reqs = [("predict", f) for f in feats] + \
+        [("generate", p) for p in prompts]
+    order = np.random.default_rng(seed + 2).permutation(len(reqs))
+    return [reqs[j] for j in order]
+
+
+def _rate_windows(targets, windows):
+    """Served rates of several targets (name -> (predict, generate)),
+    taken in turns over the same windows of requests, results dropped:
+    per target the rate of all requests over all windows' wall time and
+    the tails over all of them, beside each window's own row."""
+    rows = {name: {"windows": [], "reqs": [], "lat": [], "wall": 0.0}
+            for name in targets}
+    for reqs in windows:
+        for name, (predict, generate) in targets.items():
+            _, lat, wall, failures = _fleet_traffic(predict, generate, reqs,
+                                                    keep=False)
+            if failures:
+                raise AssertionError(f"{name} rate window: {failures[:3]}")
+            r = rows[name]
+            r["windows"].append(_traffic_row(reqs, lat, wall))
+            r["reqs"] += reqs
+            r["lat"] += lat
+            r["wall"] += wall
+    return {name: {**_traffic_row(r["reqs"], r["lat"], r["wall"]),
+                   "windows": [{k: w[k] for k in ("requests", "wall_s",
+                                                  "requests_per_s")}
+                               for w in r["windows"]]}
+            for name, r in rows.items()}
+
+
+def _stream_tie(model, prompt, ref, got):
+    """None where two greedy streams agree; else where they part and the
+    gap between the two tokens' logits there (the served model's own
+    forward over the reference prefix)."""
+    if got == ref:
+        return None
+    k = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+             min(len(ref), len(got)))
+    if k >= min(len(ref), len(got)):
+        return {"at": k, "gap": float("inf"), "lengths": [len(ref),
+                                                          len(got)]}
+    seq = np.concatenate([prompt, np.asarray(ref[:k], np.int32)])
+    with torch.no_grad():
+        logits = model(torch.from_numpy(seq[None]).cuda())[0, -1]
+    return {"at": k, "gap": abs(logits[ref[k]].item()
+                                - logits[got[k]].item())}
+
+
+def _smoke(rep, reset=False):
+    return rep._call("smoke", reset=reset, rpc_timeout=60.0)
+
+
+def fleet_phase(fa, card):
+    """Phase 16: the serving fleet on the card.  Returns the main path's
+    launches (replica 0's and every worker's)."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.interop.jax_params import to_jax_params
+    from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.serving import (FleetSupervisor, InProcessReplica,
+                                         ModelRegistry, RolloutController,
+                                         ServingEngine, ServingFleet,
+                                         SubprocessReplica)
+    from bigdl_tpu_torch.serving.transport import (call_once,
+                                                   dequantize_wire_tree,
+                                                   mint_run_token,
+                                                   quantize_tree_for_wire,
+                                                   tree_wire_bytes)
+    from bigdl_tpu_torch.serving.worker import probe_digest
+    from bigdl_tpu_torch.utils import file_io
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="fleet_"))
+    registry_path = root / "registry.json"
+    token = mint_run_token()         # the workers' handshake secret
+    workers = _FleetWorkers(root, registry_path, token)
+    engines, fleet = [], None
+    try:
+        for rid in (1, 2):               # the two boot while replica 0 does
+            workers.start(rid)
+        model = transformer_lm("small", vocab_size=SERVE_VOCAB,
+                               device="cuda", seed=0)
+        probe = _fleet_probe_rows()
+        t0 = time.perf_counter()
+        eng0 = _fleet_engine(model, "fp32")
+        eng0_i8 = _fleet_engine(model, "int8")
+        engines += [eng0, eng0_i8]
+        built = [e.precompile(example_feature=probe[0]) for e in engines]
+        boot0_s = time.perf_counter() - t0
+        reps = [InProcessReplica(eng0, rid=0)]
+        for rid in (1, 2):
+            rep = SubprocessReplica(workers.spawn(rid), rid=rid,
+                                    request_timeout_s=120.0, token=token)
+            rep.start(0)
+            reps.append(rep)
+        fleet = ServingFleet(reps, probe_features=probe,
+                             probe_bucket=FLEET_MAX_BATCH,
+                             default_timeout_s=120.0, breaker_reset_s=1.0,
+                             retry_backoff_s=0.02,
+                             wire_flush_every=10 ** 9, weight_wire="int8")
+        emit({"phase": "fleet_boot", "replica0_engines_s": boot0_s,
+              "replica0_captured": built, "workers": workers.boot_s,
+              "card": card})
+
+        # ---- (a) the fleet's main path: counts reset just before ------
+        reqs = _fleet_requests(42, FLEET_PREDICTS, FLEET_GENERATES)
+        prompts = [t for k, t in reqs if k == "generate"]
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        for rep in reps[1:]:
+            _smoke(rep, reset=True)
+        out, lat, wall, failures = _fleet_traffic(
+            lambda t: fleet.predict(t, timeout=120.0),
+            lambda t: fleet.generate(t, max_new_tokens=FLEET_NEW,
+                                     timeout=120.0), reqs)
+        # the int8-KV servers of the same processes: the same prompts,
+        # each process's in turn
+        i8_gen = [lambda t: eng0_i8.generate(
+            t, max_new_tokens=FLEET_NEW).result(120.0)] + [
+            lambda t, _port=_smoke(rep)["int8_port"]: call_once(
+                "127.0.0.1", _port, "generate", rpc_timeout=125.0,
+                auth_token=token, prompt=[int(v) for v in t],
+                max_new_tokens=FLEET_NEW, timeout=120.0)
+            for rep in reps[1:]]
+        i8_out, _, i8_wall, i8_failures = _fleet_traffic(
+            None, lambda jt: i8_gen[jt[0] % len(i8_gen)](jt[1]),
+            [("generate", (j, p)) for j, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        parent_launches = {k: n for k, n in fa.LAUNCHES.items() if n}
+        worker_reports = {rep.rid: _smoke(rep) for rep in reps[1:]}
+        # ------------------------------------------------------------------
+        launches = dict(parent_launches)
+        for r in worker_reports.values():
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        need = ("flash_attention", "flash_paged_decode_attention",
+                "flash_paged_decode_attention_int8")
+        for rid, r in worker_reports.items():
+            missing = [k for k in need if not r["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"fleet worker {rid} launched no "
+                                     f"{missing}: {r['launches']}")
+        if failures or i8_failures:
+            raise AssertionError(f"fleet requests failed: "
+                                 f"{(failures + i8_failures)[:5]}")
+        # each prediction against replica 0's predict_at at batch rung 1
+        # of the request zero-padded to its result's length rung (a tick
+        # pads its requests to the longest one's rung)
+        errs, bitwise = [], 0
+        for (kind, toks), y in zip(reqs, out):
+            if kind != "predict":
+                continue
+            x = np.zeros(y.shape[0], np.int32)
+            x[:len(toks)] = toks
+            want = eng0.predict_at(x, 1)
+            if y.shape != want.shape or not np.isfinite(y).all():
+                raise AssertionError(f"fleet predict: {y.shape} against "
+                                     f"{want.shape}")
+            errs.append(_max_rel(y, want))
+            bitwise += bool(np.array_equal(y, want))
+        ties = []
+        for label, eng, streams in (("fp32_kv", eng0, [
+                y for (k, _), y in zip(reqs, out) if k == "generate"]),
+                                    ("int8_kv", eng0_i8, i8_out)):
+            for p, got in zip(prompts, streams):
+                ref = eng.generate(p, max_new_tokens=FLEET_NEW).result(600)
+                tie = _stream_tie(model, p, ref, got)
+                if tie is not None:
+                    if tie["gap"] > TIE_MARGIN:
+                        raise AssertionError(f"fleet {label} stream parts "
+                                             f"from replica 0's: {tie}")
+                    ties.append({"kv": label, **tie})
+        if max(errs) > FLEET_TOL:
+            raise AssertionError(f"fleet predict off replica 0's "
+                                 f"predict_at by {max(errs)}")
+        served = {rid: {k: d[k] for k in ("served", "failed", "breaker")}
+                  for rid, d in fleet.replica_states().items()}
+        emit({"phase": "fleet_serving", "requests": len(reqs),
+              "predict_max_rel_err": max(errs),
+              "predict_bitwise": f"{bitwise}/{len(errs)}",
+              "tolerance": FLEET_TOL, "stream_ties": ties,
+              "tie_margin": TIE_MARGIN, "replicas": served,
+              "smoke_burst": _traffic_row(reqs, lat, wall),
+              "int8_kv_generations": {"requests": len(prompts),
+                                      "wall_s": i8_wall},
+              "launches": {"replica0": parent_launches,
+                           **{f"worker{rid}": r["launches"]
+                              for rid, r in worker_reports.items()}},
+              "counters": fleet.counters(), "card": card})
+        # served rates: the fleet and replica 0's engine alone in turns
+        # over the same windows, results dropped
+        t0 = time.perf_counter()
+        rates = _rate_windows({
+            "fleet": (lambda t: fleet.predict(t, timeout=120.0),
+                      lambda t: fleet.generate(t, max_new_tokens=FLEET_NEW,
+                                               timeout=120.0)),
+            "engine_alone": (lambda t: eng0.predict(t, timeout=120.0),
+                             lambda t: eng0.generate(
+                                 t, max_new_tokens=FLEET_NEW).result(120.0))},
+            [_fleet_requests(50 + 3 * w, *FLEET_RATE_WINDOW)
+             for w in range(FLEET_RATE_WINDOWS)])
+        emit({"phase": "fleet_rates", **rates,
+              "seconds": time.perf_counter() - t0, "card": card})
+
+        # ---- (b) chaos: worker 1 SIGKILLed mid-traffic -----------------
+        sup = FleetSupervisor(fleet, max_restarts=2, backoff_base_s=0.2,
+                              backoff_max_s=2.0, jitter=0.0).start()
+        chaos_feats = _lm_requests(45, tuple(
+            FLEET_PREDICT_LENGTHS[j % len(FLEET_PREDICT_LENGTHS)]
+            for j in range(FLEET_CHAOS_PREDICTS)))
+        done = {"n": 0}
+        lock = threading.Lock()
+        killed = {}
+        victim = fleet._by_id(1)
+
+        def predict_and_maybe_kill(t):
+            y = fleet.predict(t, timeout=240.0)
+            with lock:
+                done["n"] += 1
+                if done["n"] == FLEET_KILL_AT:
+                    killed["pid"] = victim.proc.pid
+                    killed["t"] = time.perf_counter()
+                    os.kill(victim.proc.pid, 9)
+            return y
+
+        try:
+            _, c_lat, c_wall, c_failures = _fleet_traffic(
+                predict_and_maybe_kill, None,
+                [("predict", f) for f in chaos_feats])
+            deadline = time.perf_counter() + FLEET_REJOIN_TIMEOUT_S
+            while not (victim.state == "serving" and victim.alive()
+                       and victim.proc.pid != killed.get("pid")):
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"worker 1 did not rejoin: "
+                                         f"{victim.describe()}")
+                time.sleep(0.1)
+            rejoin_s = time.perf_counter() - killed["t"]
+        finally:
+            sup.close()
+        rejoined = victim.probe(features=probe, bucket=FLEET_MAX_BATCH)
+        digest0 = probe_digest(eng0, probe, FLEET_MAX_BATCH)
+        chaos_row = {"phase": "fleet_chaos", "killed_pid": killed["pid"],
+                     "killed_after_requests": FLEET_KILL_AT,
+                     "requests": len(chaos_feats), "failed": c_failures,
+                     "restarts": sup.events, "rejoin_s": rejoin_s,
+                     "rejoined_pid": victim.proc.pid,
+                     "rejoined_digest": rejoined, "replica0_digest": digest0,
+                     "window": _traffic_row(
+                         [("predict", f) for f in chaos_feats], c_lat,
+                         c_wall),
+                     "counters": fleet.counters(), "card": card}
+        emit(chaos_row)
+        if c_failures or len(sup.events) != 1 or rejoined != digest0:
+            raise AssertionError(f"fleet chaos: {chaos_row}")
+
+        # ---- (c) rollouts over the int8 weight wire ---------------------
+        rec = _Recorder()
+        registry = ModelRegistry(str(registry_path))
+        ckpt = root / "ckpt"
+        ctl = RolloutController(
+            fleet, registry, str(ckpt), telemetry=rec, shadow_fraction=1.0,
+            shadow_min_rows=8, min_top1_agreement=None,
+            max_logit_rmse=100.0, canary_fraction=0.5, canary_min_ticks=2,
+            stage_timeout_s=300.0, drain_timeout_s=60.0)
+        ctl.baseline()
+        commit_s = []
+        real_commit = fleet.commit_replica
+
+        def timed_commit(rid, handle, version=None, digest=None):
+            t0 = time.perf_counter()
+            real_commit(rid, handle, version=version, digest=digest)
+            commit_s.append({"replica": rid, "version": version,
+                             "seconds": time.perf_counter() - t0})
+
+        fleet.commit_replica = timed_commit
+
+        def snapshot(seed, tag):
+            cand = transformer_lm("small", vocab_size=SERVE_VOCAB,
+                                  device="cpu", seed=seed)
+            ckpt.mkdir(exist_ok=True)
+            target = str(ckpt / f"checkpoint.{tag}.pkl")
+            file_io.atomic_save({"model_params": to_jax_params(cand),
+                                 "model_state": None}, target)
+            file_io.write_snapshot_manifest(target)
+            return target
+
+        def rollout():
+            stop = threading.Event()
+            errors = []
+
+            def traffic():
+                i = 0
+                while not stop.is_set():
+                    try:
+                        fleet.predict(probe[i % len(probe)], timeout=240.0)
+                    except Exception as e:
+                        errors.append(f"{type(e).__name__}: {e}")
+                    i += 1
+
+            ts = [threading.Thread(target=traffic) for _ in range(2)]
+            for t in ts:
+                t.start()
+            try:
+                t0 = time.perf_counter()
+                v = ctl.poll_once()
+                return v, time.perf_counter() - t0, errors
+            finally:
+                stop.set()
+                for t in ts:
+                    t.join(300)
+
+        path1 = snapshot(1, 1)
+        p1, _ = eng0._load_snapshot_weights(
+            ServingEngine._resolve_snapshot(path1))
+        wire = {"fp32_bytes": tree_wire_bytes(p1),
+                "int8_bytes": tree_wire_bytes(quantize_tree_for_wire(p1))}
+        v2, roll_s, r_errors = rollout()
+        stage_wire = fleet.wire_stats().get("stage_tree", {})
+        digests = {0: probe_digest(eng0, probe, FLEET_MAX_BATCH)}
+        for rep in reps[1:]:
+            digests[rep.rid] = rep.probe(features=probe,
+                                         bucket=FLEET_MAX_BATCH)
+        # a fresh engine on the candidate as the int8 wire delivers it
+        fresh_model = transformer_lm("small", vocab_size=SERVE_VOCAB,
+                                     device="cuda", seed=1)
+        fresh = _fleet_engine(fresh_model, "fp32")
+        fresh.refresh_params(dequantize_wire_tree(
+            quantize_tree_for_wire(p1)))
+        cand_err = 0.0
+        for row in probe:
+            want = fresh.predict_at(row, 1)
+            got = [eng0.predict_at(row, 1)] + [
+                rep._call("predict", feature=row, timeout=120.0)
+                for rep in reps[1:]]
+            cand_err = max([cand_err] + [_max_rel(g, want) for g in got])
+        fresh.close()
+        del fresh, fresh_model
+        deploys1 = [(e["version"], e["stage"], e["verdict"],
+                     e.get("replica")) for e in ctl.events]
+        # then a candidate whose gate fails on worker 1
+        ctl.replica_gate = lambda rid, flt, h: (
+            (False, "injected failing gate") if rid == 1
+            else flt.gate_replica(rid, h))
+        snapshot(2, 2)
+        v3, roll3_s, r3_errors = rollout()
+        after = {0: probe_digest(eng0, probe, FLEET_MAX_BATCH)}
+        for rep in reps[1:]:
+            after[rep.rid] = rep.probe(features=probe,
+                                       bucket=FLEET_MAX_BATCH)
+        deploys2 = [(e["version"], e["stage"], e["verdict"],
+                     e.get("replica")) for e in ctl.events][len(deploys1):]
+        rb = [e for e in ctl.events if e["stage"] == "rollback"]
+        roll_row = {"phase": "fleet_rollouts", "wire": wire,
+                    "stage_tree_wire": {k: stage_wire.get(k) for k in (
+                        "calls", "bytes_sent", "rtt_s")},
+                    "commit_s": commit_s, "rollout_s": roll_s,
+                    "failgate_rollout_s": roll3_s,
+                    "promoted": [v2.version, v2.stage],
+                    "failgate": [v3.version, v3.stage],
+                    "digests_after_promotion": digests,
+                    "digests_after_failgate": after,
+                    "candidate_max_rel_err": cand_err,
+                    "tolerance": FLEET_TOL, "deploys": deploys1 + deploys2,
+                    "rolled_back_replicas": rb[0]["replicas"] if rb else None,
+                    "traffic_failures": r_errors + r3_errors,
+                    "registry_live": registry.live.version, "card": card}
+        emit(roll_row)
+        if not (v2.stage == "live" and len(set(digests.values())) == 1
+                and cand_err <= FLEET_TOL and v3.stage == "rejected"
+                and after == digests and registry.live.version == v2.version
+                and rb and rb[0]["replicas"] == [0]
+                and ("cutover", "rejected", 1) in [
+                    (s, vd, r) for _, s, vd, r in deploys2]
+                and not any(r == 2 for _, s, _, r in deploys2
+                            if s == "cutover")
+                and not r_errors and not r3_errors):
+            raise AssertionError(f"fleet rollouts: {roll_row}")
+
+        # ---- (d) each process's card memory -----------------------------
+        memory = {"replica0": _process_memory(),
+                  **{f"worker{rep.rid}": _smoke(rep)["memory"]
+                     for rep in reps[1:]}}
+        emit({"phase": "fleet_memory", "processes": memory,
+              "seconds": time.perf_counter() - t_phase, "card": card})
+        return {"fleet": launches}
+    finally:
+        if fleet is not None:
+            fleet.close()
+        for e in engines:
+            e.close()
+        workers.close()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--fleet-worker":
+        # one worker process of phase 16's fleet (started by _FleetWorkers)
+        return fleet_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if len(sys.argv) > 1 and sys.argv[1] == "--distri-rank":
         # one rank of phase 15's gloo world (started by _spawn_world2)
         return distri_child(int(sys.argv[2]), int(sys.argv[3]),
@@ -6087,6 +6742,7 @@ def main():
     rows.update(int8_rows)
     phase14 = engine_phase(card)
     phase15 = distri_phase(fa, ce, card)
+    phase16 = fleet_phase(fa, card)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -6140,7 +6796,7 @@ def main():
     paths = (("serving", serving), ("training", training),
              ("training_bf16", training_bf16), ("int8_serving", int8_serving),
              *phase10.items(), *phase11.items(), *phase13.items(),
-             *phase14.items(), *phase15.items())
+             *phase14.items(), *phase15.items(), *phase16.items())
     if len(dict(paths)) != len(paths):
         raise AssertionError(f"two paths share a name: "
                              f"{[p for p, _ in paths]}")
