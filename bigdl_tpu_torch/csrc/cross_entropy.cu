@@ -9,6 +9,16 @@
 //    dx = (exp(x - lse) - onehot(y)) * g[row], written in the logits'
 //    dtype.
 //
+// The vocabulary-parallel form (a tensor-parallel LM head: each rank
+// holds the logits of V / P classes) runs the same two kernels on the
+// shard.  Its labels are shifted by the shard's first class, and a label
+// outside the shard is the sentinel -1: K4 reads x[row, label] only for a
+// label inside [0, V) and writes the picked logit (0 for the sentinel)
+// through bigdl_ce_fwd_shard, so three (N,) all-reductions over the ranks
+// (max and sum-exp of the local lse, sum of the picked logit) give the
+// global loss and lse; K5 then runs with the global lse, and its one-hot
+// never matches the sentinel.
+//
 // Bound: bytes.  K4 reads each logit once and writes two floats a row
 // (N*V*elt bytes); K5 reads each logit once and writes each gradient once
 // (2*N*V*elt bytes).  One exp per element is far below the card's FLOP
@@ -112,8 +122,8 @@ __device__ __forceinline__ void merge(float& m, float& s, float m2, float s2) {
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kCeThreads)
 ce_fwd_kernel(const T* __restrict__ x, const int* __restrict__ y,
-              float* __restrict__ loss, float* __restrict__ lse, int v,
-              int64_t row_stride) {
+              float* __restrict__ loss, float* __restrict__ lse,
+              float* __restrict__ picked, int v, int64_t row_stride) {
   __shared__ float red_m[kCeWarps], red_s[kCeWarps];
   const int row = blockIdx.x;
   const T* xr = x + row * row_stride;
@@ -149,6 +159,7 @@ ce_fwd_kernel(const T* __restrict__ x, const int* __restrict__ y,
     const float xy = (label >= 0 && label < v) ? to_f32(xr[label]) : 0.f;
     loss[row] = l - xy;
     lse[row] = l;
+    if (picked != nullptr) picked[row] = xy;
   }
 }
 
@@ -194,14 +205,16 @@ bool rows_aligned(const void* p, int64_t stride) {
 }
 
 template <typename T>
-int launch_fwd(const void* x, const int* y, float* loss, float* lse, int n,
-               int v, int64_t stride, cudaStream_t st) {
+int launch_fwd(const void* x, const int* y, float* loss, float* lse,
+               float* picked, int n, int v, int64_t stride, cudaStream_t st) {
   constexpr int W = vec_width<T>();
   const T* x_ = static_cast<const T*>(x);
   if (rows_aligned<T>(x, stride))
-    ce_fwd_kernel<T, W><<<n, kCeThreads, 0, st>>>(x_, y, loss, lse, v, stride);
+    ce_fwd_kernel<T, W>
+        <<<n, kCeThreads, 0, st>>>(x_, y, loss, lse, picked, v, stride);
   else
-    ce_fwd_kernel<T, 1><<<n, kCeThreads, 0, st>>>(x_, y, loss, lse, v, stride);
+    ce_fwd_kernel<T, 1>
+        <<<n, kCeThreads, 0, st>>>(x_, y, loss, lse, picked, v, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,9 +244,26 @@ extern "C" {
 int bigdl_ce_fwd(const void* x, const int* y, float* loss, float* lse,
                  int dtype, int n, int v, int64_t stride, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float>(x, y, loss, lse, n, v, stride, st);
+  if (dtype == 0)
+    return launch_fwd<float>(x, y, loss, lse, nullptr, n, v, stride, st);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(x, y, loss, lse, n, v, stride, st);
+    return launch_fwd<__nv_bfloat16>(x, y, loss, lse, nullptr, n, v, stride,
+                                     st);
+  return -1;
+}
+
+// The vocabulary shard's pass: as bigdl_ce_fwd on (N, V_shard) logits whose
+// labels are shard-local (-1: not in this shard), also writing the picked
+// logit x[row, y[row]] (0 for a label outside [0, V_shard)) into picked.
+int bigdl_ce_fwd_shard(const void* x, const int* y, float* loss, float* lse,
+                       float* picked, int dtype, int n, int v, int64_t stride,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_fwd<float>(x, y, loss, lse, picked, n, v, stride, st);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16>(x, y, loss, lse, picked, n, v, stride,
+                                     st);
   return -1;
 }
 

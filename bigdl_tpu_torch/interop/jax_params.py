@@ -16,6 +16,13 @@ crosses through ``stack_block_params`` / ``unstack_block_params`` (a
 Keys and shapes are checked leaf by leaf
 (``Module.load_parameters_tree``).
 
+``nn.moe.MoETransformerLM`` crosses both ways in the same keys
+(``block{i}`` holding ``ln1``, ``attn``, ``ln2`` and ``moe`` with the
+router ``gate (D, E)`` and the expert-stacked ``w1``, ``b1``, ``w2``,
+``b2``).  The model-parallel strategies take these logical trees and
+shard them themselves (``parallel/tp.py`` ``shard_params``,
+``parallel/ep.py`` ``ep_shard_params``).
+
 Model state (BatchNorm's running statistics, JAX's ``model.state()``)
 crosses with ``load_jax_state`` / ``to_jax_state``.  A JAX container
 keys every child, one without parameters (or state) by ``()``: the trees

@@ -35,8 +35,11 @@ optimizer and refuses it.
 
 Refused, each naming its ROADMAP item: ``--folder`` (dataset sources,
 A9), ``--model`` (the serializer, A9), ``--distributed`` for
-``lenet-test`` (A4), and for ``transformer-train`` ``--sp``/``--pp``
-above 1 (A7).
+``lenet-test`` (A4), and for ``transformer-train`` ``--pp`` above 1
+(A7).  ``transformer-train --sp N`` trains sequence-parallel
+(``StrategyOptimizer``, ring attention) on a ``(world // N, N)``
+``("data", "seq")`` mesh over the world ``utils.engine.Engine`` joins,
+with JAX's shape checks and messages, Adam and full batches only.
 ``--compilationCache`` names JAX's XLA cache: the port has no
 counterpart (its CUDA graphs are captured per run) and ignores it.
 
@@ -119,7 +122,7 @@ def _to_dataset(x, y, batch):
 
 
 def _build_optimizer(args, model, train_ds, val_ds, criterion, method,
-                     val_methods):
+                     val_methods, strategy_kw=None):
     """``Optimizer`` with the JAX recipe's prefetch workers, route
     (``--distributed``: ``DistriOptimizer`` over the process group of
     ``utils.engine.Engine``, a world of one when none is initialized),
@@ -131,7 +134,8 @@ def _build_optimizer(args, model, train_ds, val_ds, criterion, method,
         train_ds = train_ds.prefetch(num_workers=args.num_workers,
                                      queue_depth=args.queue_depth)
     opt = Optimizer(model, train_ds, criterion, method,
-                    distributed=args.distributed, device=args.device)
+                    distributed=args.distributed, device=args.device,
+                    **(strategy_kw or {}))
     opt.set_end_when(Trigger.max_epoch(args.max_epoch)
                      if args.max_iteration is None
                      else Trigger.max_iteration(args.max_iteration))
@@ -293,23 +297,67 @@ def _validate_remat_policy(args):
 
 
 def cmd_transformer_train(args):
-    """TransformerLM on a synthetic next-token corpus, one device."""
+    """TransformerLM on a synthetic next-token corpus, one device, or
+    sequence-parallel over a ``("data", "seq")`` mesh (``--sp N``)."""
     from bigdl_tpu_torch import nn, optim
     from bigdl_tpu_torch.models.transformer import (synthetic_corpus,
                                                     transformer_lm)
 
     remat_policy = _validate_remat_policy(args)
-    if args.sp > 1 or args.pp > 1:
-        raise NotImplementedError(
-            "--sp/--pp: the sequence- and pipeline-parallel engines are not "
-            "ported yet (ROADMAP A7)")
+    vocab, seq = args.vocab, args.seq_len
+    x, y = synthetic_corpus(args.synth_n, seq, vocab)
     scan = {"auto": None, "on": True, "off": False}[args.scan_layers]
-    x, y = synthetic_corpus(args.synth_n, args.seq_len, args.vocab)
-    model = transformer_lm(args.size, args.vocab, max_len=args.seq_len,
-                           device=args.device, scan_layers=scan,
-                           remat_policy=remat_policy)
     crit = nn.TimeDistributedCriterion(
         nn.FusedSoftmaxCrossEntropyCriterion())
+    if args.sp > 1 and args.pp > 1:
+        raise ValueError("pick ONE of --sp / --pp (compose them in code "
+                         "via parallel.pp_tp_shardings on a 3-D mesh)")
+    if args.sp > 1 or args.pp > 1:
+        if scan is True:
+            raise ValueError(
+                "--scanLayers on is incompatible with --sp/--pp: the "
+                "model-parallel engines address per-block params "
+                "(pp re-stacks blocks by STAGE); train scan-compiled "
+                "models single-device or data-parallel")
+        if args.pp > 1:
+            raise NotImplementedError(
+                "--pp: the pipeline-parallel engines are not ported yet "
+                "(ROADMAP A7)")
+        from bigdl_tpu_torch.utils.engine import Engine
+
+        Engine.init(device=args.device)
+        deg = args.sp
+        n_dev = Engine.device_count()
+        data_deg = n_dev // deg
+        problems = []
+        if n_dev % deg:
+            problems.append(f"device count {n_dev} % degree {deg} != 0")
+        if seq % args.sp:
+            problems.append(f"--seq-len {seq} % sp {args.sp} != 0")
+        if data_deg and args.batch % data_deg:
+            problems.append(f"--batchSize {args.batch} % data-parallel "
+                            f"degree {data_deg} != 0")
+        if problems:
+            raise ValueError("model-parallel shape requirements: "
+                             + "; ".join(problems))
+        mesh = Engine.build_mesh((data_deg, deg), ("data", "seq"))
+        model = transformer_lm(args.size, vocab, max_len=seq,
+                               device=args.device, seq_axis_name="seq",
+                               scan_layers=False, remat_policy=remat_policy)
+        # full batches only: every rank's block has the same shape
+        n_full = (len(x) // args.batch) * args.batch
+        if n_full == 0:
+            raise ValueError(f"--synthN {len(x)} < --batchSize {args.batch}")
+        x, y = x[:n_full], y[:n_full]
+        opt = _build_optimizer(args, model, _to_dataset(x, y, args.batch),
+                               None, crit, optim.Adam(learning_rate=args.lr),
+                               [], strategy_kw={"strategy": "sp",
+                                                "mesh": mesh})
+        opt.optimize()
+        return opt
+    model = transformer_lm(args.size, vocab, max_len=seq,
+                           device=args.device, scan_layers=scan,
+                           remat_policy=remat_policy)
     opt = _build_optimizer(args, model, _to_dataset(x, y, args.batch), None,
                            crit, optim.Adam(learning_rate=args.lr), [])
     opt.optimize()

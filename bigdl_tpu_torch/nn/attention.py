@@ -13,6 +13,21 @@ fp32.  Three attention modes share one ``MultiHeadAttention``:
   fp32 scale per (position, head) vector) quantizes every K/V write and
   decodes through K3q, which dequantizes inside the kernel.
 
+Model parallelism (``optim.StrategyOptimizer``):
+
+- ``seq_axis_name`` (with ``seq_mode="ring"`` or ``"ulysses"``) makes
+  the full-sequence path attend over a sequence sharded on that mesh
+  axis (``parallel/ring_attention.py``, ``parallel/ulysses.py``; the
+  axis is looked up in the bound mesh, ``parallel/mesh.py``), and
+  ``TransformerLM`` adds the global position offset ``axis_index * T``
+  into ``wpe``; such a model takes no cached or paged path, as in JAX;
+- ``tp`` (a ``Collectives`` over the ``"model"`` axis, set on a rank's
+  local copy by ``parallel/tp.py``) runs the Megatron layout: each rank
+  holds ``num_heads / P`` whole heads of q, k and v and the matching
+  rows of ``fc1`` and columns of ``out`` and ``fc2``, with ``CopyToAxis``
+  on each parallel region's input and one ``ReduceFromAxis`` a
+  sub-layer, and the head's vocabulary shard.
+
 ``use_flash="auto"`` takes the kernel wrappers of ``ops/flash_attention``
 for every shape (they launch the CUDA kernel for CUDA tensors and run
 their plain version for CPU tensors); ``"never"`` takes the plain path
@@ -43,6 +58,7 @@ from bigdl_tpu_torch.nn.quantized import int8_matmul
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.ops.quantization import (dequantize_blockwise,
                                               quantize_blockwise)
+from bigdl_tpu_torch.parallel.collectives import CopyToAxis, ReduceFromAxis
 from bigdl_tpu_torch.utils.device import resolve_device
 
 
@@ -66,10 +82,18 @@ class MultiHeadAttention(Module):
     hash of the step's key, ``dropout_salt`` -- the layer index in a
     ``TransformerLM`` -- and the element index); eval is the identity."""
 
+    #: the ``"model"`` axis's collectives on a tensor-parallel rank's
+    #: copy (``parallel/tp.py``), else None
+    tp = None
+
     def __init__(self, hidden_size: int, num_heads: int, causal: bool = False,
                  use_flash: str = "auto", generator=None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, seq_axis_name=None,
+                 seq_mode: str = "ring"):
         super().__init__()
+        if seq_mode not in ("ring", "ulysses"):
+            raise ValueError(f"seq_mode must be 'ring' or 'ulysses', got "
+                             f"{seq_mode!r}")
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of num_heads {num_heads}")
@@ -83,6 +107,10 @@ class MultiHeadAttention(Module):
         self.use_flash = use_flash
         self.dropout = float(dropout)
         self.dropout_salt = 0
+        #: sequence sharded over this mesh axis; ``seq_mode`` picks the
+        #: communication pattern
+        self.seq_axis_name = seq_axis_name
+        self.seq_mode = seq_mode
         d = hidden_size
         init = Xavier()
         self.qkv_weight = torch.nn.Parameter(
@@ -110,20 +138,48 @@ class MultiHeadAttention(Module):
             qkv = F.linear(x, self.qkv_weight.to(dt), self.qkv_bias.to(dt))
         shape = (self.num_heads, self.head_dim)
         return [t.unflatten(-1, shape)
-                for t in qkv.split(self.hidden_size, dim=-1)]
+                for t in qkv.split(self.num_heads * self.head_dim, dim=-1)]
 
     def _project_out(self, y):
         n, t = y.shape[:2]
         dt = y.dtype
-        y = y.reshape(n, t, self.hidden_size)
+        y = y.reshape(n, t, self.num_heads * self.head_dim)
         if "out_weight_q" in self._parameters:
             return (int8_matmul(y, self.out_weight_q, self.out_scale)
                     + self.out_bias).to(dt)
+        if self.tp is not None:
+            # row parallel: this rank's heads' share, summed over "model"
+            y = ReduceFromAxis.apply(F.linear(y, self.out_weight.to(dt)),
+                                     self.tp)
+            return y + self.out_bias.to(dt)
         return F.linear(y, self.out_weight.to(dt), self.out_bias.to(dt))
 
+    def _check_unsharded(self):
+        if self.seq_axis_name is not None:
+            raise ValueError("cached decode runs on a replicated model; "
+                             "sequence-parallel serving is not a thing "
+                             "(shard the BATCH axis instead)")
+
     def forward(self, x):
+        if self.tp is not None:
+            x = CopyToAxis.apply(x, self.tp)
         q, k, v = self._project_qkv(x)
-        if self._flash:
+        if self.seq_axis_name is not None:
+            from bigdl_tpu_torch.parallel.mesh import axis_collectives
+
+            coll = axis_collectives(self.seq_axis_name)
+            if self.seq_mode == "ulysses":
+                from bigdl_tpu_torch.parallel.ulysses import \
+                    ulysses_self_attention
+
+                y = ulysses_self_attention(q, k, v, coll, causal=self.causal,
+                                           use_flash=self._flash)
+            else:
+                from bigdl_tpu_torch.parallel.ring_attention import \
+                    ring_self_attention
+
+                y = ring_self_attention(q, k, v, coll, causal=self.causal)
+        elif self._flash:
             y = fa.flash_attention(q, k, v, causal=self.causal)
         else:
             y = dot_product_attention(q, k, v, causal=self.causal)
@@ -146,6 +202,7 @@ class MultiHeadAttention(Module):
         ``pos[i]`` (clamped into the cache like ``dynamic_update_slice``),
         attention masked at ``kpos <= pos[i]``.  Writes ``cache`` in
         place and returns ``(y, cache)``."""
+        self._check_unsharded()
         n, t, _d = x.shape
         q, k, v = self._project_qkv(x)
         max_len = cache["k"].shape[1]
@@ -235,6 +292,7 @@ class MultiHeadAttention(Module):
         On an int8 pool every written K/V vector is quantized first and
         its payload and scale land at the same (block, offset), so the
         tables, block copies and prefix sharing do not see the format."""
+        self._check_unsharded()
         n, t, _d = x.shape
         dev = x.device
         bs = pool["k"].shape[1]
@@ -314,14 +372,20 @@ class MultiHeadAttention(Module):
 
 class TransformerBlock(Container):
     """Pre-LN block: x + MHA(LN(x)); x + MLP(LN(x)).  ``jax.nn.gelu``
-    defaults to the tanh approximation, and so does this block."""
+    defaults to the tanh approximation, and so does this block.  On a
+    tensor-parallel rank (``tp`` set) ``fc1`` is column-parallel and
+    ``fc2`` row-parallel, its bias added once after the reduction."""
+
+    tp = None
 
     def __init__(self, hidden_size, num_heads, mlp_ratio=4, causal=True,
-                 use_flash="auto", generator=None, dropout=0.0):
+                 use_flash="auto", generator=None, dropout=0.0,
+                 seq_axis_name=None, seq_mode="ring"):
         super().__init__()
         self.ln1 = LayerNorm(hidden_size)
         self.attn = MultiHeadAttention(hidden_size, num_heads, causal,
-                                       use_flash, generator, dropout)
+                                       use_flash, generator, dropout,
+                                       seq_axis_name, seq_mode)
         self.ln2 = LayerNorm(hidden_size)
         self.fc1 = Linear(hidden_size, mlp_ratio * hidden_size,
                           generator=generator)
@@ -329,8 +393,14 @@ class TransformerBlock(Container):
                           generator=generator)
 
     def _mlp(self, x):
-        h = F.gelu(self.fc1(self.ln2(x)), approximate="tanh")
-        return x + self.fc2(h)
+        h = self.ln2(x)
+        if self.tp is None:
+            return x + self.fc2(F.gelu(self.fc1(h), approximate="tanh"))
+        h = F.gelu(self.fc1(CopyToAxis.apply(h, self.tp)),
+                   approximate="tanh")
+        y = ReduceFromAxis.apply(F.linear(h, self.fc2.weight.to(h.dtype)),
+                                 self.tp)
+        return x + y + self.fc2.bias.to(y.dtype)
 
     def forward(self, x):
         return self._mlp(x + self.attn(self.ln1(x)))
@@ -371,11 +441,19 @@ class TransformerLM(Container):
     ``{"blocks": ...}`` with a leading layer axis, whose layer views are
     contiguous.  Weights are drawn on the CPU from
     ``torch.Generator().manual_seed(seed)`` and then moved to ``device``
-    (``None`` means the CUDA card)."""
+    (``None`` means the CUDA card).  ``seq_axis_name`` / ``seq_mode``:
+    the sequence-parallel hooks (module docstring)."""
+
+    #: on a tensor-parallel rank's copy (``parallel/tp.py``): the
+    #: ``"model"`` collectives, and the first class of this rank's
+    #: vocabulary shard of ``head``
+    tp = None
+    vocab_offset = 0
 
     def __init__(self, vocab_size, hidden_size, num_heads, num_layers,
                  max_len=2048, mlp_ratio=4, use_flash="auto", device=None,
-                 seed=0, scan_layers=False, remat_policy=None):
+                 seed=0, scan_layers=False, remat_policy=None,
+                 seq_axis_name=None, seq_mode="ring"):
         super().__init__()
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
@@ -384,12 +462,15 @@ class TransformerLM(Container):
         self.max_len = max_len
         self.scan_layers = bool(scan_layers)
         self.remat_policy = resolve_checkpoint_policy(remat_policy)
+        self.seq_axis_name = seq_axis_name
         d = hidden_size
         self.wte = torch.nn.Parameter(normal(gen, (vocab_size, d), 0.02))
         self.wpe = torch.nn.Parameter(normal(gen, (max_len, d), 0.01))
         self.head = torch.nn.Parameter(normal(gen, (vocab_size, d), 0.02))
         blocks = [TransformerBlock(hidden_size, num_heads, mlp_ratio,
-                                   use_flash=use_flash, generator=gen)
+                                   use_flash=use_flash, generator=gen,
+                                   seq_axis_name=seq_axis_name,
+                                   seq_mode=seq_mode)
                   for _ in range(num_layers)]
         if self.scan_layers:
             # model.blocks is the ScanLayers: blocks[i] is layer i
@@ -413,7 +494,22 @@ class TransformerLM(Container):
         return self.wte.device
 
     def _logits(self, x):
-        return F.linear(self.ln_f(x), self.head.to(x.dtype))
+        h = self.ln_f(x)
+        if self.tp is not None:
+            # vocabulary-sharded head: this rank's (..., V / P) logits
+            h = CopyToAxis.apply(h, self.tp)
+        return F.linear(h, self.head.to(x.dtype))
+
+    def _positions(self, t):
+        """``wpe`` rows of a ``t``-token block: ``[0, t)``, or, with a
+        sequence axis, the rank's global positions ``axis_index * t +
+        [0, t)``."""
+        if self.seq_axis_name is None:
+            return self.wpe[:t]
+        from bigdl_tpu_torch.parallel.mesh import axis_index
+
+        offset = axis_index(self.seq_axis_name) * t
+        return self.wpe[offset:offset + t]
 
     def _layers(self, tree):
         """``(block, its part of tree)`` per layer: the blocks, or the
@@ -440,7 +536,7 @@ class TransformerLM(Container):
         if cache is not None:
             return self._apply_cached(input, cache, pos)
         t = input.shape[1]
-        x = self.wte[input.long()] + self.wpe[:t][None]
+        x = self.wte[input.long()] + self._positions(t)[None]
         if self.scan is not None:
             x = self.scan(x)
         else:

@@ -131,6 +131,7 @@ def _declare(libs):
         "bigdl_flash_attention_bwd": [p, p, p, p, p, p, p, p, p, p, i, i, i,
                                       i, i, p, i, f, p],
         "bigdl_ce_fwd": [p, p, p, p, i, i, i, i64, p],
+        "bigdl_ce_fwd_shard": [p, p, p, p, p, i, i, i, i64, p],
         "bigdl_ce_bwd": [p, p, p, p, p, i, i, i, i64, i64, p],
         "bigdl_int8_conv": [p, p, p, p, p, p] + [i] * 17 + [p],
         "bigdl_int8_conv_wgmma": [p, p, i, i, p, p, p, p] + [i] * 17 + [p],

@@ -26,6 +26,7 @@ from bigdl_tpu_torch.optim.regularizer import (L1L2Regularizer,
                                                L1Regularizer, L2Regularizer,
                                                Regularizer, has_regularizers,
                                                regularization_loss)
+from bigdl_tpu_torch.optim.strategy_optimizer import StrategyOptimizer
 from bigdl_tpu_torch.optim.train_step import make_eval_step, make_train_step
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import (MAE, NDCG, AccuracyDeltaGate,
@@ -48,7 +49,8 @@ __all__ = ["MAE", "NDCG", "AccuracyDeltaGate", "Adadelta", "Adagrad",
            "ParallelOptimizer",
            "Plateau", "Poly", "PredictionService", "Predictor", "RMSprop",
            "Regularizer", "RunSupervisor", "SGD",
-           "SequentialSchedule", "Step", "Top1Accuracy", "Top5Accuracy",
+           "SequentialSchedule", "Step", "StrategyOptimizer", "Top1Accuracy",
+           "Top5Accuracy",
            "TreeNNAccuracy", "Trigger", "ValidationMethod",
            "ValidationResult", "Warmup", "build_composite_method",
            "clip_by_global_norm", "clip_by_value", "compiled_eval_step",

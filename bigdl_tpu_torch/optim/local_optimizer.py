@@ -53,7 +53,8 @@ loop.
 
 Not ported yet (each raises or is absent): sharded (orbax) checkpoints
 (refused, as JAX's ``LocalOptimizer`` refuses them), telemetry and
-health monitoring (ROADMAP A8) and ``strategy=`` (ROADMAP A7).
+health monitoring (ROADMAP A8); ``strategy=`` routes to
+``optim/strategy_optimizer.py`` (tp, sp, ep; pp is ROADMAP A7).
 """
 
 import gc
@@ -825,23 +826,33 @@ def validate(model, dataset, methods, compute_dtype=None):
 class Optimizer:
     """Factory: ``Optimizer(model, dataset, criterion, optim_method,
     device=None)`` is a ``LocalOptimizer`` on the card (``device=None``)
-    or on the device asked for; with ``distributed=True`` a
-    ``DistriOptimizer`` over the process group (``utils.engine.Engine``;
-    a world of one when none is initialized).  The model-parallel routes
-    are not ported yet."""
+    or on the device asked for; with ``distributed=True`` (or
+    ``strategy="dp"``, its options forwarded) a ``DistriOptimizer`` over
+    the process group (``utils.engine.Engine``; a world of one when none
+    is initialized); with ``strategy="tp"``, ``"sp"`` or ``"ep"`` a
+    ``StrategyOptimizer`` over ``mesh=`` (``Engine.build_mesh``), its
+    options (``data_axis``, ``seq_axis``, ``rules``, ``aux_weight``)
+    forwarded.  ``strategy="pp"`` is not ported yet (ROADMAP A7)."""
 
     def __new__(cls, model=None, dataset=None, criterion=None,
                 optim_method=None, distributed=None, strategy=None,
                 device=None, **strategy_kw):
-        if distributed:
+        if strategy is not None and strategy != "dp":
+            from bigdl_tpu_torch.optim.strategy_optimizer import \
+                StrategyOptimizer
+
+            return StrategyOptimizer(model, dataset, criterion,
+                                     optim_method, strategy=strategy,
+                                     device=device, **strategy_kw)
+        if distributed or strategy == "dp":
             from bigdl_tpu_torch.optim.distri_optimizer import \
                 DistriOptimizer
 
             return DistriOptimizer(model, dataset, criterion, optim_method,
-                                   device=device)
-        if strategy is not None or strategy_kw:
-            raise NotImplementedError(
-                f"strategy={strategy!r}: the model-parallel engines are not "
-                f"ported yet (ROADMAP A7)")
+                                   device=device, **strategy_kw)
+        if strategy_kw:
+            raise TypeError(
+                f"unexpected arguments {sorted(strategy_kw)}; pass "
+                "strategy= ('dp', 'tp', 'sp' or 'ep') to route them")
         return LocalOptimizer(model, dataset, criterion, optim_method,
                               device=device)

@@ -1,0 +1,501 @@
+"""Model-parallel training strategies behind the Optimizer facade
+(counterpart of ``bigdl_tpu/optim/strategy_optimizer.py``:
+``STRATEGIES`` :46, ``_STRATEGY_KW`` :50, ``_ClippingMethod`` :59,
+``StrategyOptimizer`` :89).
+
+``Optimizer(model, dataset, criterion, method, strategy="tp", mesh=mesh)``
+trains through the same setters as the local and data-parallel
+paths -- triggers, validation, ``Plateau``'s feed, summaries,
+checkpoints, resume and the retry loop -- over a named mesh
+(``Engine.build_mesh``, ``parallel/mesh.py``):
+
+- ``tp``: tensor parallelism over ``"model"`` (``parallel/tp.py``),
+  optionally with a ``"data"`` axis;
+- ``sp``: ring or Ulysses sequence parallelism over ``"seq"``
+  (``parallel/sequence.py``; the model's ``seq_mode`` picks the
+  pattern), optionally with ``"data"``;
+- ``ep``: expert parallelism for MoE models over ``"expert"``
+  (``parallel/ep.py``), optionally with ``"data"``.
+
+Every rank builds the same model and iterates the same seeded dataset;
+the driver loop stages this rank's block of each global batch (its
+``"data"`` rows; under sp also its ``"seq"`` columns).  The step runs
+through ``optim/graphs.py``'s ``CompiledTrainStep``: on NCCL one CUDA
+graph per batch shape, the collectives captured inside it, as
+``DistriOptimizer``'s step (warm-up steps launch them eagerly first);
+on gloo eagerly.
+
+Checkpoints are JAX's pickle: the logical parameter and optimizer
+trees in JAX's keys (each sharded leaf gathered first), ``()`` module
+state, and the manifest's ``layout`` block (``_layout_spec``, JAX's
+``LayoutSpec.to_manifest()``), so a checkpoint resumes in either
+package.  A resume under the same layout continues the run; one whose
+layout differs is refused until ``parallel/reshard``'s redistribution
+is ported (ROADMAP A7).  Validation runs on the gathered logical
+parameters in the model itself (tp, ep), or under the mesh with the
+blocks' logits gathered (sp); the model holds the logical parameters
+after ``optimize()``.
+
+Not ported: ``strategy="pp"`` and ``pp_het`` (ROADMAP A7), orbax
+sharded snapshots (A4), the health probe (A8).
+"""
+
+import logging
+
+import torch
+import torch.distributed as dist
+
+from bigdl_tpu_torch.optim.graphs import CompiledTrainStep
+from bigdl_tpu_torch.optim.local_optimizer import BaseOptimizer, validate
+from bigdl_tpu_torch.optim.optim_method import (CompositeOptimMethod, Fused,
+                                                clip_by_global_norm,
+                                                clip_by_value)
+from bigdl_tpu_torch.parallel.reshard import (LayoutSpec,
+                                              detect_block_layout,
+                                              detect_num_experts)
+from bigdl_tpu_torch.utils import file_io
+from bigdl_tpu_torch.utils.engine import Engine
+from bigdl_tpu_torch.utils.errors import UnsupportedFeatureError
+from bigdl_tpu_torch.utils.random_generator import RNG
+
+log = logging.getLogger("bigdl_tpu_torch.optim")
+
+STRATEGIES = ("tp", "pp", "sp", "ep")
+
+#: strategy -> keyword arguments its step factory understands; anything
+#: else is a configuration error, not a silent no-op
+_STRATEGY_KW = {
+    "tp": {"rules"},
+    "ep": {"rules", "aux_weight"},
+    "sp": {"seq_axis"},
+    "pp": {"pipe_axis", "n_microbatches", "tensor_parallel", "boundaries",
+           "schedule"},
+}
+
+#: the mesh axis each strategy shards over
+_AXIS = {"tp": "model", "ep": "expert"}
+
+
+class _ClippingMethod:
+    """OptimMethod proxy that clips gradients before the base update:
+    by value elementwise, and by global norm with the norm summed over
+    the logical tree (``sq_norm(grads)``: a sharded leaf's squares are
+    summed over its axis, a replicated one counted once) -- the
+    semantics of the clipping in ``make_train_step``."""
+
+    def __init__(self, base, clip_value, clip_norm, sq_norm=None):
+        self._base = base
+        self._clip_value = clip_value
+        self._clip_norm = clip_norm
+        self._sq_norm = sq_norm
+
+    def init_state(self, params):
+        return self._base.init_state(params)
+
+    def update(self, grads, opt_state, params):
+        if self._clip_value is not None:
+            clip_by_value(grads, *self._clip_value)
+        if self._clip_norm is not None:
+            clip_by_global_norm(
+                grads, self._clip_norm,
+                sq_norm=None if self._sq_norm is None
+                else self._sq_norm(grads))
+        return self._base.update(grads, opt_state, params)
+
+    def __getattr__(self, name):   # schedule, get_learning_rate, ...
+        return getattr(self._base, name)
+
+
+class _Plan:
+    """One strategy's wiring for a run: the rank's model (``local``),
+    the step, the optimizer state, the batch selection, and the maps
+    between the rank's trees and the logical ones."""
+
+    def __init__(self, local, step, opt_state, select, specs=None,
+                 collectives=None, axis=None):
+        self.local = local
+        self.step = step
+        self.opt_state = opt_state
+        self.select = select
+        self.specs = specs or {}
+        self.collectives = collectives
+        self.axis = axis
+
+    @property
+    def sharded(self):
+        return self.collectives is not None and self.collectives.world > 1
+
+    def _piece(self, name, t):
+        from bigdl_tpu_torch.parallel.tp import _shard_leaf
+
+        c = self.collectives
+        return _shard_leaf(tuple(name.split(".")), t, self.specs[name],
+                           self.axis, c.rank, c.world)
+
+    def _whole(self, name, t):
+        from bigdl_tpu_torch.parallel.tp import _gather_leaf
+
+        return _gather_leaf(tuple(name.split(".")), t, self.specs[name],
+                            self.collectives, self.axis)
+
+    def logical_params(self):
+        """``{name: logical tensor}`` (sharded leaves gathered; every
+        rank takes part)."""
+        return {k: self._whole(k, p.detach()) if self.sharded else p.detach()
+                for k, p in self.local.named_parameters()}
+
+    def logical_opt(self, state):
+        """The optimizer state with every per-parameter leaf gathered."""
+        if not self.sharded:
+            return state
+        return {k: {n: self._whole(n, t) for n, t in v.items()}
+                if isinstance(v, dict) else v for k, v in state.items()}
+
+    @torch.no_grad()
+    def load_logical(self, params, opt_state):
+        """Copy logical parameters (``{name: tensor}``) and a logical
+        optimizer state into the rank's pieces, in place."""
+        from bigdl_tpu_torch.optim.local_optimizer import _copy_into
+
+        for k, p in self.local.named_parameters():
+            p.copy_(self._piece(k, params[k]) if self.sharded
+                    else params[k])
+        if not self.sharded:
+            _copy_into(self.opt_state, opt_state)
+            return
+        for k, v in opt_state.items():
+            if isinstance(v, dict):
+                for n, t in v.items():
+                    self.opt_state[k][n].copy_(self._piece(n, t))
+            else:
+                self.opt_state[k].copy_(v)
+
+
+class StrategyOptimizer(BaseOptimizer):
+    """Driver loop for the model-parallel strategies (module docstring).
+    ``mesh``: a ``parallel.mesh.Mesh`` (None: ``Engine.build_mesh()``, a
+    1-D ``"data"`` mesh over the world); ``data_axis``: the mesh axis
+    whose ranks see different rows (the ``"data"`` default degrades to
+    None when the mesh has no such axis; another name must exist).
+    Extra keyword arguments go to the strategy (``rules``,
+    ``aux_weight``, ``seq_axis``); an unknown one raises."""
+
+    #: ``CompiledTrainStep.stats()`` of the last ``optimize()`` and
+    #: whether its step was captured (NCCL) or ran eagerly (gloo)
+    compiled_stats = None
+    captured_route = None
+    #: the last ``optimize()``'s ``_Plan``: ``plan.local`` is this rank's
+    #: model (its shards under tp and ep), ``plan.opt_state`` its state
+    plan = None
+
+    def __init__(self, model, dataset, criterion, optim_method=None,
+                 strategy="tp", mesh=None, data_axis="data", device=None,
+                 **strategy_kw):
+        super().__init__(model, dataset, criterion, optim_method,
+                         device=device)
+        if strategy not in STRATEGIES:
+            raise ValueError(
+                f"unknown parallel strategy {strategy!r}; expected one of "
+                f"{STRATEGIES} (data parallelism is the default Optimizer "
+                f"path, not a strategy= value)")
+        self.strategy = strategy
+        self.mesh = mesh if mesh is not None \
+            else Engine.build_mesh(device=self.device)
+        if data_axis is None or data_axis in self.mesh.axis_names:
+            self.data_axis = data_axis
+        elif data_axis == "data":
+            self.data_axis = None
+        else:
+            raise ValueError(
+                f"data_axis={data_axis!r} is not an axis of the mesh "
+                f"{tuple(self.mesh.axis_names)}")
+        unknown = set(strategy_kw) - _STRATEGY_KW[strategy]
+        if unknown:
+            raise TypeError(
+                f"strategy={strategy!r} does not understand "
+                f"{sorted(unknown)}; accepted options: "
+                f"{sorted(_STRATEGY_KW[strategy])}")
+        if strategy == "pp":
+            raise UnsupportedFeatureError(
+                "strategy='pp': the pipeline engines (GPipe, 1F1B, pp+tp, "
+                "heterogeneous Sequential) are not ported yet (ROADMAP A7)")
+        self.strategy_kw = dict(strategy_kw)
+
+    def set_sharded_checkpoint(self, path, trigger):
+        """Refused: orbax sharded snapshots are not ported (ROADMAP A4:
+        orbax is not available to the port); ``set_checkpoint`` writes
+        JAX's pickle, which either package resumes."""
+        raise UnsupportedFeatureError(
+            "set_sharded_checkpoint: orbax sharded snapshots are not "
+            "ported (ROADMAP A4: orbax is not available to the port); use "
+            "set_checkpoint")
+
+    # ----- layout ----------------------------------------------------------- #
+    def _layout_spec(self):
+        """The ``LayoutSpec`` of this run's strategy, stamped into every
+        checkpoint's manifest (JAX :157)."""
+        mesh_axes = {a: int(self.mesh.shape[a])
+                     for a in self.mesh.axis_names}
+        kw = self.strategy_kw
+        tree = self.model.parameters_tree()
+        if self.strategy == "tp":
+            from bigdl_tpu_torch.parallel.tp import TRANSFORMER_TP_RULES
+            return LayoutSpec.tp(
+                mesh_axes, rules=kw.get("rules", TRANSFORMER_TP_RULES),
+                block_layout=detect_block_layout(tree))
+        if self.strategy == "ep":
+            from bigdl_tpu_torch.parallel.ep import MOE_EP_RULES
+            return LayoutSpec.ep(mesh_axes,
+                                 rules=kw.get("rules", MOE_EP_RULES),
+                                 num_experts=detect_num_experts(tree))
+        return LayoutSpec.sp(mesh_axes, kw.get("seq_axis", "seq"),
+                             block_layout=detect_block_layout(tree))
+
+    # ----- strategy wiring -------------------------------------------------- #
+    def _check_stateless(self):
+        """tp/sp/ep steps run the model with empty mutable state; a
+        model carrying running statistics (BatchNorm) must train on the
+        dp path, which averages that state across shards."""
+        if any(b.is_floating_point() for b in self.model.buffers()):
+            raise UnsupportedFeatureError(
+                f"strategy={self.strategy!r} trains with empty module "
+                "state, but this model carries floating state (e.g. "
+                "BatchNorm running stats); train it data-parallel "
+                "(DistriOptimizer) instead")
+
+    def _rows(self, tree):
+        from bigdl_tpu_torch.parallel.zero import rank_rows
+
+        if self.data_axis is None:
+            return tree
+        return rank_rows(tree, self.mesh.axis_index(self.data_axis),
+                         self.mesh.axis_size(self.data_axis))
+
+    def _clipping(self, sq_norm):
+        if self.clip_value is None and self.clip_norm is None:
+            return self.optim_method
+        return _ClippingMethod(self.optim_method, self.clip_value,
+                               self.clip_norm, sq_norm)
+
+    def _prepare(self):
+        """-> the run's ``_Plan``."""
+        from bigdl_tpu_torch.parallel.strategy_step import logical_sq_norm
+
+        mesh, kw, cdt = self.mesh, self.strategy_kw, self.compute_dtype
+        if self.strategy in ("tp", "ep"):
+            if isinstance(self.optim_method, (Fused, CompositeOptimMethod)):
+                raise UnsupportedFeatureError(
+                    f"strategy={self.strategy!r} shards each parameter's "
+                    f"optimizer state with the parameter; "
+                    f"{type(self.optim_method).__name__} keeps its state "
+                    f"over the whole tree -- use a per-parameter method")
+            axis = _AXIS[self.strategy]
+            if self.strategy == "tp":
+                from bigdl_tpu_torch.parallel.tp import (
+                    TRANSFORMER_TP_RULES, init_opt_state_sharded,
+                    make_tp_train_step, sharded_collectives, tp_local_model)
+                local = tp_local_model(self.model, mesh,
+                                       kw.get("rules", TRANSFORMER_TP_RULES))
+                init = init_opt_state_sharded
+            else:
+                from bigdl_tpu_torch.parallel.ep import (
+                    MOE_EP_RULES, ep_local_model, init_ep_opt_state,
+                    make_ep_train_step)
+                from bigdl_tpu_torch.parallel.tp import sharded_collectives
+                local = ep_local_model(self.model, mesh, self.data_axis,
+                                       kw.get("rules", MOE_EP_RULES))
+                init = init_ep_opt_state
+            sharded = sharded_collectives(local.tp_specs, mesh, axis)
+            method = self._clipping(
+                lambda g: logical_sq_norm(g, sharded))
+            if self.strategy == "tp":
+                step = make_tp_train_step(local, self.criterion, method,
+                                          mesh, self.data_axis, cdt)
+            else:
+                step = make_ep_train_step(
+                    local, self.criterion, method, mesh, self.data_axis,
+                    aux_weight=kw.get("aux_weight", 0.01), compute_dtype=cdt)
+            opt_state = init(self.optim_method,
+                             dict(local.named_parameters()))
+            return _Plan(local, step, opt_state, self._rows,
+                         local.tp_specs, mesh.collectives(axis), axis)
+
+        from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+        from bigdl_tpu_torch.parallel.sequence import (make_sp_train_step,
+                                                       shard_tokens)
+        seq_axis = kw.get("seq_axis", "seq")
+        if seq_axis not in mesh.shape:
+            raise ValueError(f"seq_axis={seq_axis!r} is not an axis of the "
+                             f"mesh {tuple(mesh.axis_names)}")
+        attns = [m for m in self.model.modules()
+                 if isinstance(m, MultiHeadAttention)]
+        if any(m.seq_axis_name != seq_axis for m in attns):
+            raise ValueError(
+                f"strategy='sp' over {seq_axis!r}: build the model with "
+                f"seq_axis_name={seq_axis!r} so its attention spans the "
+                f"sharded sequence")
+        method = self._clipping(None)
+        step = make_sp_train_step(self.model, self.criterion, method, mesh,
+                                  seq_axis=seq_axis,
+                                  data_axis=self.data_axis,
+                                  compute_dtype=cdt)
+        params = dict(self.model.named_parameters())
+        opt_state = self.optim_method.init_state(params)
+        return _Plan(self.model, step, opt_state,
+                     lambda tree: shard_tokens(tree, mesh, seq_axis,
+                                               self.data_axis))
+
+    @torch.no_grad()
+    def _sync_model(self, plan):
+        """The logical parameters copied into ``self.model`` (every rank
+        takes part in the gathers); the model trains itself under sp."""
+        if plan.local is self.model:
+            return
+        logical = plan.logical_params()
+        for k, p in self.model.named_parameters():
+            p.copy_(logical[k])
+
+    def _load_snapshot(self, plan):
+        """A snapshot of this run's layout (or a legacy one with none)
+        into the model, the rank's pieces and the optimizer state."""
+        from bigdl_tpu_torch.interop.jax_params import (from_jax_opt_state,
+                                                        load_jax_params)
+
+        snap = self._resume
+        src = LayoutSpec.from_manifest(
+            (file_io.read_manifest(self._resume_path) or {}).get("layout"))
+        dst = self._layout_spec()
+        if src is not None and src != dst:
+            raise UnsupportedFeatureError(
+                f"{self._resume_path} was written under layout "
+                f"{src.describe()} and this run uses {dst.describe()}: "
+                f"resuming across layouts (parallel/reshard redistribute) "
+                f"is not ported (ROADMAP A7)")
+        load_jax_params(self.model, snap["model_params"])
+        opt = from_jax_opt_state(self.optim_method, snap["opt_state"],
+                                 self.device,
+                                 jax_params=snap["model_params"],
+                                 model=self.model)
+        plan.load_logical(dict(self.model.named_parameters()), opt)
+        self._apply_driver_state(snap["driver_state"])
+
+    def _checkpoint(self, plan):
+        """Rank 0 writes JAX's pickle of the logical trees with the
+        layout block; every rank takes part in the gathers and waits
+        until it is written."""
+        from bigdl_tpu_torch.interop.jax_params import (to_jax_opt_state,
+                                                        to_jax_params,
+                                                        to_jax_state)
+
+        self._sync_model(plan)
+        opt = plan.logical_opt(plan.opt_state)
+        if self.mesh.rank == 0:
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            file_io.save_checkpoint(
+                self.checkpoint_path, self.driver_state["neval"],
+                to_jax_params(self.model), to_jax_state(self.model),
+                to_jax_opt_state(self.optim_method, opt, self.model),
+                self.driver_state,
+                manifest_meta={"layout": self._layout_spec().to_manifest()})
+        self._barrier()
+
+    def _barrier(self):
+        if self.mesh.size > 1:
+            self.mesh.collectives(*self.mesh.axis_names).barrier(
+                self.device)
+
+    def _validate_sp(self):
+        """Validation for sequence parallelism: the forward of each
+        rank's block under the mesh, metrics on the gathered logits."""
+        from bigdl_tpu_torch.optim.local_optimizer import _to_device
+        from bigdl_tpu_torch.parallel.sequence import (make_sp_eval_step,
+                                                       shard_tokens)
+
+        seq_axis = self.strategy_kw.get("seq_axis", "seq")
+        fwd = make_sp_eval_step(self.model, self.mesh, seq_axis=seq_axis,
+                                data_axis=self.data_axis,
+                                compute_dtype=self.compute_dtype)
+        totals = [None] * len(self.validation_methods)
+        for batch in self.validation_dataset.data(train=False):
+            x = shard_tokens(batch.get_input(), self.mesh, seq_axis,
+                             self.data_axis)
+            out = fwd(_to_device(x, self.device))
+            target = _to_device(batch.get_target(), self.device)
+            for i, m in enumerate(self.validation_methods):
+                r = m(out, target)
+                totals[i] = r if totals[i] is None else totals[i] + r
+        return totals
+
+    def _validate(self, plan):
+        if self.strategy == "sp":
+            return self._validate_sp()
+        self._sync_model(plan)
+        return validate(self.model, self.validation_dataset,
+                        self.validation_methods, self.compute_dtype)
+
+    def _summaries(self, plan, opt_state, state):
+        self._log_learning_rates(opt_state, state)
+        getter = getattr(self.train_summary, "get_summary_trigger", None)
+        trig = getter("Parameters") if getter is not None else None
+        if trig is not None and trig(state):
+            self._sync_model(plan)
+        self._histograms(state)
+
+    # ----- driver loop ------------------------------------------------------ #
+    def _optimize_impl(self):
+        if self.grad_transform is not None:
+            raise UnsupportedFeatureError(
+                "set_grad_transform operates on the model's gradient "
+                "TREE; the strategy engines restructure/shard it -- use "
+                "LocalOptimizer for gradient transforms")
+        train_iter = self.dataset.data(train=True)
+        first_batch = next(train_iter)
+        self._check_stateless()
+        if self._optim_methods_map:
+            if self.strategy in ("tp", "ep"):
+                raise UnsupportedFeatureError(
+                    "set_optim_methods on the tp/ep paths would fall "
+                    "back to REPLICATED optimizer state (the sharded "
+                    "init matches the single-method state layout only), "
+                    "multiplying optimizer HBM by the mesh size; use sp "
+                    "or the local path for per-submodule methods")
+            self._resolve_optim_methods(dict(self.model.named_parameters()))
+        if self.data_axis is not None and \
+                first_batch.size() % self.mesh.axis_size(self.data_axis):
+            raise ValueError(
+                f"global batch {first_batch.size()} not divisible by "
+                f"{self.mesh.axis_size(self.data_axis)} ranks on axis "
+                f"{self.data_axis!r}")
+        plan = self.plan = self._prepare()
+        if self._resume is not None:
+            self._load_snapshot(plan)
+        train_iter, first_batch = self._resume_data_stream(
+            train_iter, first_batch)
+        native = str(dist.get_backend()) == "nccl"
+        self.captured_route = "nccl-graph" if native and \
+            self.device.type == "cuda" else "eager"
+        opt_state = plan.opt_state
+        step = CompiledTrainStep(plan.local, self.criterion,
+                                 self.optim_method, opt_state, self.device,
+                                 step_fn=plan.step, capture=native)
+
+        def dispatch(staged):
+            x, target = staged
+            RNG.next_generator()          # the step's stream position
+            return step.run(x, target)
+
+        try:
+            self._run_driver_loop(
+                train_iter, first_batch, dispatch,
+                extra_summaries=lambda state: self._summaries(
+                    plan, opt_state, state),
+                validate_cb=lambda: self._validate(plan),
+                feed_plateau=lambda state: self._feed_plateau(
+                    state, opt_state),
+                checkpoint_cb=lambda state: self._checkpoint(plan),
+                select=plan.select)
+        finally:
+            self.compiled_stats = step.stats()
+        self._sync_model(plan)
+        return self.model

@@ -9,7 +9,8 @@ Two routes, chosen once, by the backend's name, in ``Collectives``:
 
 - **NCCL** (the card): each operation is the native primitive
   (``reduce_scatter_tensor``, ``all_gather_into_tensor``,
-  ``all_to_all_single``, ``all_reduce``), which a CUDA graph can capture.
+  ``all_to_all_single``, ``all_reduce``, ``batch_isend_irecv``), which
+  a CUDA graph can capture.
 - **gloo** (the CPU, and ranks sharing one card): every operation is
   composed from ``all_reduce``, because gloo takes only ``broadcast``
   and ``all_reduce`` for CUDA tensors and, depending on the version,
@@ -18,7 +19,9 @@ Two routes, chosen once, by the backend's name, in ``Collectives``:
   all-gather is an ``all_reduce`` of a plane that is zero outside this
   rank's chunk; an all-to-all is an ``all_reduce`` of an (``n``, ``n``,
   chunk) plane in which this rank fills its own row, read back by
-  column.  A sum with zeros is exact, so the gathered and exchanged
+  column; a ``ppermute`` is an ``all_reduce`` of an (``n``, ...) plane
+  in which this rank fills its destination's row; a ``pmax`` is the
+  maximum over a gathered plane.  A sum with zeros is exact, so the gathered and exchanged
   values are the senders' bits.  The gloo route runs eagerly: a CUDA
   graph cannot capture it.
 
@@ -96,6 +99,63 @@ class Collectives:
         plane[self.rank].copy_(x)
         return self._all_reduce(plane)[:, self.rank].clone()
 
+    def pmax(self, x):
+        """The elementwise maximum of ``x`` over the ranks."""
+        if self.native:
+            out = x.clone()
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+            return out
+        return self.all_gather(x.reshape(-1)).reshape(
+            self.world, *x.shape).amax(dim=0)
+
+    def all_to_all_tiled(self, x, split_axis, concat_axis):
+        """``lax.all_to_all(x, axis, split_axis, concat_axis,
+        tiled=True)``: ``x`` cut into ``n`` equal pieces along
+        ``split_axis``, piece ``j`` sent to rank ``j``, and the pieces
+        received joined along ``concat_axis`` in rank order."""
+        n = self.world
+        if x.shape[split_axis] % n:
+            raise ValueError(f"all_to_all: axis {split_axis} of size "
+                             f"{x.shape[split_axis]} does not split into "
+                             f"{n} pieces")
+        rows = torch.stack(x.chunk(n, dim=split_axis))
+        got = self.all_to_all(rows)
+        return torch.cat(got.unbind(0), dim=concat_axis)
+
+    def ppermute(self, x, perm):
+        """``lax.ppermute``: ``perm`` lists ``(source, destination)``
+        pairs of ranks; this rank sends ``x`` to its destination and
+        returns what its source sent, zeros when none sends to it."""
+        dst = [d for s, d in perm if s == self.rank]
+        src = [s for s, d in perm if d == self.rank]
+        if len(set(s for s, _ in perm)) != len(perm) \
+                or len(set(d for _, d in perm)) != len(perm):
+            raise ValueError(f"ppermute: {perm} is not a permutation")
+        x = x.contiguous()
+        if dst and dst[0] == self.rank:
+            return x.clone()
+        if self.native:
+            out = torch.zeros_like(x)
+            ops = []
+            if dst:
+                ops.append(dist.P2POp(dist.isend, x, self._peer(dst[0]),
+                                      self.group))
+            if src:
+                ops.append(dist.P2POp(dist.irecv, out, self._peer(src[0]),
+                                      self.group))
+            for req in dist.batch_isend_irecv(ops) if ops else ():
+                req.wait()
+            return out
+        plane = torch.zeros((self.world, *x.shape), dtype=x.dtype,
+                            device=x.device)
+        if dst:
+            plane[dst[0]].copy_(x)
+        return self._all_reduce(plane)[self.rank].clone()
+
+    def _peer(self, r):
+        return r if self.group is None else \
+            dist.get_global_rank(self.group, r)
+
     def broadcast(self, x, src=0):
         """``x`` in place, from rank ``src``."""
         dist.broadcast(x, src, group=self.group)
@@ -119,3 +179,65 @@ class PMean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.collectives.pmean(g.contiguous()), None
+
+
+class CopyToAxis(torch.autograd.Function):
+    """Identity forward; the gradient is summed over the ranks (the
+    input of a region whose ranks each compute a part: Megatron's
+    column-parallel input, the expert branch of an MoE)."""
+
+    @staticmethod
+    def forward(ctx, x, collectives):
+        ctx.collectives = collectives
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.collectives.psum(g.contiguous()), None
+
+
+class ReduceFromAxis(torch.autograd.Function):
+    """``psum`` forward; the gradient passes unchanged (the output of a
+    row-parallel region, each rank's copy of it receiving the same
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, collectives):
+        return collectives.psum(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class PPermute(torch.autograd.Function):
+    """``ppermute`` whose gradient travels the inverse permutation, the
+    transpose ``jax.grad`` takes of ``lax.ppermute``."""
+
+    @staticmethod
+    def forward(ctx, x, collectives, perm):
+        ctx.collectives = collectives
+        ctx.inverse = [(d, s) for s, d in perm]
+        return collectives.ppermute(x, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.collectives.ppermute(g, ctx.inverse), None, None
+
+
+class AllToAll(torch.autograd.Function):
+    """Tiled ``all_to_all`` whose gradient is the inverse exchange
+    (split and concatenation axes swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, collectives, split_axis, concat_axis):
+        ctx.collectives = collectives
+        ctx.axes = (split_axis, concat_axis)
+        return collectives.all_to_all_tiled(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (ctx.collectives.all_to_all_tiled(g, concat_axis,
+                                                 split_axis),
+                None, None, None)

@@ -10,7 +10,10 @@ JAX's does (``BIGDL_COORDINATOR`` as ``host:port`` or a URL,
 (``MASTER_ADDR``, ``WORLD_SIZE``, ``RANK``: ``env://``), and calls
 ``init_process_group`` with NCCL on the card and gloo on the CPU.  With
 neither set it starts a world of one on an in-process store, as JAX's
-mesh covers the local devices.  ``mesh()`` is the process group.
+mesh covers the local devices.  ``mesh()`` is the process group;
+``build_mesh(shape, names)`` is a named mesh over it
+(``parallel/mesh.Mesh``: one sub-group per axis line, ranks row-major),
+what the model-parallel strategies take.
 """
 
 import os
@@ -83,6 +86,20 @@ class Engine:
         if not dist.is_initialized():
             cls.init(device=device)
         return dist.group.WORLD
+
+    @classmethod
+    def build_mesh(cls, mesh_shape=None, axis_names=("data",), device=None):
+        """A ``parallel.mesh.Mesh`` of ``mesh_shape`` over the world (the
+        group ``init(device=...)`` starts when none is initialized):
+        ``(world,)`` by default; a shape whose product is not the world
+        size raises."""
+        from bigdl_tpu_torch.parallel.mesh import Mesh
+
+        if not dist.is_initialized():
+            cls.init(device=device)
+        if mesh_shape is None:
+            mesh_shape = (dist.get_world_size(),)
+        return Mesh(mesh_shape, axis_names)
 
     @classmethod
     def node_number(cls) -> int:

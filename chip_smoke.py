@@ -372,6 +372,39 @@ Phases, each printing JSON lines:
     before; (d) each worker's boot seconds (spawn to port file) and each
     process's card memory (allocator and ``nvidia-smi``).
 
+17. the collective model-parallel strategies
+    (``optim/strategy_optimizer.py`` over ``parallel/tp.py``,
+    ``sequence.py``, ``ring_attention.py``, ``ulysses.py``, ``ep.py``):
+    first the vocabulary-parallel K4/K5 rows (K4's shard pass and K5 on
+    a shard with shard-local labels, the sentinel -1 off the shard) at
+    (8192, 32000) and (8192, 16000) against their plain versions, timed
+    beside their bounds; (a) "small" at phase 7's setting (B8 T1024,
+    fp32, ``Adam(1e-4)``, seed 0) through ``Optimizer(strategy=...)`` at
+    a world of one on NCCL, 4 steps a leg: tp on ``("data", "model")``,
+    sp with ring and with Ulysses attention on ``("data", "seq")``, and
+    ``MoETransformerLM`` at "small"'s widths (8 experts, k 2, capacity
+    factor 1.25; the JAX package names no MoE config beyond its dry
+    run's tiny one) with ep on ``("data", "expert")``; each against its
+    one-process reference on the same weights and batches
+    (``LocalOptimizer``; for ep the task loss plus 0.01 x the aux loss
+    in an eager loop): per-step losses within ``STRAT_W1_LOSS_RTOL``,
+    the parameters relative to the reference's update within
+    ``STRAT_W1_UPD``; K1, K1-bwd, K4 and K5 counted through the replays
+    (12 / 12 / 1 / 1 a step on tp -- K4 and K5 as the shard route --,
+    Ulysses and ep, 0 / 0 / 1 / 1 on the ring, whose hops are plain as
+    in JAX); the step one CUDA graph with NCCL's collectives captured;
+    step time, tokens/s and peak memory beside the reference's; (b) a
+    world of two processes sharing the card on gloo (this script with
+    ``--strategy-rank``, started and killed as phase 15's), eager and
+    labelled correctness-only: each leg on a ``(1, 2)`` mesh for 3 steps
+    against (a)'s leg after 3 steps (``STRAT_W2_*``), and the
+    vocabulary-parallel K4/K5 on half of (8192, 32000) logits against
+    their plain versions and against K4/K5 on the whole logits
+    (``STRAT_CE_TOL``); (c) the tp world-2 checkpoint (after 2 steps)
+    carries JAX's ``layout`` block, resumed at the same layout it
+    continues the straight run, and resumed at world 1 it is refused
+    naming ROADMAP A7.
+
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
 non-zero before printing any result.
@@ -6681,10 +6714,564 @@ def fleet_phase(fa, card):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# Phase 17: the collective model-parallel strategies
+# (optim/strategy_optimizer.py, parallel/tp.py, sequence.py, ep.py)
+# --------------------------------------------------------------------------- #
+
+#: (a) steps of each world-1 leg; (b) steps of each world-2 leg, and the
+#: tp world-2 checkpoint (neval 3, after 2 steps) that (c) resumes
+STRAT_STEPS, STRAT_W2_STEPS, STRAT_W2_CKPT_AT = 4, 3, 3
+#: the legs: name, mesh axes, sequence mode
+STRAT_LEGS = (("tp", ("data", "model"), None),
+              ("sp_ring", ("data", "seq"), "ring"),
+              ("sp_ulysses", ("data", "seq"), "ulysses"),
+              ("ep", ("data", "expert"), None))
+#: phase 17's MoE: "small"'s widths with the class's defaults
+STRAT_MOE = {"num_experts": 8, "k": 2, "capacity_factor": 1.25}
+STRAT_AUX_WEIGHT = 0.01
+#: the kernels each leg launches a step (through the replays)
+_K1, _K1B = "flash_attention", "flash_attention_bwd"
+_K4, _K5 = "fused_softmax_cross_entropy", "fused_softmax_cross_entropy_bwd"
+_K4S, _K5S = _K4 + "_shard", _K5 + "_shard"
+STRAT_WANT = {"tp": {_K1: 12, _K1B: 12, _K4S: 1, _K5S: 1, _K4: 0, _K5: 0},
+              "sp_ring": {_K1: 0, _K1B: 0, _K4: 1, _K5: 1, _K4S: 0,
+                          _K5S: 0},
+              "sp_ulysses": {_K1: 12, _K1B: 12, _K4: 1, _K5: 1, _K4S: 0,
+                             _K5S: 0},
+              "ep": {_K1: 12, _K1B: 12, _K4: 1, _K5: 1, _K4S: 0, _K5S: 0}}
+#: (a) each leg against its one-process reference (LocalOptimizer; for
+#: ep the same loss in an eager loop): per-step losses, and the
+#: parameters relative to the update the reference applied
+#: (``_update_rel``; no update reads 1).  Sound readings on the H100
+#: (PERF.md): losses 9.1e-8; updates 2.7e-5 (tp), 4.1e-4 (the
+#: ring's online softmax), 0 (Ulysses, ep)
+STRAT_W1_LOSS_RTOL, STRAT_W1_UPD = 1e-5, 1e-2
+#: (b) each world-2 leg against (a)'s leg after the same steps (sound:
+#: losses 1.8e-7, updates 4.3e-5); (c) the resumed tp run against the
+#: straight world-2 run (bitwise there)
+STRAT_W2_LOSS_RTOL, STRAT_W2_UPD = 1e-5, 5e-3
+#: (b) the vocabulary-parallel K4/K5 at (8192, 32000) over two shards
+#: against their plain versions and against K4/K5 on the whole logits
+STRAT_CE_TOL = 1e-4
+STRAT_CHILD_TIMEOUT_S = 480
+
+
+def _strategy_model(leg, seed=0):
+    from bigdl_tpu_torch.models import transformer_lm
+    from bigdl_tpu_torch.nn.moe import MoETransformerLM
+
+    if leg == "ep":
+        return MoETransformerLM(VOCAB, 768, HEADS, 12, max_len=SEQ,
+                                device="cuda", seed=seed, **STRAT_MOE)
+    mode = dict((n, m) for n, _, m in STRAT_LEGS)[leg]
+    return transformer_lm("small", VOCAB, max_len=SEQ, device="cuda",
+                          seed=seed,
+                          seq_axis_name="seq" if mode else None,
+                          seq_mode=mode or "ring")
+
+
+def _strategy_opt(leg, model, x, y, mesh):
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+
+    strategy = leg.split("_")[0]
+    kw = {"aux_weight": STRAT_AUX_WEIGHT} if strategy == "ep" else {}
+    return optim.Optimizer(
+        model, array_dataset(x, y) >> SampleToMiniBatch(BATCH), _lm_crit(),
+        optim.Adam(learning_rate=1e-4), strategy=strategy, mesh=mesh, **kw)
+
+
+def _moe_reference(model, x, y, steps):
+    """The ep legs' one-process reference: task loss plus
+    ``STRAT_AUX_WEIGHT`` x the aux loss, Adam(1e-4), eager, on the
+    batches the strategy run takes (the first epoch in order); returns
+    the task losses and the flat parameters after ``STRAT_W2_STEPS`` and
+    after ``steps`` steps."""
+    from bigdl_tpu_torch import optim
+
+    crit, method = _lm_crit(), optim.Adam(learning_rate=1e-4)
+    params = dict(model.named_parameters())
+    state = method.init_state(params)
+    losses, snap = [], None
+    model.train()
+    for i in range(steps):
+        xb = torch.from_numpy(x[i * BATCH:(i + 1) * BATCH]).cuda()
+        yb = torch.from_numpy(y[i * BATCH:(i + 1) * BATCH]).cuda()
+        model.zero_grad(set_to_none=True)
+        logits, aux = model(xb, return_aux=True)
+        task = crit.apply(logits.float(), yb)
+        (task + STRAT_AUX_WEIGHT * aux).backward()
+        method.update({k: p.grad for k, p in params.items()}, state, params)
+        losses.append(float(task.detach()))
+        if i + 1 == STRAT_W2_STEPS:
+            snap = _flat_params(model).detach().clone()
+    return losses, snap, _flat_params(model).detach().clone()
+
+
+def _strategy_counts(fa, ce):
+    launches = {k: n - fa.BF16_LAUNCHES.get(k, 0)
+                for k, n in fa.LAUNCHES.items()}
+    launches.update(ce.LAUNCHES)
+    return launches
+
+
+def strategy_world1(fa, ce, card, x, y):
+    """Phase 17 (a): each strategy at a world of one on NCCL, 4 steps,
+    against its one-process reference; launches counted through the
+    replays, the step one CUDA graph with NCCL's collectives in it, step
+    time, tokens/s and peak memory beside the reference's.  Returns the
+    launch counts by path, each leg's losses and its parameters after
+    ``STRAT_W2_STEPS`` and ``STRAT_STEPS`` steps (on the host)."""
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.utils import cuda_graphs
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    # the dense legs' reference: LocalOptimizer on the same weights
+    model = _strategy_model("tp")
+    start = _flat_params(model).detach().cpu()
+    opt = optim.Optimizer(model, array_dataset(x, y) >> SampleToMiniBatch(
+        BATCH), _lm_crit(), optim.Adam(learning_rate=1e-4))
+    torch.cuda.reset_peak_memory_stats()
+    # the snapshot stays on the card until the run ends: a copy to the
+    # host inside the timed window would be timed
+    snaps = {}
+    clock_then = {STRAT_W2_STEPS: lambda: snaps.__setitem__(
+        "local", _flat_params(model).detach().clone())}
+    dense = _strategy_timed(opt, clock_then)
+    dense.update(flat=_flat_params(model).detach().cpu(),
+                 snap=snaps.pop("local").cpu(), start=start,
+                 peak_bytes=torch.cuda.max_memory_allocated())
+    del model, opt
+    torch.cuda.empty_cache()
+    model = _strategy_model("ep")
+    moe_start = _flat_params(model).detach().cpu()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, snap, flat = _moe_reference(model, x, y, STRAT_STEPS)
+    torch.cuda.synchronize()
+    moe = {"losses": losses, "snap": snap.cpu(), "flat": flat.cpu(),
+           "start": moe_start, "wall_s": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del model, flat, snap
+    torch.cuda.empty_cache()
+
+    paths, legs = {}, {}
+    for leg, axes, _ in STRAT_LEGS:
+        ref = moe if leg == "ep" else dense
+        mesh = Engine.build_mesh((1, 1), axes)
+        model = _strategy_model(leg)
+        opt = _strategy_opt(leg, model, x, y, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        ce.reset_launch_counts()
+        captures = cuda_graphs.capture_count()
+        snap = {}
+        # ---- the strategy's main path: counts read right after --------
+        run = _strategy_timed(opt, {STRAT_W2_STEPS: lambda: snap.update(
+            flat=_flat_params(opt.plan.local).detach().clone())})
+        launches = _strategy_counts(fa, ce)
+        # ----------------------------------------------------------------
+        stats = opt.compiled_stats
+        flat = _flat_params(model).detach().cpu()
+        step_rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                        ref["losses"])]
+        upd = _update_rel(flat.numpy(), ref["flat"].numpy(),
+                          ref["start"].numpy())
+        want = {k: n * STRAT_STEPS for k, n in STRAT_WANT[leg].items()}
+        got = {k: launches.get(k, 0) for k in want}
+        row = {"phase": "strategy_world1", "leg": leg,
+               "mesh": dict(mesh.shape), "world": 1,
+               "backend": torch.distributed.get_backend(),
+               "route": opt.captured_route,
+               "nccl_captured_in_graph": opt.captured_route == "nccl-graph"
+               and stats["captured"] == 1,
+               "graphs": stats["captured"], "replays": stats["replays"],
+               "captures": cuda_graphs.capture_count() - captures,
+               "graph_pool_bytes": stats["pool_bytes"],
+               "step_s": run["step_s"],
+               "tokens_per_s": BATCH * SEQ / run["step_s"],
+               "reference": "eager MoE loop" if leg == "ep"
+               else "LocalOptimizer",
+               "reference_step_s": ref.get("step_s"),
+               "reference_tokens_per_s": ref.get("tokens_per_s"),
+               "reference_wall_s": ref.get("wall_s"),
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "reference_peak_allocated_bytes": ref["peak_bytes"],
+               "losses": run["losses"], "reference_losses": ref["losses"],
+               "max_step_loss_rel": max(step_rel),
+               "param_rel_l2": rel_l2(flat, ref["flat"]),
+               "param_update_rel": upd,
+               "tolerance": {"loss": STRAT_W1_LOSS_RTOL,
+                             "update": STRAT_W1_UPD},
+               "launches": got, "card": card}
+        emit(row)
+        if len(run["losses"]) != STRAT_STEPS or \
+                max(step_rel) > STRAT_W1_LOSS_RTOL or upd > STRAT_W1_UPD:
+            raise AssertionError(f"{leg} world 1 against its reference: "
+                                 f"{row}")
+        if not row["nccl_captured_in_graph"] or \
+                stats["replays"] != STRAT_STEPS:
+            raise AssertionError(f"{leg}: the NCCL step was not one "
+                                 f"captured graph: {row}")
+        if got != want:
+            raise AssertionError(f"{leg} launches {got}, want {want}")
+        paths[f"strategy_{leg}"] = {k: n for k, n in got.items() if n}
+        legs[leg] = {"losses": run["losses"], "snap": snap.pop("flat").cpu(),
+                     "flat": flat, "start": ref["start"]}
+        del model, opt, mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths, legs
+
+
+def _strategy_timed(opt, then):
+    """``opt.optimize()`` for ``STRAT_STEPS`` steps with a loss summary,
+    ``then[i]`` run at the top of step ``i`` after a sync; the mean step
+    time over steps 2 to the last (each a replay)."""
+    summary = _Losses()
+    opt.set_train_summary(summary)
+    first = 1
+    clock = StepClock(opt, STRAT_STEPS,
+                      sync_at=(first, STRAT_STEPS, *then), then=then)
+    opt.set_end_when(clock)
+    torch.cuda.synchronize()
+    opt.optimize()
+    torch.cuda.synchronize()
+    step_s = (clock.marks[STRAT_STEPS][0] - clock.marks[first][0]) \
+        / (STRAT_STEPS - first)
+    return {"losses": summary.scalars["Loss"], "step_s": step_s,
+            "tokens_per_s": BATCH * SEQ / step_s}
+
+
+def _vocab_parallel_check(ce, coll):
+    """(b)'s vocabulary-parallel K4/K5 on this rank's half of (8192,
+    32000) logits: the shard pass against its plain version, the
+    combined loss and lse against K4 on the whole logits, and K5 on the
+    shard against its plain version and against K5's columns of the
+    whole logits."""
+    n, v = BATCH * SEQ, VOCAB
+    g = torch.Generator(device="cuda").manual_seed(17)
+    full = torch.randn(n, v, generator=g, device="cuda")
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda")
+    gr = torch.rand(n, generator=g, device="cuda") + 0.5
+    vs = v // coll.world
+    off = coll.rank * vs
+    x = full[:, off:off + vs].contiguous()
+    local = ce.shard_labels(labels, off, vs)
+    lse_l, picked_l = ce.fused_softmax_cross_entropy_shard_fwd(x, local)
+    want_lse_l, want_picked_l = ce.fused_softmax_cross_entropy_shard_reference(
+        x, local)
+    err = {"shard_lse": check_close("K4 shard lse", lse_l, want_lse_l),
+           "shard_picked": check_close("K4 shard picked", picked_l,
+                                       want_picked_l)}
+    lse, picked = ce.combine_shard_stats(lse_l, picked_l, coll)
+    loss_full, lse_full = ce.fused_softmax_cross_entropy_fwd(full, labels)
+    err["global_loss_vs_whole"] = check_close(
+        "vocab-parallel loss", lse - picked, loss_full, STRAT_CE_TOL,
+        STRAT_CE_TOL)
+    err["global_lse_vs_whole"] = check_close(
+        "vocab-parallel lse", lse, lse_full, STRAT_CE_TOL, STRAT_CE_TOL)
+    dx = ce.fused_softmax_cross_entropy_bwd(
+        x, local, lse, gr, name="fused_softmax_cross_entropy_bwd_shard")
+    err["shard_grad"] = check_close(
+        "K5 shard", dx, ce.fused_softmax_cross_entropy_grad_reference(
+            x, local, lse, gr), atol=0.0)
+    whole = ce.fused_softmax_cross_entropy_bwd(full, labels, lse_full, gr)
+    err["shard_grad_vs_whole"] = check_close(
+        "K5 shard against the whole", dx, whole[:, off:off + vs],
+        STRAT_CE_TOL, STRAT_CE_TOL)
+    sentinel = int((local == -1).sum())
+    return {"shape": [n, vs], "offset": off, "sentinel_rows": sentinel,
+            "errors": err}
+
+
+def strategy_child(rank, world, init, job_path, out):
+    """Phase 17 (b)-(c), one rank of the gloo world sharing the card:
+    each leg for ``STRAT_W2_STEPS`` steps on a (1, 2) mesh (the tp leg
+    writes its checkpoint), the vocabulary-parallel K4/K5 check, and the
+    tp checkpoint resumed at the same layout.  Results to
+    ``out/rank<r>.json`` and, from rank 0, each leg's parameters."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.models import synthetic_corpus
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import cross_entropy as ce
+    from bigdl_tpu_torch.utils import file_io
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    torch.cuda.set_device(0)
+    _build.load()
+    with open(job_path) as f:
+        job = json.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            world_size=world, rank=rank)
+    out = Path(out)
+    res = {}
+    try:
+        x, y = synthetic_corpus(64, SEQ, VOCAB)
+        for leg, axes, _ in STRAT_LEGS:
+            mesh = Engine.build_mesh((1, world), axes)
+            model = _strategy_model(leg)
+            opt = _strategy_opt(leg, model, x, y, mesh)
+            summary = _Losses()
+            opt.set_train_summary(summary)
+            opt.set_end_when(optim.Trigger.max_iteration(STRAT_W2_STEPS))
+            if leg == "tp":
+                opt.set_checkpoint(job["ckpt"], lambda s: s["neval"]
+                                   == STRAT_W2_CKPT_AT)
+            t0 = time.perf_counter()
+            opt.optimize()
+            torch.cuda.synchronize()
+            res[leg] = {"losses": summary.scalars["Loss"],
+                        "wall_s": time.perf_counter() - t0,
+                        "route": opt.captured_route,
+                        "mesh": dict(mesh.shape)}
+            if rank == 0:
+                np.save(out / f"flat_{leg}.npy",
+                        _flat_params(model).cpu().numpy())
+            del model, opt, mesh
+            gc.collect()
+            torch.cuda.empty_cache()
+            if leg == "tp":
+                res["vocab_parallel_ce"] = _vocab_parallel_check(
+                    ce, Engine.build_mesh((1, world), axes).collectives(
+                        "model"))
+                torch.cuda.empty_cache()
+        # (c): the tp checkpoint resumed at the same layout
+        intact, _ = file_io.scan_checkpoints(job["ckpt"])
+        res["tp_layout"] = file_io.read_manifest(intact[0])["layout"]
+        mesh = Engine.build_mesh((1, world), ("data", "model"))
+        model = _strategy_model("tp", seed=1)
+        opt = _strategy_opt("tp", model, x, y, mesh)
+        summary = _Losses()
+        opt.set_train_summary(summary)
+        opt.resume_from_checkpoint(job["ckpt"])
+        opt.set_end_when(optim.Trigger.max_iteration(STRAT_W2_STEPS))
+        opt.optimize()
+        res["tp_resume"] = {"losses": summary.scalars["Loss"],
+                            "neval": opt.driver_state["neval"]}
+        if rank == 0:
+            np.save(out / "flat_tp_resume.npy",
+                    _flat_params(model).cpu().numpy())
+    finally:
+        dist.destroy_process_group()
+    with open(out / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _spawn_strategy_world(root, job):
+    """Start the two gloo ranks (this script, ``--strategy-rank``), wait
+    for them under ``STRAT_CHILD_TIMEOUT_S``, kill both on a hang or a
+    failure; returns their results."""
+    out = root / "w2"
+    out.mkdir()
+    job_path = root / "job.json"
+    job_path.write_text(json.dumps(job))
+    init = root / "rendezvous"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--strategy-rank",
+         str(r), "2", str(init), str(job_path), str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = [None, None]
+    try:
+        deadline = time.monotonic() + STRAT_CHILD_TIMEOUT_S
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"phase 17 world-2 rank {bad[0]} failed:\n"
+                             f"{(logs[bad[0]] or '')[-3000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(2)], out
+
+
+def vocab_parallel_rows(ce, card):
+    """The vocabulary-parallel K4/K5 rows of the kernels line: the shard
+    pass and K5 on a shard with shard-local labels (about half of them
+    the sentinel) at the main path's (8192, 32000) (tp at world 1: one
+    shard) and at world 2's (8192, 16000), against their plain versions,
+    timed beside their bounds.  No single PyTorch call gives a shard's
+    lse and picked logit, or K5's gradient from a global lse: no library
+    time."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    n = BATCH * SEQ
+    rows = {}
+    for shards in (1, 2):
+        v = VOCAB // shards
+        x = torch.randn(n, v, generator=g, device="cuda")
+        labels = torch.randint(0, VOCAB, (n,), generator=g, device="cuda")
+        local = ce.shard_labels(labels, 0, v)
+        lse, picked = ce.fused_softmax_cross_entropy_shard_fwd(x, local)
+        want = ce.fused_softmax_cross_entropy_shard_reference(x, local)
+        err = max(check_close("K4 shard lse", lse, want[0]),
+                  check_close("K4 shard picked", picked, want[1]))
+        ms, lo, hi = device_ms(
+            lambda: ce.fused_softmax_cross_entropy_shard_fwd(x, local))
+        plain = device_ms(
+            lambda: ce.fused_softmax_cross_entropy_shard_reference(
+                x, local))[0]
+        # the shard read once, the labels read, loss, lse and picked out
+        bms, by = bound(n * v * 4 + n * 4 + 3 * n * 4, 4 * n * v)
+        row = dict(name=_K4S, case=f"N{n}_V{v} ({shards} shard"
+                   f"{'s' if shards > 1 else ''})", max_abs_err=err, ms=ms,
+                   ms_min=lo, ms_max=hi, plain_ms=plain, bound_ms=bms,
+                   bound_by=by, library_ms=None,
+                   sentinel_rows=int((local == -1).sum()), card=card)
+        emit({"phase": "kernel", **row})
+        rows.setdefault(_K4S, row)
+        gr = torch.rand(n, generator=g, device="cuda") + 0.5
+        dx = ce.fused_softmax_cross_entropy_bwd(x, local, lse, gr,
+                                                name=_K5S)
+        err = check_close("K5 shard", dx,
+                          ce.fused_softmax_cross_entropy_grad_reference(
+                              x, local, lse, gr), atol=0.0)
+        del dx
+        gr = torch.full((n,), 1.0 / n, device="cuda")
+        ms, lo, hi = device_ms(lambda: ce.fused_softmax_cross_entropy_bwd(
+            x, local, lse, gr, name=_K5S))
+        plain = device_ms(
+            lambda: ce.fused_softmax_cross_entropy_grad_reference(
+                x, local, lse, gr))[0]
+        bms, by = bound(2 * n * v * 4 + 3 * n * 4, 4 * n * v)
+        row = dict(name=_K5S, case=f"N{n}_V{v} ({shards} shard"
+                   f"{'s' if shards > 1 else ''})", max_abs_err=err, ms=ms,
+                   ms_min=lo, ms_max=hi, plain_ms=plain, bound_ms=bms,
+                   bound_by=by, library_ms=None, card=card)
+        emit({"phase": "kernel", **row})
+        rows.setdefault(_K5S, row)
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def strategy_phase(fa, ce, card):
+    """Phase 17: the model-parallel strategies.  Returns the launch
+    counts by path and the vocabulary-parallel K4/K5 rows."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.models import synthetic_corpus
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.errors import UnsupportedFeatureError
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_strategies_"))
+    try:
+        rows = vocab_parallel_rows(ce, card)
+        Engine.init()                  # NCCL, a world of one on the card
+        x, y = synthetic_corpus(64, SEQ, VOCAB)
+        paths, legs = strategy_world1(fa, ce, card, x, y)
+
+        # (b), (c): the gloo world of two sharing the card
+        t0 = time.perf_counter()
+        ckpt = root / "ckpt_tp"
+        ranks, out = _spawn_strategy_world(root, {"ckpt": str(ckpt)})
+        w2_s = time.perf_counter() - t0
+        for leg, _, _ in STRAT_LEGS:
+            ref = legs[leg]
+            flat = torch.from_numpy(np.load(out / f"flat_{leg}.npy"))
+            losses = [r[leg]["losses"] for r in ranks]
+            step_rel = _max_step_rel(losses[0], ref["losses"])
+            upd = _update_rel(flat.numpy(), ref["snap"].numpy(),
+                              ref["start"].numpy())
+            row = {"phase": "strategy_world2", "leg": leg,
+                   "label": "correctness only: two gloo ranks sharing "
+                            "one card, eager, host-routed collectives",
+                   "mesh": ranks[0][leg]["mesh"],
+                   "routes": [r[leg]["route"] for r in ranks],
+                   "losses": losses[0],
+                   "world1_losses": ref["losses"][:STRAT_W2_STEPS],
+                   "ranks_agree": losses[0] == losses[1],
+                   "max_step_loss_rel": step_rel,
+                   "param_rel_l2": rel_l2(flat, ref["snap"]),
+                   "param_update_rel": upd,
+                   "wall_s": [r[leg]["wall_s"] for r in ranks],
+                   "tolerance": {"loss": STRAT_W2_LOSS_RTOL,
+                                 "update": STRAT_W2_UPD}, "card": card}
+            emit(row)
+            if len(losses[0]) != STRAT_W2_STEPS or \
+                    not row["ranks_agree"] or \
+                    step_rel > STRAT_W2_LOSS_RTOL or upd > STRAT_W2_UPD or \
+                    row["routes"] != ["eager", "eager"]:
+                raise AssertionError(f"{leg} world 2 against world 1: "
+                                     f"{row}")
+        ce_rows = [r["vocab_parallel_ce"] for r in ranks]
+        emit({"phase": "strategy_vocab_parallel_ce", "ranks": ce_rows,
+              "tolerance": STRAT_CE_TOL, "card": card})
+        if any(e > STRAT_CE_TOL for r in ce_rows
+               for e in r["errors"].values()) or \
+                any(not r["sentinel_rows"] for r in ce_rows):
+            raise AssertionError(f"vocabulary-parallel K4/K5: {ce_rows}")
+
+        # (c) the checkpoint: JAX's layout block; the same layout resumed
+        # continues the straight run; world 1 refuses it
+        from bigdl_tpu_torch.parallel.reshard import LayoutSpec
+        from bigdl_tpu_torch.parallel.tp import TRANSFORMER_TP_RULES
+
+        want_layout = LayoutSpec.tp({"data": 1, "model": 2},
+                                    rules=TRANSFORMER_TP_RULES,
+                                    block_layout="unrolled").to_manifest()
+        resumed = [r["tp_resume"]["losses"] for r in ranks]
+        straight = [r["tp"]["losses"] for r in ranks]
+        flat_r = torch.from_numpy(np.load(out / "flat_tp_resume.npy"))
+        flat_s = torch.from_numpy(np.load(out / "flat_tp.npy"))
+        refused = None
+        mesh = Engine.build_mesh((1, 1), ("data", "model"))
+        model = _strategy_model("tp", seed=1)
+        opt = _strategy_opt("tp", model, x, y, mesh)
+        opt.resume_from_checkpoint(str(ckpt))
+        try:
+            opt.optimize()
+        except UnsupportedFeatureError as e:
+            refused = str(e)
+        del model, opt, mesh
+        torch.cuda.empty_cache()
+        c_row = {"phase": "strategy_checkpoint",
+                 "layout": ranks[0]["tp_layout"],
+                 "layout_is_jax": ranks[0]["tp_layout"] == want_layout,
+                 "resumed_losses": resumed[0],
+                 "straight_tail": straight[0][STRAT_W2_CKPT_AT - 1:],
+                 "resumed_neval": ranks[0]["tp_resume"]["neval"],
+                 "resumed_param_rel_l2": rel_l2(flat_r, flat_s),
+                 "bitwise": resumed[0] == straight[0][STRAT_W2_CKPT_AT - 1:]
+                 and torch.equal(flat_r, flat_s),
+                 "world1_refusal": refused, "card": card}
+        emit(c_row)
+        if not c_row["layout_is_jax"] or \
+                c_row["resumed_neval"] != STRAT_W2_STEPS + 1 or \
+                _max_step_rel(resumed[0], c_row["straight_tail"]) > \
+                STRAT_W2_LOSS_RTOL or \
+                c_row["resumed_param_rel_l2"] > STRAT_W2_LOSS_RTOL or \
+                refused is None or "A7" not in refused:
+            raise AssertionError(f"strategy checkpoints: {c_row}")
+        emit({"phase": "strategy_done", "world2_s": w2_s,
+              "seconds": time.perf_counter() - t_phase, "card": card})
+        return paths, rows
+    finally:
+        Engine.reset()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--fleet-worker":
         # one worker process of phase 16's fleet (started by _FleetWorkers)
         return fleet_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if len(sys.argv) > 1 and sys.argv[1] == "--strategy-rank":
+        # one rank of phase 17's gloo world (started by
+        # _spawn_strategy_world)
+        return strategy_child(int(sys.argv[2]), int(sys.argv[3]),
+                              *sys.argv[4:7])
     if len(sys.argv) > 1 and sys.argv[1] == "--distri-rank":
         # one rank of phase 15's gloo world (started by _spawn_world2)
         return distri_child(int(sys.argv[2]), int(sys.argv[3]),
@@ -6743,6 +7330,8 @@ def main():
     phase14 = engine_phase(card)
     phase15 = distri_phase(fa, ce, card)
     phase16 = fleet_phase(fa, card)
+    phase17, strategy_rows = strategy_phase(fa, ce, card)
+    rows.update(strategy_rows)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -6766,6 +7355,14 @@ def main():
         "fused_softmax_cross_entropy_bwd": (
             "bigdl_tpu_torch/csrc/cross_entropy.cu",
             "bigdl_tpu/ops/cross_entropy.py:126"),
+        "fused_softmax_cross_entropy_shard": (
+            "bigdl_tpu_torch/csrc/cross_entropy.cu",
+            "bigdl_tpu/ops/cross_entropy.py:77 (a vocabulary shard under "
+            "GSPMD tensor parallelism, bigdl_tpu/parallel/tp.py:31)"),
+        "fused_softmax_cross_entropy_bwd_shard": (
+            "bigdl_tpu_torch/csrc/cross_entropy.cu",
+            "bigdl_tpu/ops/cross_entropy.py:126 (a vocabulary shard under "
+            "GSPMD tensor parallelism, bigdl_tpu/parallel/tp.py:31)"),
         "int8_conv": ("bigdl_tpu_torch/csrc/int8_conv.cu",
                       "bigdl_tpu/nn/quantized.py:110 (int8_conv: an XLA "
                       "conv_general_dilated, no pallas_call)"),
@@ -6796,7 +7393,8 @@ def main():
     paths = (("serving", serving), ("training", training),
              ("training_bf16", training_bf16), ("int8_serving", int8_serving),
              *phase10.items(), *phase11.items(), *phase13.items(),
-             *phase14.items(), *phase15.items(), *phase16.items())
+             *phase14.items(), *phase15.items(), *phase16.items(),
+             *phase17.items())
     if len(dict(paths)) != len(paths):
         raise AssertionError(f"two paths share a name: "
                              f"{[p for p, _ in paths]}")

@@ -175,10 +175,12 @@ def collectives(case, coll):
     return out
 
 
-def spawn_world(tmp_path, world, cases, timeout=240):
+def spawn_world(tmp_path, world, cases, timeout=240, script=None):
     """Run ``cases`` in a fresh gloo world of ``world`` ranks under
     ``tmp_path``; returns ``{name: [result of rank 0, rank 1, ...]}``
-    (a rank that skipped a case has no entry)."""
+    (a rank that skipped a case has no entry).  ``script``: the rank
+    program (default: this file; ``_torch_strategy_worker.py`` runs the
+    model-parallel cases)."""
     tmp_path = str(tmp_path)
     jobs = os.path.join(tmp_path, "jobs.pkl")
     with open(jobs, "wb") as f:
@@ -188,7 +190,8 @@ def spawn_world(tmp_path, world, cases, timeout=240):
     logs = [open(os.path.join(tmp_path, f"rank{r}.log"), "w")
             for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(r), str(world),
+        [sys.executable, os.path.abspath(script or __file__), str(r),
+         str(world),
          init, jobs, tmp_path], env=env, stdout=logs[r],
         stderr=subprocess.STDOUT) for r in range(world)]
     deadline = time.monotonic() + timeout
