@@ -23,6 +23,12 @@ router ``gate (D, E)`` and the expert-stacked ``w1``, ``b1``, ``w2``,
 shard them themselves (``parallel/tp.py`` ``shard_params``,
 ``parallel/ep.py`` ``ep_shard_params``).
 
+A pipelined run's trees (JAX's ``parallel/pp.stack_stage_params``
+layout, ``{embed, stages, tail}``, the optimizer's slots mirroring it)
+cross with ``load_jax_pp_params`` / ``to_jax_pp_params`` and
+``load_jax_pp_opt_state`` / ``to_jax_pp_opt_state``, through
+``parallel/reshard``'s ``pp_tree_to_blocks`` / ``blocks_to_pp_tree``.
+
 Model state (BatchNorm's running statistics, JAX's ``model.state()``)
 crosses with ``load_jax_state`` / ``to_jax_state``.  A JAX container
 keys every child, one without parameters (or state) by ``()``: the trees
@@ -327,3 +333,49 @@ def to_jax_opt_state(optim_method, state, model=None):
     trains) each slot also carries JAX's empty entries, as the JAX
     method's state over that model's tree does."""
     return _jax_state(optim_method, state, "", model)
+
+
+def _from_pp(tree):
+    """Every stage-stacked subtree of ``tree`` in the per-block layout."""
+    from bigdl_tpu_torch.parallel.reshard import (_is_pp_tree, _walk_dicts,
+                                                  pp_tree_to_blocks)
+
+    return _walk_dicts(tree, lambda d: pp_tree_to_blocks(d)
+                       if _is_pp_tree(d) else None)
+
+
+def _to_pp(tree, n_stages):
+    """Every per-block subtree of ``tree`` stage-stacked over
+    ``n_stages``."""
+    from bigdl_tpu_torch.parallel.reshard import (_has_block_keys,
+                                                  _walk_dicts,
+                                                  blocks_to_pp_tree)
+
+    return _walk_dicts(tree, lambda d: blocks_to_pp_tree(d, n_stages)
+                       if _has_block_keys(d) else None)
+
+
+def load_jax_pp_params(model, pp_params):
+    """Copy a JAX stage-stacked parameter tree into ``model`` (an
+    unrolled TransformerLM); returns ``model``."""
+    return load_jax_params(model, _from_pp(pp_params))
+
+
+def to_jax_pp_params(model, n_stages):
+    """``model``'s parameters as JAX's ``stack_stage_params(model,
+    n_stages)`` tree of numpy arrays."""
+    return _to_pp(to_jax_params(model), n_stages)
+
+
+def load_jax_pp_opt_state(optim_method, jax_state, device=None,
+                          model=None):
+    """``load_jax_opt_state`` of a JAX optimizer state over a
+    stage-stacked tree (its slots in the pp layout)."""
+    return load_jax_opt_state(optim_method, _from_pp(jax_state), device,
+                              model=model)
+
+
+def to_jax_pp_opt_state(optim_method, state, model, n_stages):
+    """``to_jax_opt_state`` with every slot stage-stacked over
+    ``n_stages``: the JAX method's state over ``stack_stage_params``."""
+    return _to_pp(to_jax_opt_state(optim_method, state, model), n_stages)

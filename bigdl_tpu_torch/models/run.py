@@ -34,12 +34,14 @@ every recipe whose JAX counterpart routes it; ``lenet-test`` runs no
 optimizer and refuses it.
 
 Refused, each naming its ROADMAP item: ``--folder`` (dataset sources,
-A9), ``--model`` (the serializer, A9), ``--distributed`` for
-``lenet-test`` (A4), and for ``transformer-train`` ``--pp`` above 1
-(A7).  ``transformer-train --sp N`` trains sequence-parallel
-(``StrategyOptimizer``, ring attention) on a ``(world // N, N)``
-``("data", "seq")`` mesh over the world ``utils.engine.Engine`` joins,
-with JAX's shape checks and messages, Adam and full batches only.
+A9), ``--model`` (the serializer, A9) and ``--distributed`` for
+``lenet-test`` (A4).  ``transformer-train --sp N`` trains
+sequence-parallel (``StrategyOptimizer``, ring attention) on a
+``(world // N, N)`` ``("data", "seq")`` mesh over the world
+``utils.engine.Engine`` joins, and ``--pp N`` pipelined on a
+``(world // N, N)`` ``("data", "pipe")`` mesh (N microbatches,
+``--pp-schedule``), with JAX's shape checks and messages, Adam and full
+batches only.
 ``--compilationCache`` names JAX's XLA cache: the port has no
 counterpart (its CUDA graphs are captured per run) and ignores it.
 
@@ -298,9 +300,12 @@ def _validate_remat_policy(args):
 
 def cmd_transformer_train(args):
     """TransformerLM on a synthetic next-token corpus, one device, or
-    sequence-parallel over a ``("data", "seq")`` mesh (``--sp N``)."""
+    sequence-parallel over a ``("data", "seq")`` mesh (``--sp N``), or
+    pipelined over a ``("data", "pipe")`` mesh (``--pp N``: N stages, N
+    microbatches, ``--pp-schedule gpipe|1f1b``)."""
     from bigdl_tpu_torch import nn, optim
-    from bigdl_tpu_torch.models.transformer import (synthetic_corpus,
+    from bigdl_tpu_torch.models.transformer import (CONFIGS,
+                                                    synthetic_corpus,
                                                     transformer_lm)
 
     remat_policy = _validate_remat_policy(args)
@@ -319,31 +324,53 @@ def cmd_transformer_train(args):
                 "model-parallel engines address per-block params "
                 "(pp re-stacks blocks by STAGE); train scan-compiled "
                 "models single-device or data-parallel")
-        if args.pp > 1:
-            raise NotImplementedError(
-                "--pp: the pipeline-parallel engines are not ported yet "
-                "(ROADMAP A7)")
+        if args.pp > 1 and remat_policy is not None:
+            # the pipeline drives the blocks itself, never the model's
+            # remat wrapper: the flag would change nothing
+            raise ValueError(
+                "--rematPolicy has no effect under --pp: the pipeline "
+                "engine drives the blocks directly and bypasses the "
+                "model's remat wrapper; drop the flag (sp and "
+                "single-device/dp paths honor it)")
         from bigdl_tpu_torch.utils.engine import Engine
 
         Engine.init(device=args.device)
-        deg = args.sp
+        deg = args.sp if args.sp > 1 else args.pp
         n_dev = Engine.device_count()
         data_deg = n_dev // deg
+        layers = CONFIGS[args.size][2]
         problems = []
         if n_dev % deg:
             problems.append(f"device count {n_dev} % degree {deg} != 0")
-        if seq % args.sp:
+        if args.sp > 1 and seq % args.sp:
             problems.append(f"--seq-len {seq} % sp {args.sp} != 0")
+        if args.pp > 1 and layers % args.pp:
+            problems.append(f"--size {args.size} has {layers} "
+                            f"blocks, not divisible into {args.pp} stages")
+        if args.pp > 1 and args.batch % args.pp:
+            problems.append(f"--batchSize {args.batch} % {args.pp} "
+                            f"microbatches != 0")
+        if (args.pp > 1 and args.batch % args.pp == 0
+                and data_deg and (args.batch // args.pp) % data_deg):
+            problems.append(f"microbatch {args.batch // args.pp} % "
+                            f"data-parallel degree {data_deg} != 0")
         if data_deg and args.batch % data_deg:
             problems.append(f"--batchSize {args.batch} % data-parallel "
                             f"degree {data_deg} != 0")
         if problems:
             raise ValueError("model-parallel shape requirements: "
                              + "; ".join(problems))
-        mesh = Engine.build_mesh((data_deg, deg), ("data", "seq"))
+        axis = "seq" if args.sp > 1 else "pipe"
+        mesh = Engine.build_mesh((data_deg, deg), ("data", axis))
         model = transformer_lm(args.size, vocab, max_len=seq,
-                               device=args.device, seq_axis_name="seq",
+                               device=args.device,
+                               seq_axis_name="seq" if args.sp > 1 else None,
                                scan_layers=False, remat_policy=remat_policy)
+        strategy_kw = {"strategy": "sp" if args.sp > 1 else "pp",
+                       "mesh": mesh}
+        if args.pp > 1:
+            strategy_kw.update(n_microbatches=args.pp,
+                               schedule=args.pp_schedule)
         # full batches only: every rank's block has the same shape
         n_full = (len(x) // args.batch) * args.batch
         if n_full == 0:
@@ -351,8 +378,7 @@ def cmd_transformer_train(args):
         x, y = x[:n_full], y[:n_full]
         opt = _build_optimizer(args, model, _to_dataset(x, y, args.batch),
                                None, crit, optim.Adam(learning_rate=args.lr),
-                               [], strategy_kw={"strategy": "sp",
-                                                "mesh": mesh})
+                               [], strategy_kw=strategy_kw)
         opt.optimize()
         return opt
     model = transformer_lm(args.size, vocab, max_len=seq,
@@ -472,7 +498,11 @@ def main(argv=None):
                         "jax.checkpoint_policies name, e.g. dots_saveable, "
                         "nothing_saveable)")
     p.add_argument("--sp", type=int, default=1)
-    p.add_argument("--pp", type=int, default=1)
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages (data x pipe mesh; "
+                        "microbatches = stages)")
+    p.add_argument("--pp-schedule", default="gpipe",
+                   choices=["gpipe", "1f1b"], dest="pp_schedule")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the kernels' plain versions)")

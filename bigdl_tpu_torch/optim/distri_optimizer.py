@@ -49,7 +49,8 @@ into full flat vectors, and the manifest's ``layout`` block
 (``LayoutSpec.dp``'s keys).  A resume takes the same layout, or another
 rank count by refitting the padding (``refit_flat_plane``) and
 re-partitioning the residual (``repartition_ef_residual``); a layout of
-another kind is refused (ROADMAP A7).
+another kind is refused with JAX's ``redistribute`` message ("cannot
+redistribute ... directly": a tree does not become a flat plane).
 
 Not ported: orbax sharded snapshots (ROADMAP A4; the card's machine has
 no orbax), the step's ``health_stats`` (ROADMAP A8), multi-host
@@ -79,6 +80,7 @@ from bigdl_tpu_torch.optim.regularizer import (has_regularizers,
                                                regularization_loss)
 from bigdl_tpu_torch.optim.train_step import _forward
 from bigdl_tpu_torch.parallel.collectives import Collectives
+from bigdl_tpu_torch.parallel.reshard import LayoutSpec, redistribute
 from bigdl_tpu_torch.parallel.zero import (FlatParamSpace, rank_rows,
                                            refit_flat_plane,
                                            repartition_ef_residual)
@@ -291,13 +293,13 @@ class DistriOptimizer(BaseOptimizer):
         from bigdl_tpu_torch.interop.jax_params import (from_jax_opt_state,
                                                         load_jax_state)
 
-        layout = (file_io.read_manifest(self._resume_path) or {}) \
-            .get("layout") or {}
-        if layout.get("kind", "dp") != "dp":
-            raise UnsupportedFeatureError(
-                f"{self._resume_path} was written under a "
-                f"{layout['kind']!r} layout: resuming across layouts "
-                f"(parallel/reshard) is not ported (ROADMAP A7)")
+        src = LayoutSpec.from_manifest(
+            (file_io.read_manifest(self._resume_path) or {}).get("layout"))
+        if src is not None and src.kind != "dp":
+            # what JAX's redistribute accepts onto a dp layout: dp only
+            redistribute(snap["model_params"], src,
+                         LayoutSpec.dp(coll.world, flat_space.padded_size,
+                                       flat_space.true_size))
         mp = snap["model_params"]
         if not (isinstance(mp, dict) and "model_params_flat" in mp):
             raise ConfigurationError(

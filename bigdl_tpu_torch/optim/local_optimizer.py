@@ -54,7 +54,7 @@ loop.
 Not ported yet (each raises or is absent): sharded (orbax) checkpoints
 (refused, as JAX's ``LocalOptimizer`` refuses them), telemetry and
 health monitoring (ROADMAP A8); ``strategy=`` routes to
-``optim/strategy_optimizer.py`` (tp, sp, ep; pp is ROADMAP A7).
+``optim/strategy_optimizer.py`` (tp, sp, ep, pp).
 """
 
 import gc
@@ -829,10 +829,11 @@ class Optimizer:
     or on the device asked for; with ``distributed=True`` (or
     ``strategy="dp"``, its options forwarded) a ``DistriOptimizer`` over
     the process group (``utils.engine.Engine``; a world of one when none
-    is initialized); with ``strategy="tp"``, ``"sp"`` or ``"ep"`` a
-    ``StrategyOptimizer`` over ``mesh=`` (``Engine.build_mesh``), its
-    options (``data_axis``, ``seq_axis``, ``rules``, ``aux_weight``)
-    forwarded.  ``strategy="pp"`` is not ported yet (ROADMAP A7)."""
+    is initialized); with ``strategy="tp"``, ``"sp"``, ``"ep"`` or
+    ``"pp"`` a ``StrategyOptimizer`` over ``mesh=``
+    (``Engine.build_mesh``), its options (``data_axis``, ``seq_axis``,
+    ``rules``, ``aux_weight``, ``pipe_axis``, ``n_microbatches``,
+    ``schedule``) forwarded."""
 
     def __new__(cls, model=None, dataset=None, criterion=None,
                 optim_method=None, distributed=None, strategy=None,
@@ -853,6 +854,6 @@ class Optimizer:
         if strategy_kw:
             raise TypeError(
                 f"unexpected arguments {sorted(strategy_kw)}; pass "
-                "strategy= ('dp', 'tp', 'sp' or 'ep') to route them")
+                "strategy= ('dp', 'tp', 'sp', 'ep' or 'pp') to route them")
         return LocalOptimizer(model, dataset, criterion, optim_method,
                               device=device)

@@ -15,29 +15,35 @@ checkpoints, resume and the retry loop -- over a named mesh
   (``parallel/sequence.py``; the model's ``seq_mode`` picks the
   pattern), optionally with ``"data"``;
 - ``ep``: expert parallelism for MoE models over ``"expert"``
-  (``parallel/ep.py``), optionally with ``"data"``.
+  (``parallel/ep.py``), optionally with ``"data"``;
+- ``pp``: pipeline parallelism for TransformerLM over ``"pipe"``
+  (``parallel/pp.py``: GPipe or 1F1B, ``n_microbatches=``,
+  ``schedule=``), optionally with ``"data"``.
 
 Every rank builds the same model and iterates the same seeded dataset;
 the driver loop stages this rank's block of each global batch (its
-``"data"`` rows; under sp also its ``"seq"`` columns).  The step runs
+``"data"`` rows; under sp also its ``"seq"`` columns; under pp its rows
+of every microbatch).  The step runs
 through ``optim/graphs.py``'s ``CompiledTrainStep``: on NCCL one CUDA
 graph per batch shape, the collectives captured inside it, as
 ``DistriOptimizer``'s step (warm-up steps launch them eagerly first);
 on gloo eagerly.
 
-Checkpoints are JAX's pickle: the logical parameter and optimizer
-trees in JAX's keys (each sharded leaf gathered first), ``()`` module
-state, and the manifest's ``layout`` block (``_layout_spec``, JAX's
+Checkpoints are JAX's pickle: the parameter and optimizer trees in
+the strategy's native layout and JAX's keys (tp, sp, ep: the logical
+trees, each sharded leaf gathered first; pp: stage-stacked, each
+stage's blocks gathered over the pipe), ``()`` module state, and the
+manifest's ``layout`` block (``_layout_spec``, JAX's
 ``LayoutSpec.to_manifest()``), so a checkpoint resumes in either
-package.  A resume under the same layout continues the run; one whose
-layout differs is refused until ``parallel/reshard``'s redistribution
-is ported (ROADMAP A7).  Validation runs on the gathered logical
-parameters in the model itself (tp, ep), or under the mesh with the
-blocks' logits gathered (sp); the model holds the logical parameters
-after ``optimize()``.
+package.  A resume under another layout is redistributed onto the run's
+first (``parallel/reshard.redistribute``, as JAX :475-489).  Validation
+runs on the gathered logical parameters in the model itself (tp, ep,
+pp), or under the mesh with the blocks' logits gathered (sp); the model
+holds the logical parameters after ``optimize()``.
 
-Not ported: ``strategy="pp"`` and ``pp_het`` (ROADMAP A7), orbax
-sharded snapshots (A4), the health probe (A8).
+Not ported: pp with tensor parallelism and the heterogeneous Sequential
+pipeline (``pp_het``; ROADMAP A7), orbax sharded snapshots (A4), the
+health probe (A8).
 """
 
 import logging
@@ -52,7 +58,8 @@ from bigdl_tpu_torch.optim.optim_method import (CompositeOptimMethod, Fused,
                                                 clip_by_value)
 from bigdl_tpu_torch.parallel.reshard import (LayoutSpec,
                                               detect_block_layout,
-                                              detect_num_experts)
+                                              detect_num_experts,
+                                              redistribute)
 from bigdl_tpu_torch.utils import file_io
 from bigdl_tpu_torch.utils.engine import Engine
 from bigdl_tpu_torch.utils.errors import UnsupportedFeatureError
@@ -170,6 +177,60 @@ class _Plan:
             else:
                 self.opt_state[k].copy_(v)
 
+    def to_native(self, tree):
+        """Model-layout trees (``{"params", "opt_state"}`` in JAX's keys)
+        -> the strategy's checkpoint layout: the same trees here."""
+        return tree
+
+    def from_native(self, tree):
+        return tree
+
+
+class _PipePlan(_Plan):
+    """The pp wiring: ``local`` is this rank's ``PipelineStage``; the
+    logical trees gather every stage's blocks over ``collectives`` (the
+    pipe); checkpoints hold JAX's stage-stacked trees (``layout``)."""
+
+    def __init__(self, stage, step, opt_state, select, collectives, layout):
+        super().__init__(stage, step, opt_state, select,
+                         collectives=collectives)
+        self.layout = layout
+
+    def logical_params(self):
+        from bigdl_tpu_torch.parallel.pp import gather_logical
+
+        return gather_logical(self.local, {
+            k: p.detach() for k, p in self.local.named_parameters()},
+            self.collectives)
+
+    def logical_opt(self, state):
+        from bigdl_tpu_torch.parallel.pp import gather_logical
+
+        return {k: gather_logical(self.local, v, self.collectives)
+                if isinstance(v, dict) else v for k, v in state.items()}
+
+    @torch.no_grad()
+    def load_logical(self, params, opt_state):
+        from bigdl_tpu_torch.parallel.pp import local_of
+
+        for k, p in self.local.named_parameters():
+            p.copy_(params[self.local.logical_name(k)])
+        for k, v in opt_state.items():
+            if isinstance(v, dict):
+                for n, t in local_of(self.local, v).items():
+                    self.opt_state[k][n].copy_(t)
+            else:
+                self.opt_state[k].copy_(v)
+
+    def to_native(self, tree):
+        return redistribute(tree, LayoutSpec.replicated("unrolled"),
+                            self.layout, what="pp-checkpoint")
+
+    def from_native(self, tree):
+        return redistribute(tree, self.layout,
+                            LayoutSpec.replicated("unrolled"),
+                            what="pp-resume")
+
 
 class StrategyOptimizer(BaseOptimizer):
     """Driver loop for the model-parallel strategies (module docstring).
@@ -215,11 +276,43 @@ class StrategyOptimizer(BaseOptimizer):
                 f"strategy={strategy!r} does not understand "
                 f"{sorted(unknown)}; accepted options: "
                 f"{sorted(_STRATEGY_KW[strategy])}")
-        if strategy == "pp":
-            raise UnsupportedFeatureError(
-                "strategy='pp': the pipeline engines (GPipe, 1F1B, pp+tp, "
-                "heterogeneous Sequential) are not ported yet (ROADMAP A7)")
         self.strategy_kw = dict(strategy_kw)
+        if strategy == "pp":
+            self._check_pp(model, strategy_kw)
+
+    def _check_pp(self, model, kw):
+        """pp's configuration checks, at construction (JAX :127-150),
+        and the uneven cut, which JAX does not check."""
+        from bigdl_tpu_torch.nn.attention import TransformerLM
+        from bigdl_tpu_torch.nn.containers import Sequential
+        from bigdl_tpu_torch.parallel.pp import layers_per_stage
+
+        schedule = kw.get("schedule", "gpipe")
+        if schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"unknown pp schedule {schedule!r}; "
+                             "expected 'gpipe' or '1f1b'")
+        is_sequential = isinstance(model, Sequential)
+        if not is_sequential and kw.get("boundaries") is not None:
+            raise TypeError(
+                "boundaries= applies to Sequential (heterogeneous) "
+                "pipelining; stage-stacked transformer models split "
+                "evenly by block count")
+        if is_sequential:
+            raise UnsupportedFeatureError(
+                "strategy='pp' on a Sequential: the heterogeneous "
+                "pipeline (parallel/pp_het.py) is not ported yet "
+                "(ROADMAP A7)")
+        if kw.get("tensor_parallel", False):
+            raise UnsupportedFeatureError(
+                "strategy='pp' with tensor_parallel=True (pp_tp_shardings "
+                "on a 3-D mesh) is not ported yet (ROADMAP A7)")
+        pipe_axis = kw.get("pipe_axis", "pipe")
+        if pipe_axis not in self.mesh.shape:
+            raise ValueError(f"pipe_axis={pipe_axis!r} is not an axis of "
+                             f"the mesh {tuple(self.mesh.axis_names)}")
+        if isinstance(model, TransformerLM):
+            layers_per_stage(len(model.blocks),
+                             self.mesh.axis_size(pipe_axis))
 
     def set_sharded_checkpoint(self, path, trigger):
         """Refused: orbax sharded snapshots are not ported (ROADMAP A4:
@@ -237,6 +330,10 @@ class StrategyOptimizer(BaseOptimizer):
         mesh_axes = {a: int(self.mesh.shape[a])
                      for a in self.mesh.axis_names}
         kw = self.strategy_kw
+        if self.strategy == "pp":
+            pipe_axis = kw.get("pipe_axis", "pipe")
+            return LayoutSpec.pp(mesh_axes, self.mesh.axis_size(pipe_axis),
+                                 pipe_axis, False)
         tree = self.model.parameters_tree()
         if self.strategy == "tp":
             from bigdl_tpu_torch.parallel.tp import TRANSFORMER_TP_RULES
@@ -282,13 +379,16 @@ class StrategyOptimizer(BaseOptimizer):
         from bigdl_tpu_torch.parallel.strategy_step import logical_sq_norm
 
         mesh, kw, cdt = self.mesh, self.strategy_kw, self.compute_dtype
-        if self.strategy in ("tp", "ep"):
+        if self.strategy in ("tp", "ep", "pp"):
             if isinstance(self.optim_method, (Fused, CompositeOptimMethod)):
                 raise UnsupportedFeatureError(
                     f"strategy={self.strategy!r} shards each parameter's "
                     f"optimizer state with the parameter; "
                     f"{type(self.optim_method).__name__} keeps its state "
                     f"over the whole tree -- use a per-parameter method")
+        if self.strategy == "pp":
+            return self._prepare_pp()
+        if self.strategy in ("tp", "ep"):
             axis = _AXIS[self.strategy]
             if self.strategy == "tp":
                 from bigdl_tpu_torch.parallel.tp import (
@@ -345,6 +445,31 @@ class StrategyOptimizer(BaseOptimizer):
                      lambda tree: shard_tokens(tree, mesh, seq_axis,
                                                self.data_axis))
 
+    def _prepare_pp(self):
+        from bigdl_tpu_torch.parallel.pp import (init_pp_opt_state,
+                                                 make_pp_1f1b_train_step,
+                                                 make_pp_train_step,
+                                                 pp_rows, pp_sq_norm)
+
+        kw = self.strategy_kw
+        pipe_axis = kw.get("pipe_axis", "pipe")
+        pipe = self.mesh.collectives(pipe_axis)
+        n_micro = int(kw.get("n_microbatches", pipe.world))
+        make = make_pp_1f1b_train_step if kw.get("schedule") == "1f1b" \
+            else make_pp_train_step
+        step = make(self.model, self.criterion,
+                    self._clipping(lambda g: pp_sq_norm(g, pipe)),
+                    self.mesh, n_micro, pipe_axis=pipe_axis,
+                    data_axis=self.data_axis,
+                    compute_dtype=self.compute_dtype)
+        d = self.data_axis
+        index = self.mesh.axis_index(d) if d is not None else 0
+        size = self.mesh.axis_size(d) if d is not None else 1
+        return _PipePlan(step.stage, step,
+                         init_pp_opt_state(self.optim_method, step.stage),
+                         lambda tree: pp_rows(tree, n_micro, index, size),
+                         pipe, self._layout_spec())
+
     @torch.no_grad()
     def _sync_model(self, plan):
         """The logical parameters copied into ``self.model`` (every rank
@@ -356,25 +481,29 @@ class StrategyOptimizer(BaseOptimizer):
             p.copy_(logical[k])
 
     def _load_snapshot(self, plan):
-        """A snapshot of this run's layout (or a legacy one with none)
-        into the model, the rank's pieces and the optimizer state."""
+        """A snapshot into the model, the rank's pieces and the optimizer
+        state: one of another layout is first redistributed onto this
+        run's (JAX :475-489; a legacy one without a layout is taken as
+        this run's)."""
         from bigdl_tpu_torch.interop.jax_params import (from_jax_opt_state,
                                                         load_jax_params)
 
         snap = self._resume
+        saved = {"params": snap["model_params"],
+                 "opt_state": snap["opt_state"]}
         src = LayoutSpec.from_manifest(
             (file_io.read_manifest(self._resume_path) or {}).get("layout"))
         dst = self._layout_spec()
         if src is not None and src != dst:
-            raise UnsupportedFeatureError(
-                f"{self._resume_path} was written under layout "
-                f"{src.describe()} and this run uses {dst.describe()}: "
-                f"resuming across layouts (parallel/reshard redistribute) "
-                f"is not ported (ROADMAP A7)")
-        load_jax_params(self.model, snap["model_params"])
-        opt = from_jax_opt_state(self.optim_method, snap["opt_state"],
+            saved = redistribute(saved, src, dst,
+                                 what=f"{self.strategy}-resume")
+            log.info("resumed %s across layouts: %s -> %s",
+                     self._resume_path, src.describe(), dst.describe())
+        saved = plan.from_native(saved)
+        load_jax_params(self.model, saved["params"])
+        opt = from_jax_opt_state(self.optim_method, saved["opt_state"],
                                  self.device,
-                                 jax_params=snap["model_params"],
+                                 jax_params=saved["params"],
                                  model=self.model)
         plan.load_logical(dict(self.model.named_parameters()), opt)
         self._apply_driver_state(snap["driver_state"])
@@ -392,11 +521,14 @@ class StrategyOptimizer(BaseOptimizer):
         if self.mesh.rank == 0:
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
+            native = plan.to_native({
+                "params": to_jax_params(self.model),
+                "opt_state": to_jax_opt_state(self.optim_method, opt,
+                                              self.model)})
             file_io.save_checkpoint(
                 self.checkpoint_path, self.driver_state["neval"],
-                to_jax_params(self.model), to_jax_state(self.model),
-                to_jax_opt_state(self.optim_method, opt, self.model),
-                self.driver_state,
+                native["params"], to_jax_state(self.model),
+                native["opt_state"], self.driver_state,
                 manifest_meta={"layout": self._layout_spec().to_manifest()})
         self._barrier()
 
@@ -453,6 +585,12 @@ class StrategyOptimizer(BaseOptimizer):
         first_batch = next(train_iter)
         self._check_stateless()
         if self._optim_methods_map:
+            if self.strategy == "pp":
+                raise UnsupportedFeatureError(
+                    "set_optim_methods addresses the model's own tree; "
+                    "pipeline layouts restructure it (stage-stacked / "
+                    "per-stage subtrees) -- use sp or the local path "
+                    "for per-submodule methods")
             if self.strategy in ("tp", "ep"):
                 raise UnsupportedFeatureError(
                     "set_optim_methods on the tp/ep paths would fall "

@@ -3,8 +3,8 @@
 parameter plane (counterparts of the JAX package's ``shard_map``
 collectives, ``jax.sharding.Mesh`` and ``parallel/zero.py``), and the
 model-parallel strategies' modules (``tp``, ``sequence``,
-``ring_attention``, ``ulysses``, ``ep``, ``reshard``; imported by
-name)."""
+``ring_attention``, ``ulysses``, ``ep``, ``pp``, ``reshard``; imported
+by name)."""
 
 from bigdl_tpu_torch.parallel.collectives import (AllToAll, Collectives,
                                                   CopyToAxis, PMean,

@@ -2,7 +2,9 @@
 ``sequence.py``, ``ep.py``): the port's counterpart of the jitted
 ``step(params, opt_state, x, y, rng)`` bodies of the JAX package's
 ``make_tp_train_step``, ``make_sp_train_step`` and
-``make_ep_train_step``.
+``make_ep_train_step``; and the pieces ``parallel/pp.py``'s pipeline
+step takes from it (``refuse_frozen``, ``step_dropout_key``,
+``reduce_flat``, ``logical_sq_norm``).
 
 One step on this rank: the forward and backward of the rank's model
 (its local copy under tp and ep, the model itself under sp) inside the
@@ -67,17 +69,33 @@ def logical_sq_norm(grads, sharded):
     return total
 
 
-def _pmean_flat(grads, collectives):
-    """Every gradient replaced by its mean over ``collectives``, through
-    one all-reduce of their concatenation."""
-    names = list(grads)
-    flat = torch.cat([grads[k].reshape(-1) for k in names])
-    flat = collectives.pmean(flat)
+def reduce_flat(tensors, collectives, mean=False):
+    """Every value of the dict ``tensors`` replaced by its sum (with
+    ``mean``: its mean) over ``collectives``, through one all-reduce of
+    their concatenation (the new values are views of its result)."""
+    names = list(tensors)
+    flat = collectives.psum(torch.cat([tensors[k].reshape(-1)
+                                       for k in names]))
+    if mean:
+        flat /= collectives.world
     at = 0
     for k in names:
-        n = grads[k].numel()
-        grads[k] = flat[at:at + n].view_as(grads[k])
+        n = tensors[k].numel()
+        tensors[k] = flat[at:at + n].view_as(tensors[k])
         at += n
+
+
+def step_dropout_key(model, key_index=0):
+    """The step's dropout key for ``model`` (None when no module of it
+    draws a mask): drawn from the port's random stream, offset by
+    ``key_index`` (a rank's place on the axes whose ranks see different
+    rows) times an odd constant."""
+    if not _dropout.uses_dropout(model):
+        return None
+    _dropout.salt_by_path(model)
+    key = _dropout.new_step_key(RNG.next_generator(),
+                                next(model.parameters()).device)
+    return key.add_(int(key_index) * _KEY_STRIDE)
 
 
 def make_mesh_train_step(model, loss_fn, optim_method, mesh,
@@ -96,12 +114,7 @@ def make_mesh_train_step(model, loss_fn, optim_method, mesh,
     params = dict(model.named_parameters())
     red = mesh.collectives(*reduce_axes) if reduce_axes else None
     kw = dict(forward_kw or {})
-    key = None
-    if _dropout.uses_dropout(model):
-        _dropout.salt_by_path(model)
-        key = _dropout.new_step_key(RNG.next_generator(),
-                                    next(model.parameters()).device)
-        key.add_(int(key_index) * _KEY_STRIDE)
+    key = step_dropout_key(model, key_index)
 
     def step(opt_state, input, target):
         model.train()
@@ -122,7 +135,7 @@ def make_mesh_train_step(model, loss_fn, optim_method, mesh,
         with torch.no_grad():
             loss = loss.detach().float()
             if red is not None and red.world > 1:
-                _pmean_flat(grads, red)
+                reduce_flat(grads, red, mean=True)
                 loss = red.pmean(loss)
         optim_method.update(grads, opt_state, params)
         return opt_state, loss

@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port (``bigdl_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 17,18    # those phases alone
 
-Phases, each printing JSON lines:
+Phases, each printing JSON lines (``--phases`` runs phases 17 and/or 18
+after the build, then the device line, with no kernels line):
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions, TF32 switched off;
@@ -401,9 +403,24 @@ Phases, each printing JSON lines:
     vocabulary-parallel K4/K5 on half of (8192, 32000) logits against
     their plain versions and against K4/K5 on the whole logits
     (``STRAT_CE_TOL``); (c) the tp world-2 checkpoint (after 2 steps)
-    carries JAX's ``layout`` block, resumed at the same layout it
-    continues the straight run, and resumed at world 1 it is refused
-    naming ROADMAP A7.
+    carries JAX's ``layout`` block, and resumed at the same layout, and
+    at world 1 (redistributed onto tp (1, 1)), it continues the
+    straight run.
+
+18. pipeline parallelism (``parallel/pp.py`` behind
+    ``Optimizer(strategy="pp")``): (a) "small" at phase 7's setting
+    (B8 T1024, fp32, ``Adam(1e-4)``, seed 0) at a world of one on NCCL
+    on ``("data", "pipe")`` = (1, 1), 4 microbatches, GPipe and 1F1B, 4
+    steps each, against ``LocalOptimizer`` on the same weights and
+    batches (``PP_LOSS_RTOL``, ``PP_UPD``); the step one CUDA graph; K1,
+    K1-bwd, K4 and K5 counted through the replays against the counts
+    JAX's schedules give (``PP_WANT``); step time, tokens/s, peak memory
+    (1F1B's below GPipe's) and the graph pool; (b) a world of two gloo
+    processes sharing the card (``--pp-rank``), "small"'s width at depth
+    4 (two blocks a stage), 3 steps of each schedule on (1, 2), against
+    (a)'s code at world 1 on the same model; (c) (b)'s GPipe checkpoint
+    (after 2 steps, JAX's pp layout block) resumed at world 1 as pp
+    (1, 1) and as tp (1, 1), against the straight world-2 run.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -7161,9 +7178,9 @@ def strategy_phase(fa, ce, card):
     import shutil
     import tempfile
 
+    from bigdl_tpu_torch import optim
     from bigdl_tpu_torch.models import synthetic_corpus
     from bigdl_tpu_torch.utils.engine import Engine
-    from bigdl_tpu_torch.utils.errors import UnsupportedFeatureError
 
     t_phase = time.perf_counter()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_strategies_"))
@@ -7214,8 +7231,9 @@ def strategy_phase(fa, ce, card):
                 any(not r["sentinel_rows"] for r in ce_rows):
             raise AssertionError(f"vocabulary-parallel K4/K5: {ce_rows}")
 
-        # (c) the checkpoint: JAX's layout block; the same layout resumed
-        # continues the straight run; world 1 refuses it
+        # (c) the checkpoint: JAX's layout block; resumed at the same
+        # layout, and at world 1 (redistributed), it continues the
+        # straight run
         from bigdl_tpu_torch.parallel.reshard import LayoutSpec
         from bigdl_tpu_torch.parallel.tp import TRANSFORMER_TP_RULES
 
@@ -7226,16 +7244,21 @@ def strategy_phase(fa, ce, card):
         straight = [r["tp"]["losses"] for r in ranks]
         flat_r = torch.from_numpy(np.load(out / "flat_tp_resume.npy"))
         flat_s = torch.from_numpy(np.load(out / "flat_tp.npy"))
-        refused = None
         mesh = Engine.build_mesh((1, 1), ("data", "model"))
         model = _strategy_model("tp", seed=1)
         opt = _strategy_opt("tp", model, x, y, mesh)
+        summary = _Losses()
+        opt.set_train_summary(summary)
         opt.resume_from_checkpoint(str(ckpt))
-        try:
-            opt.optimize()
-        except UnsupportedFeatureError as e:
-            refused = str(e)
+        opt.set_end_when(optim.Trigger.max_iteration(STRAT_W2_STEPS))
+        opt.optimize()
+        world1 = {"losses": summary.scalars["Loss"],
+                  "neval": opt.driver_state["neval"],
+                  "param_update_rel": _update_rel(
+                      _flat_params(model).detach().cpu().numpy(),
+                      flat_s.numpy(), legs["tp"]["start"].numpy())}
         del model, opt, mesh
+        gc.collect()
         torch.cuda.empty_cache()
         c_row = {"phase": "strategy_checkpoint",
                  "layout": ranks[0]["tp_layout"],
@@ -7246,18 +7269,350 @@ def strategy_phase(fa, ce, card):
                  "resumed_param_rel_l2": rel_l2(flat_r, flat_s),
                  "bitwise": resumed[0] == straight[0][STRAT_W2_CKPT_AT - 1:]
                  and torch.equal(flat_r, flat_s),
-                 "world1_refusal": refused, "card": card}
+                 "world1_resumed": world1, "card": card}
         emit(c_row)
         if not c_row["layout_is_jax"] or \
                 c_row["resumed_neval"] != STRAT_W2_STEPS + 1 or \
                 _max_step_rel(resumed[0], c_row["straight_tail"]) > \
                 STRAT_W2_LOSS_RTOL or \
                 c_row["resumed_param_rel_l2"] > STRAT_W2_LOSS_RTOL or \
-                refused is None or "A7" not in refused:
+                world1["neval"] != STRAT_W2_STEPS + 1 or \
+                _max_step_rel(world1["losses"], c_row["straight_tail"]) > \
+                STRAT_W2_LOSS_RTOL or world1["param_update_rel"] > \
+                STRAT_W2_UPD:
             raise AssertionError(f"strategy checkpoints: {c_row}")
         emit({"phase": "strategy_done", "world2_s": w2_s,
               "seconds": time.perf_counter() - t_phase, "card": card})
         return paths, rows
+    finally:
+        Engine.reset()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------- #
+# Phase 18: pipeline parallelism (parallel/pp.py, strategy="pp")
+# --------------------------------------------------------------------------- #
+
+#: (a) steps a schedule at world 1; (b) steps at world 2, the GPipe
+#: leg's checkpoint (neval 3, after 2 steps) that (c) resumes
+PP_STEPS, PP_W2_STEPS, PP_CKPT_AT = 4, 3, 3
+#: microbatches a step, and the depth of (b)'s model (two blocks a stage)
+PP_MICRO, PP_W2_LAYERS = 4, 4
+PP_SCHEDULES = ("gpipe", "1f1b")
+#: the kernels a step launches (derived from JAX's schedules, not
+#: measured): every block once a microbatch forward (1F1B twice: its
+#: forward and the recompute for the backward leg) and once backward;
+#: the tail's K4 and K5 once a step over the concatenated microbatches
+#: (GPipe), once a microbatch (1F1B)
+PP_WANT = {"gpipe": {_K1: 12 * PP_MICRO, _K1B: 12 * PP_MICRO, _K4: 1,
+                     _K5: 1},
+           "1f1b": {_K1: 2 * 12 * PP_MICRO, _K1B: 12 * PP_MICRO,
+                    _K4: PP_MICRO, _K5: PP_MICRO}}
+#: (a) against LocalOptimizer (phase 17's tolerances: losses, and the
+#: parameters relative to the reference's update); (b) world 2 against
+#: (a)'s code at world 1 on the same 4-layer model; (c) a resume across
+#: layouts against the straight world-2 run
+PP_LOSS_RTOL, PP_UPD, PP_W2_UPD = 1e-5, 1e-2, 5e-3
+PP_CHILD_TIMEOUT_S = 300
+
+
+def _pp_model(layers=12, seed=0):
+    from bigdl_tpu_torch.nn import TransformerLM
+
+    return TransformerLM(VOCAB, 768, HEADS, layers, max_len=SEQ,
+                         device="cuda", seed=seed)
+
+
+def _pp_opt(model, x, y, mesh, schedule, strategy="pp"):
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+
+    kw = {"n_microbatches": PP_MICRO, "schedule": schedule} \
+        if strategy == "pp" else {}
+    return optim.Optimizer(
+        model, array_dataset(x, y) >> SampleToMiniBatch(BATCH), _lm_crit(),
+        optim.Adam(learning_rate=1e-4), strategy=strategy, mesh=mesh, **kw)
+
+
+def _pp_timed(opt, steps):
+    """``opt.optimize()`` for ``steps`` steps; the losses and the mean
+    step time over steps 2 to the last (each a replay on NCCL)."""
+    summary = _Losses()
+    opt.set_train_summary(summary)
+    clock = StepClock(opt, steps, sync_at=(1, steps))
+    opt.set_end_when(clock)
+    torch.cuda.synchronize()
+    opt.optimize()
+    torch.cuda.synchronize()
+    step_s = (clock.marks[steps][0] - clock.marks[1][0]) / (steps - 1)
+    return {"losses": summary.scalars["Loss"], "step_s": step_s}
+
+
+def pp_world1(fa, ce, card, x, y):
+    """Phase 18 (a): "small" pipelined at a world of one on NCCL, GPipe
+    and 1F1B, against LocalOptimizer on the same weights and batches;
+    launches counted through the replays.  Returns the launch counts by
+    path and each schedule's peak memory."""
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.utils import cuda_graphs
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    model = _pp_model()
+    start = _flat_params(model).detach().cpu()
+    opt = optim.Optimizer(model, array_dataset(x, y) >> SampleToMiniBatch(
+        BATCH), _lm_crit(), optim.Adam(learning_rate=1e-4))
+    torch.cuda.reset_peak_memory_stats()
+    ref = _pp_timed(opt, PP_STEPS)
+    ref.update(flat=_flat_params(model).detach().cpu(),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths, peaks = {}, {}
+    for schedule in PP_SCHEDULES:
+        mesh = Engine.build_mesh((1, 1), ("data", "pipe"))
+        model = _pp_model()
+        opt = _pp_opt(model, x, y, mesh, schedule)
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        ce.reset_launch_counts()
+        captures = cuda_graphs.capture_count()
+        # ---- the pipeline's main path: counts read right after ----------
+        run = _pp_timed(opt, PP_STEPS)
+        launches = _strategy_counts(fa, ce)
+        # ------------------------------------------------------------------
+        stats = opt.compiled_stats
+        peaks[schedule] = torch.cuda.max_memory_allocated()
+        flat = _flat_params(model).detach().cpu()
+        step_rel = _max_step_rel(run["losses"], ref["losses"])
+        upd = _update_rel(flat.numpy(), ref["flat"].numpy(), start.numpy())
+        want = {k: n * PP_STEPS for k, n in PP_WANT[schedule].items()}
+        got = {k: launches.get(k, 0) for k in want}
+        row = {"phase": "pp_world1", "schedule": schedule,
+               "mesh": dict(mesh.shape), "microbatches": PP_MICRO,
+               "backend": torch.distributed.get_backend(),
+               "route": opt.captured_route, "graphs": stats["captured"],
+               "replays": stats["replays"],
+               "captures": cuda_graphs.capture_count() - captures,
+               "graph_pool_bytes": stats["pool_bytes"],
+               "step_s": run["step_s"],
+               "tokens_per_s": BATCH * SEQ / run["step_s"],
+               "reference_step_s": ref["step_s"],
+               "reference_tokens_per_s": BATCH * SEQ / ref["step_s"],
+               "peak_allocated_bytes": peaks[schedule],
+               "reference_peak_allocated_bytes": ref["peak_bytes"],
+               "losses": run["losses"], "reference_losses": ref["losses"],
+               "max_step_loss_rel": step_rel, "param_update_rel": upd,
+               "tolerance": {"loss": PP_LOSS_RTOL, "update": PP_UPD},
+               "launches": got, "want": want, "card": card}
+        emit(row)
+        if len(run["losses"]) != PP_STEPS or step_rel > PP_LOSS_RTOL or \
+                upd > PP_UPD:
+            raise AssertionError(f"pp {schedule} world 1 against "
+                                 f"LocalOptimizer: {row}")
+        if stats["captured"] != 1 or stats["replays"] != PP_STEPS or \
+                opt.captured_route != "nccl-graph":
+            raise AssertionError(f"pp {schedule}: the step was not one "
+                                 f"captured graph: {row}")
+        if got != want:
+            raise AssertionError(f"pp {schedule} launches {got}, want "
+                                 f"{want}")
+        paths[f"pp_{schedule}"] = got
+        del model, opt, mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+    if peaks["1f1b"] >= peaks["gpipe"]:
+        raise AssertionError(f"1F1B's peak {peaks['1f1b']} is not below "
+                             f"GPipe's {peaks['gpipe']} at M={PP_MICRO}")
+    return paths, peaks
+
+
+def pp_shallow(x, y, schedule, steps=PP_W2_STEPS, mesh_shape=(1, 1),
+               ckpt=None, resume=None, strategy="pp"):
+    """(b)'s 4-layer model at full width through ``strategy`` on a mesh
+    of ``mesh_shape`` over the current world: its losses, wall seconds
+    and final parameters (flat, on the host)."""
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    axes = ("data", "pipe") if strategy == "pp" else ("data", "model")
+    mesh = Engine.build_mesh(mesh_shape, axes)
+    model = _pp_model(PP_W2_LAYERS)
+    opt = _pp_opt(model, x, y, mesh, schedule, strategy)
+    summary = _Losses()
+    opt.set_train_summary(summary)
+    opt.set_end_when(optim.Trigger.max_iteration(steps))
+    if ckpt is not None:
+        opt.set_checkpoint(ckpt, lambda s: s["neval"] == PP_CKPT_AT)
+    if resume is not None:
+        opt.resume_from_checkpoint(resume)
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    out = {"losses": summary.scalars["Loss"],
+           "wall_s": time.perf_counter() - t0, "route": opt.captured_route,
+           "neval": opt.driver_state["neval"],
+           "flat": _flat_params(model).detach().cpu()}
+    del model, opt, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_child(rank, world, init, job_path, out):
+    """Phase 18 (b), one rank of the gloo world sharing the card: GPipe
+    (writing (c)'s checkpoint) and 1F1B on a (1, 2) mesh, ``PP_W2_STEPS``
+    steps each.  Results to ``out/rank<r>.json``; rank 0 also saves each
+    schedule's parameters."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.models import synthetic_corpus
+    from bigdl_tpu_torch.ops import _build
+
+    torch.cuda.set_device(0)
+    _build.load()
+    with open(job_path) as f:
+        job = json.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            world_size=world, rank=rank)
+    out = Path(out)
+    res = {}
+    try:
+        x, y = synthetic_corpus(64, SEQ, VOCAB)
+        for schedule in PP_SCHEDULES:
+            r = pp_shallow(x, y, schedule, mesh_shape=(1, world),
+                           ckpt=job["ckpt"] if schedule == "gpipe" else None)
+            if rank == 0:
+                np.save(out / f"flat_{schedule}.npy", r.pop("flat").numpy())
+            else:
+                r.pop("flat")
+            res[schedule] = r
+    finally:
+        dist.destroy_process_group()
+    with open(out / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _spawn_pp_world(root, job):
+    """Start the two gloo ranks (this script, ``--pp-rank``), wait for
+    them under ``PP_CHILD_TIMEOUT_S``, kill both on a hang or a failure;
+    returns their results and the output directory."""
+    out = root / "w2"
+    out.mkdir()
+    job_path = root / "job.json"
+    job_path.write_text(json.dumps(job))
+    init = root / "rendezvous"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--pp-rank", str(r),
+         "2", str(init), str(job_path), str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = [None, None]
+    try:
+        deadline = time.monotonic() + PP_CHILD_TIMEOUT_S
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"phase 18 world-2 rank {bad[0]} failed:\n"
+                             f"{(logs[bad[0]] or '')[-3000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(2)], out
+
+
+def pp_phase(fa, ce, card):
+    """Phase 18: the pipeline.  Returns the launch counts by path."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.models import synthetic_corpus
+    from bigdl_tpu_torch.parallel.reshard import LayoutSpec
+    from bigdl_tpu_torch.utils import file_io
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pp_"))
+    try:
+        Engine.init()                  # NCCL, a world of one on the card
+        x, y = synthetic_corpus(64, SEQ, VOCAB)
+        paths, peaks = pp_world1(fa, ce, card, x, y)
+        t_a = time.perf_counter() - t_phase
+
+        # (b): the gloo world of two against (a)'s code at world 1 on
+        # the same 4-layer model
+        start = _flat_params(_pp_model(PP_W2_LAYERS)).detach().cpu().numpy()
+        shallow = {s: pp_shallow(x, y, s) for s in PP_SCHEDULES}
+        t0 = time.perf_counter()
+        ckpt = root / "ckpt_pp"
+        ranks, out = _spawn_pp_world(root, {"ckpt": str(ckpt)})
+        w2_s = time.perf_counter() - t0
+        for schedule in PP_SCHEDULES:
+            ref = shallow[schedule]
+            flat = torch.from_numpy(np.load(out / f"flat_{schedule}.npy"))
+            losses = [r[schedule]["losses"] for r in ranks]
+            step_rel = _max_step_rel(losses[0], ref["losses"])
+            row = {"phase": "pp_world2", "schedule": schedule,
+                   "label": "correctness only: two gloo ranks sharing one "
+                            "card, eager, host-routed hops",
+                   "layers": PP_W2_LAYERS, "mesh": {"data": 1, "pipe": 2},
+                   "routes": [r[schedule]["route"] for r in ranks],
+                   "losses": losses[0], "world1_losses": ref["losses"],
+                   "ranks_agree": losses[0] == losses[1],
+                   "max_step_loss_rel": step_rel,
+                   "param_update_rel": _update_rel(
+                       flat.numpy(), ref["flat"].numpy(), start),
+                   "wall_s": [r[schedule]["wall_s"] for r in ranks],
+                   "world1_wall_s": ref["wall_s"],
+                   "tolerance": {"loss": PP_LOSS_RTOL, "update": PP_W2_UPD},
+                   "card": card}
+            emit(row)
+            if len(losses[0]) != PP_W2_STEPS or not row["ranks_agree"] or \
+                    step_rel > PP_LOSS_RTOL or \
+                    row["param_update_rel"] > PP_W2_UPD or \
+                    row["routes"] != ["eager", "eager"]:
+                raise AssertionError(f"pp {schedule} world 2 against world "
+                                     f"1: {row}")
+
+        # (c): the pp (1, 2) checkpoint resumed at world 1 as pp (1, 1)
+        # and as tp (1, 1), against the straight world-2 run
+        intact, _ = file_io.scan_checkpoints(str(ckpt))
+        layout = file_io.read_manifest(intact[0])["layout"]
+        straight = ranks[0]["gpipe"]["losses"]
+        flat_s = torch.from_numpy(np.load(out / "flat_gpipe.npy"))
+        c_row = {"phase": "pp_checkpoint", "layout": layout,
+                 "layout_is_pp2": layout == LayoutSpec.pp(
+                     {"data": 1, "pipe": 2}, 2).to_manifest(),
+                 "straight_tail": straight[PP_CKPT_AT - 1:], "card": card}
+        ok = c_row["layout_is_pp2"]
+        for strategy in ("pp", "tp"):
+            r = pp_shallow(x, y, "gpipe", resume=str(ckpt),
+                           strategy=strategy)
+            c_row[f"{strategy}_resumed"] = {
+                "losses": r["losses"], "neval": r["neval"],
+                "max_step_loss_rel": _max_step_rel(
+                    r["losses"], straight[PP_CKPT_AT - 1:]),
+                "param_update_rel": _update_rel(
+                    r["flat"].numpy(), flat_s.numpy(), start)}
+            res = c_row[f"{strategy}_resumed"]
+            ok = ok and r["neval"] == PP_W2_STEPS + 1 and \
+                len(r["losses"]) == PP_W2_STEPS - PP_CKPT_AT + 1 and \
+                res["max_step_loss_rel"] <= PP_LOSS_RTOL and \
+                res["param_update_rel"] <= PP_W2_UPD
+        emit(c_row)
+        if not ok:
+            raise AssertionError(f"pp checkpoints across layouts: {c_row}")
+        emit({"phase": "pp_done", "world1_s": t_a, "world2_s": w2_s,
+              "peak_allocated_bytes": peaks,
+              "seconds": time.perf_counter() - t_phase, "card": card})
+        return paths
     finally:
         Engine.reset()
         shutil.rmtree(root, ignore_errors=True)
@@ -7276,6 +7631,16 @@ def main():
         # one rank of phase 15's gloo world (started by _spawn_world2)
         return distri_child(int(sys.argv[2]), int(sys.argv[3]),
                             *sys.argv[4:7])
+    if len(sys.argv) > 1 and sys.argv[1] == "--pp-rank":
+        # one rank of phase 18's gloo world (started by _spawn_pp_world)
+        return pp_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    only = None
+    if len(sys.argv) > 2 and sys.argv[1] == "--phases":
+        # a selection of the model-parallel phases alone, after the build
+        only = set(sys.argv[2].split(","))
+        if not only <= {"17", "18"}:
+            raise SystemExit(f"--phases takes 17 and/or 18, not "
+                             f"{sys.argv[2]}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -7304,6 +7669,14 @@ def main():
     emit({"phase": "sass",
           "tensor_core_instructions": tensor_core_instructions(_build,
                                                                libs)})
+    if only is not None:
+        paths = {}
+        if "17" in only:
+            paths.update(strategy_phase(fa, ce, card)[0])
+        if "18" in only:
+            paths.update(pp_phase(fa, ce, card))
+        emit({"selected_phases": sorted(only), "launches_by_path": paths})
+        return _device_line()
 
     rows = kernel_phase(fa, card)
     serving, fp32_tok_s = e2e_phase(fa, card, *serving_models())
@@ -7332,6 +7705,7 @@ def main():
     phase16 = fleet_phase(fa, card)
     phase17, strategy_rows = strategy_phase(fa, ce, card)
     rows.update(strategy_rows)
+    phase18 = pp_phase(fa, ce, card)
 
     attn = "bigdl_tpu_torch/csrc/flash_attention.cu"
     bwd = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -7394,7 +7768,7 @@ def main():
              ("training_bf16", training_bf16), ("int8_serving", int8_serving),
              *phase10.items(), *phase11.items(), *phase13.items(),
              *phase14.items(), *phase15.items(), *phase16.items(),
-             *phase17.items())
+             *phase17.items(), *phase18.items())
     if len(dict(paths)) != len(paths):
         raise AssertionError(f"two paths share a name: "
                              f"{[p for p, _ in paths]}")
@@ -7411,6 +7785,10 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     emit({"kernels": kernels})
+    return _device_line()
+
+
+def _device_line():
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

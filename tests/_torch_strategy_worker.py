@@ -1,6 +1,6 @@
 """One rank of a spawned gloo world for the port's model-parallel tests
 (tests/test_torch_tp.py, test_torch_sequence.py, test_torch_moe_ep.py,
-test_torch_strategy_facade.py).
+test_torch_strategy_facade.py, test_torch_pp.py).
 
     python tests/_torch_strategy_worker.py RANK WORLD INIT_FILE JOBS OUT_DIR
 
@@ -25,7 +25,13 @@ Case kinds:
 - ``moe``: an expert-parallel ``MoE`` layer's output on this rank's rows
   and its aux loss;
 - ``shard``: ``tp.shard_params`` / ``gather_params`` of a logical tree;
-- ``recipe``: ``models.run transformer-train`` with the case's flags.
+- ``recipe``: ``models.run transformer-train`` with the case's flags;
+- ``pp``: a ``train`` case under ``strategy="pp"`` (attention dropout
+  and a compute dtype when the case names them), its result also
+  holding the logical optimizer state in the JAX keys and the loss of
+  ``parallel.pp.make_pp_loss_fn`` on the first batch before training;
+  or, with ``"uneven": True``, the error each pp entry point raises for
+  a model whose blocks do not divide over the pipe.
 """
 
 import os
@@ -92,16 +98,23 @@ def build_method(spec):
 
 
 def train(case):
+    from bigdl_tpu_torch.interop import load_jax_params
+
+    model = build_model(case["model"])
+    load_jax_params(model, case["params"])
+    return _fit(case, model)[0]
+
+
+def _fit(case, model):
+    """``(result, optimizer)`` of a ``train`` case on ``model``."""
     from bigdl_tpu_torch import optim
     from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
-    from bigdl_tpu_torch.interop import load_jax_params, to_jax_params
+    from bigdl_tpu_torch.interop import to_jax_params
     from bigdl_tpu_torch.utils import file_io
     from bigdl_tpu_torch.utils.engine import Engine
     from bigdl_tpu_torch.utils.random_generator import RNG
 
     RNG.set_seed(case.get("seed", 0))
-    model = build_model(case["model"])
-    load_jax_params(model, case["params"])
     mesh = Engine.build_mesh(case["mesh"], case["axes"], device="cpu")
     ds = array_dataset(case["x"], case["y"]) >> SampleToMiniBatch(
         case["batch"])
@@ -111,6 +124,10 @@ def train(case):
                           device="cpu", **case.get("kw", {}))
     if case.get("clip_norm") is not None:
         opt.set_gradient_clipping_by_l2_norm(case["clip_norm"])
+    if case.get("compute_dtype"):
+        import torch
+
+        opt.set_compute_dtype(getattr(torch, case["compute_dtype"]))
     opt.set_end_when(optim.Trigger.max_iteration(case["steps"]))
     if case.get("ckpt"):
         opt.set_checkpoint(case["ckpt"], optim.Trigger.several_iteration(
@@ -130,7 +147,8 @@ def train(case):
         manifest = file_io.read_manifest(intact[0]) if intact else None
     return {"losses": summary.losses, "params": to_jax_params(model),
             "neval": opt.driver_state["neval"], "route": opt.captured_route,
-            "manifest": manifest, "val_loss": opt.driver_state.get("Loss")}
+            "manifest": manifest, "val_loss": opt.driver_state.get("Loss")}, \
+        opt
 
 
 def attention(case):
@@ -251,8 +269,61 @@ def recipe(case):
             "mesh": dict(opt.mesh.shape)}
 
 
+def pp(case):
+    import torch
+
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.interop import load_jax_params, to_jax_opt_state
+    from bigdl_tpu_torch.parallel import pp as ppm
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    mesh = Engine.build_mesh(case["mesh"], case["axes"], device="cpu")
+    model = build_model(case["model"])
+    crit = build_criterion(case["criterion"])
+    if case.get("uneven"):
+        errors = {}
+        calls = {
+            "stack_stage_params": lambda: ppm.stack_stage_params(
+                model, mesh.axis_size("pipe")),
+            "make_pp_loss_fn": lambda: ppm.make_pp_loss_fn(
+                model, crit, mesh, 2, data_axis="data"),
+            "make_pp_1f1b_train_step": lambda: ppm.make_pp_1f1b_train_step(
+                model, crit, optim.SGD(), mesh, 2, data_axis="data"),
+            "Optimizer": lambda: optim.Optimizer(
+                model, array_dataset(case["x"], case["y"])
+                >> SampleToMiniBatch(case["batch"]), crit, optim.SGD(),
+                strategy="pp", mesh=mesh, device="cpu")}
+        for name, call in calls.items():
+            try:
+                call()
+                errors[name] = None
+            except ValueError as e:
+                errors[name] = str(e)
+        return errors
+    load_jax_params(model, case["params"])
+    loss_fn = ppm.make_pp_loss_fn(
+        model, crit, mesh, case["kw"]["n_microbatches"], data_axis="data")
+    d = mesh.axis_index("data"), mesh.axis_size("data")
+    rows = ppm.pp_rows(case["x"][:case["batch"]],
+                       case["kw"]["n_microbatches"], *d)
+    target = ppm.pp_rows(case["y"][:case["batch"]],
+                         case["kw"]["n_microbatches"], *d)
+    first_loss = float(loss_fn(torch.from_numpy(rows.copy()),
+                               torch.from_numpy(target.copy())))
+    for b in model.blocks:
+        b.attn.dropout = case.get("dropout", 0.0)
+    result, opt = _fit(case, model)
+    plan = opt.plan
+    result["opt_state"] = to_jax_opt_state(
+        build_method(case["method"]), plan.logical_opt(plan.opt_state),
+        model)
+    result["first_loss"] = first_loss
+    return result
+
+
 KINDS = {"train": train, "attention": attention, "vocab_ce": vocab_ce,
-         "moe": moe, "shard": shard, "recipe": recipe}
+         "moe": moe, "shard": shard, "recipe": recipe, "pp": pp}
 
 
 def main(rank, world, init_file, jobs, out_dir):

@@ -4,11 +4,12 @@ package's ``StrategyOptimizer`` on the CPU.
 
 In this process (a world of one, destroyed after each test): the
 factory's routes and JAX's refusals and messages (unknown strategy or
-keyword, an absent data axis, ``strategy="pp"`` and orbax snapshots
-naming ROADMAP A7 and A4, ``set_grad_transform``, floating module state,
-frozen modules, ``set_optim_methods`` on tp and ep), the recipe's shape
-refusals (``transformer-train --sp``), and a tp checkpoint of a world of
-two resumed at world one, refused naming A7.
+keyword, an absent data axis, pp with ``tensor_parallel=True`` and orbax
+snapshots naming ROADMAP A7 and A4, ``set_grad_transform``, floating
+module state, frozen modules, ``set_optim_methods`` on tp and ep), the
+recipe's shape refusals (``transformer-train --sp`` and ``--pp``), and a
+tp checkpoint of a world of two resumed at world one (redistributed
+onto the run's layout), continuing the straight run.
 
 In a spawned gloo world of 2 ranks (``tests/_torch_strategy_worker.py``;
 TransformerLM(64, 32, 4 heads, 2 layers), T 16, global batch 4, SGD
@@ -25,7 +26,6 @@ Global-norm clipping under tp is held in ``tests/test_torch_tp.py``.
 
 import numpy as np
 import pytest
-import torch
 
 from _torch_strategy_worker import (REL, jax_fit, rel_l2, spawn_world,
                                     step_rel, train_case)
@@ -79,9 +79,12 @@ def test_factory_routes_and_refuses(world_of_one):
         optim.Optimizer(_lm(), _ds(), CRIT, strategy="tp", mesh=mesh,
                         data_axis="rows", device="cpu")
     pp_mesh = Engine.build_mesh((1, 1), ("data", "pipe"), device="cpu")
+    pp = optim.Optimizer(_lm(), _ds(), CRIT, strategy="pp", mesh=pp_mesh,
+                         device="cpu")
+    assert isinstance(pp, StrategyOptimizer) and pp.strategy == "pp"
     with pytest.raises(UnsupportedFeatureError, match="A7"):
         optim.Optimizer(_lm(), _ds(), CRIT, strategy="pp", mesh=pp_mesh,
-                        device="cpu")
+                        tensor_parallel=True, device="cpu")
     with pytest.raises(UnsupportedFeatureError, match="A4"):
         opt.set_sharded_checkpoint("/nonexistent", optim.Trigger.every_epoch())
     # the "data" default degrades to None on a mesh without that axis
@@ -130,8 +133,10 @@ def test_recipe_refuses_bad_shapes(world_of_one):
         run.main(base + ["--sp", "2", "--scanLayers", "on"])
     with pytest.raises(ValueError, match=r"device count 1 % degree 2"):
         run.main(base + ["--sp", "2"])
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match=r"device count 1 % degree 2"):
         run.main(base + ["--pp", "2"])
+    with pytest.raises(ValueError, match="rematPolicy has no effect"):
+        run.main(base + ["--pp", "2", "--rematPolicy", "dots_saveable"])
 
 
 @pytest.fixture(scope="module")
@@ -196,16 +201,14 @@ def test_sp_validation_matches_jax(world2):
 
 
 def test_resume_at_another_layout_is_refused(world2, world_of_one):
-    tmp = world2[2]
-    model = nn.TransformerLM(64, 32, 4, 2, max_len=32, device="cpu")
-    x = np.zeros((8, 16), np.int32)
-    mesh = Engine.build_mesh((1, 1), ("data", "model"), device="cpu")
-    opt = optim.Optimizer(model, array_dataset(x, x) >> SampleToMiniBatch(4),
-                          CRIT, optim.SGD(), strategy="tp", mesh=mesh,
-                          device="cpu")
-    opt.set_end_when(optim.Trigger.max_iteration(4))
-    opt.resume_from_checkpoint(str(tmp / "port_ck"))
-    before = [p.detach().clone() for p in model.parameters()]
-    with pytest.raises(UnsupportedFeatureError, match="A7"):
-        opt.optimize()
-    assert all(torch.equal(a, b) for a, b in zip(before, model.parameters()))
+    """No longer refused: the tp (1, 2) checkpoint resumed at tp (1, 1)
+    (``parallel/reshard.redistribute``, the identity on the logical
+    trees) continues the straight world-2 run."""
+    from _torch_strategy_worker import KINDS
+
+    cases, out, tmp, _ = world2
+    res = KINDS["train"](dict(cases["straight"], mesh=(1, 1),
+                              resume=str(tmp / "port_ck")))
+    straight = out["straight"][0]
+    assert res["neval"] == 5
+    _held(res, (straight["losses"][1:], straight["params"]))

@@ -178,9 +178,9 @@ def test_unported_schedules_and_options_raise():
                           distributed=True, device="cpu")
     assert isinstance(opt, optim.DistriOptimizer)
     assert opt.device == torch.device("cpu") and opt.sync_bn is False
-    # tp, sp and ep are ported (tests/test_torch_strategy_facade.py); the
-    # pipeline engines are not
-    with pytest.raises(NotImplementedError, match="A7"):
+    # tp, sp, ep and pp are ported (tests/test_torch_strategy_facade.py,
+    # test_torch_pp.py); pp needs a "pipe" axis on its mesh
+    with pytest.raises(ValueError, match="pipe_axis='pipe' is not an axis"):
         optim.Optimizer(m, ds, nn.CrossEntropyCriterion(), strategy="pp",
                         device="cpu")
 
@@ -383,9 +383,15 @@ def test_transformer_train_recipe_runs_on_the_cpu():
                     "--maxIteration", "3", "--synthN", "64"])
     assert opt.driver_state["neval"] == 4
     assert np.isfinite(opt.driver_state["loss"])
-    # --sp is ported (tests/test_torch_strategy_facade.py); --pp is not
-    with pytest.raises(NotImplementedError, match="--pp"):
-        run.main(["transformer-train", "--device", "cpu", "--pp", "2"])
+    # --sp and --pp are ported (tests/test_torch_strategy_facade.py,
+    # test_torch_pp.py); --pp 2 needs two ranks, and this is a world of one
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    try:
+        with pytest.raises(ValueError, match=r"device count 1 % degree 2"):
+            run.main(["transformer-train", "--device", "cpu", "--pp", "2"])
+    finally:
+        Engine.reset()
 
 
 def test_transformer_train_recipe_needs_the_card_by_default():

@@ -7,7 +7,8 @@ T1024 in fp32 with ``Adam(1e-4)``, or its MoE sibling at the same widths
 (8 experts, k 2, capacity factor 1.25).
 
     python3 tools/torch_strategies.py [--steps 8] [--out DIR]
-        [--legs tp,sp_ring,sp_ulysses,ep] [--meshes 1x4,2x2] [--no-recipe]
+        [--legs tp,sp_ring,sp_ulysses,ep,pp_gpipe,pp_1f1b]
+        [--meshes 1x4,2x2] [--no-recipe]
         [--device cpu --width 32 --layers 2 --vocab 64 --seq-len 16]
 
 needs four cards (``--device cpu`` rehearses the same program on gloo at
@@ -15,8 +16,10 @@ the sizes given, with no time worth reading).  The parent starts four ranks (thi
 ``--rank R``, ``file://`` rendezvous in ``--out``), waits for them under a
 deadline and kills them on a hang.  Each rank runs every leg on every
 mesh -- tp over ``("data", "model")``, sp with ring and with Ulysses
-attention over ``("data", "seq")``, ep over ``("data", "expert")`` --
-for ``--steps`` steps, each step one CUDA graph with NCCL's collectives
+attention over ``("data", "seq")``, ep over ``("data", "expert")``, pp
+with GPipe and with 1F1B over ``("data", "pipe")`` (4 microbatches; on
+1x4 three blocks a stage, the stage hops ``batch_isend_irecv``) -- for
+``--steps`` steps, each step one CUDA graph with NCCL's collectives
 captured in it, then ``models/run.py transformer-train --sp 4`` once.
 Per leg and rank it records the losses, the mean step time over steps
 3 to ``steps - 2`` (host clock, ending in a sync), tokens/s of the global
@@ -45,11 +48,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from torch_serving_profile import union_us  # noqa: E402
 
 BATCH, WORLD = 8, 4
-#: the legs, the ring (point-to-point hops) last
+#: the legs: mesh axes, and the sequence mode (sp) or schedule (pp)
 LEGS = {"tp": (("data", "model"), None),
         "sp_ulysses": (("data", "seq"), "ulysses"),
         "ep": (("data", "expert"), None),
-        "sp_ring": (("data", "seq"), "ring")}
+        "sp_ring": (("data", "seq"), "ring"),
+        "pp_gpipe": (("data", "pipe"), "gpipe"),
+        "pp_1f1b": (("data", "pipe"), "1f1b")}
+PP_MICRO = 4
 MOE = {"num_experts": 8, "k": 2, "capacity_factor": 1.25}
 LOSS_RTOL = 1e-4
 TIMEOUT_S = 480
@@ -105,7 +111,7 @@ def _model(leg, args):
     if leg == "ep":
         return MoETransformerLM(*shape, max_len=args.seq_len,
                                 device=args.device, seed=0, **MOE)
-    mode = LEGS[leg][1]
+    mode = LEGS[leg][1] if leg.startswith("sp") else None
     return nn.TransformerLM(*shape, max_len=args.seq_len,
                             device=args.device, seed=0,
                             seq_axis_name="seq" if mode else None,
@@ -136,11 +142,13 @@ def run_leg(leg, mesh_shape, args, x, y):
     mesh = Engine.build_mesh(mesh_shape, axes)
     model = _model(leg, args)
     strategy = leg.split("_")[0]
+    kw = {"n_microbatches": PP_MICRO, "schedule": LEGS[leg][1]} \
+        if strategy == "pp" else {}
     opt = optim.Optimizer(
         model, array_dataset(x, y) >> SampleToMiniBatch(BATCH),
         nn.TimeDistributedCriterion(nn.FusedSoftmaxCrossEntropyCriterion()),
         optim.Adam(learning_rate=1e-4), strategy=strategy, mesh=mesh,
-        device=args.device)
+        device=args.device, **kw)
     summary = _Losses()
     opt.set_train_summary(summary)
     first, profiled = 2, 2
