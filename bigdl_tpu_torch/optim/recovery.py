@@ -75,7 +75,8 @@ def parse_restart_strategy(spec):
     """``--restartStrategy tp:<degree>`` -> ``("tp", degree)``; None
     passes through (the JAX CLI's flag: restarted attempts come up at
     another tensor-parallel degree; the port parses it, and its
-    tensor-parallel engine waits for ROADMAP A7).  A typo'd spec is a
+    ``Optimizer(strategy="tp")`` resumes a checkpoint of another degree
+    by redistributing it, ``parallel/reshard``).  A typo'd spec is a
     configuration error, not a silent same-layout restart."""
     if spec in (None, ""):
         return None

@@ -16,9 +16,15 @@ checkpoints, resume and the retry loop -- over a named mesh
   pattern), optionally with ``"data"``;
 - ``ep``: expert parallelism for MoE models over ``"expert"``
   (``parallel/ep.py``), optionally with ``"data"``;
-- ``pp``: pipeline parallelism for TransformerLM over ``"pipe"``
+- ``pp``: pipeline parallelism over ``"pipe"``, optionally with
+  ``"data"``: for TransformerLM the stage-stacked pipeline
   (``parallel/pp.py``: GPipe or 1F1B, ``n_microbatches=``,
-  ``schedule=``), optionally with ``"data"``.
+  ``schedule=``), with ``tensor_parallel=True`` also Megatron
+  tensor parallelism inside each stage over ``"model"`` (a 3-D
+  ``("data", "pipe", "model")`` mesh); for any stateless
+  ``Sequential`` the heterogeneous GPipe pipeline
+  (``parallel/pp_het.py``: stages cut by parameter count or at
+  ``boundaries=``).
 
 Every rank builds the same model and iterates the same seeded dataset;
 the driver loop stages this rank's block of each global batch (its
@@ -32,18 +38,20 @@ on gloo eagerly.
 Checkpoints are JAX's pickle: the parameter and optimizer trees in
 the strategy's native layout and JAX's keys (tp, sp, ep: the logical
 trees, each sharded leaf gathered first; pp: stage-stacked, each
-stage's blocks gathered over the pipe), ``()`` module state, and the
+stage's blocks gathered over the model axis and the pipe; the
+heterogeneous pipeline: JAX's list of per-stage subtrees), ``()``
+module state, and the
 manifest's ``layout`` block (``_layout_spec``, JAX's
 ``LayoutSpec.to_manifest()``), so a checkpoint resumes in either
 package.  A resume under another layout is redistributed onto the run's
-first (``parallel/reshard.redistribute``, as JAX :475-489).  Validation
+first (``parallel/reshard.redistribute``, as JAX :475-489), except
+to or from the heterogeneous pipeline's, which is refused with JAX's
+message (:234-240).  Validation
 runs on the gathered logical parameters in the model itself (tp, ep,
 pp), or under the mesh with the blocks' logits gathered (sp); the model
 holds the logical parameters after ``optimize()``.
 
-Not ported: pp with tensor parallelism and the heterogeneous Sequential
-pipeline (``pp_het``; ROADMAP A7), orbax sharded snapshots (A4), the
-health probe (A8).
+Not ported: orbax sharded snapshots (A4), the health probe (A8).
 """
 
 import logging
@@ -213,8 +221,9 @@ class _PipePlan(_Plan):
     def load_logical(self, params, opt_state):
         from bigdl_tpu_torch.parallel.pp import local_of
 
-        for k, p in self.local.named_parameters():
-            p.copy_(params[self.local.logical_name(k)])
+        own = dict(self.local.named_parameters())
+        for k, t in local_of(self.local, params).items():
+            own[k].copy_(t)
         for k, v in opt_state.items():
             if isinstance(v, dict):
                 for n, t in local_of(self.local, v).items():
@@ -230,6 +239,53 @@ class _PipePlan(_Plan):
         return redistribute(tree, self.layout,
                             LayoutSpec.replicated("unrolled"),
                             what="pp-resume")
+
+
+class _HetPlan(_Plan):
+    """The heterogeneous pipeline's wiring: ``local`` is this rank's
+    ``HetStage``; the logical trees gather every stage's children over
+    ``collectives`` (the pipe); checkpoints hold JAX's list of
+    per-stage subtrees (``slices``)."""
+
+    def __init__(self, stage, step, opt_state, select, collectives, model):
+        super().__init__(stage, step, opt_state, select,
+                         collectives=collectives)
+        self.template = dict(model.named_parameters())
+        self.slices = step.slices
+
+    def logical_params(self):
+        from bigdl_tpu_torch.parallel.pp_het import het_gather
+
+        return het_gather({k: p.detach()
+                           for k, p in self.local.named_parameters()},
+                          self.collectives, self.template)
+
+    def logical_opt(self, state):
+        from bigdl_tpu_torch.parallel.pp_het import het_gather
+
+        return {k: het_gather(v, self.collectives, self.template)
+                if isinstance(v, dict) else v for k, v in state.items()}
+
+    @torch.no_grad()
+    def load_logical(self, params, opt_state):
+        for k, p in self.local.named_parameters():
+            p.copy_(params[k])
+        for k, v in opt_state.items():
+            if isinstance(v, dict):
+                for n, t in self.opt_state[k].items():
+                    t.copy_(v[n])
+            else:
+                self.opt_state[k].copy_(v)
+
+    def to_native(self, tree):
+        from bigdl_tpu_torch.parallel.pp_het import to_stage_trees
+
+        return to_stage_trees(tree, self.slices)
+
+    def from_native(self, tree):
+        from bigdl_tpu_torch.parallel.pp_het import from_stage_trees
+
+        return from_stage_trees(tree)
 
 
 class StrategyOptimizer(BaseOptimizer):
@@ -292,20 +348,23 @@ class StrategyOptimizer(BaseOptimizer):
             raise ValueError(f"unknown pp schedule {schedule!r}; "
                              "expected 'gpipe' or '1f1b'")
         is_sequential = isinstance(model, Sequential)
+        if is_sequential and (schedule != "gpipe"
+                              or kw.get("tensor_parallel", False)):
+            raise UnsupportedFeatureError(
+                "pipelined Sequential models run the heterogeneous "
+                "GPipe engine; schedule='1f1b' and tensor_parallel "
+                "are only available for stage-stacked transformer "
+                "models")
         if not is_sequential and kw.get("boundaries") is not None:
             raise TypeError(
                 "boundaries= applies to Sequential (heterogeneous) "
                 "pipelining; stage-stacked transformer models split "
                 "evenly by block count")
-        if is_sequential:
-            raise UnsupportedFeatureError(
-                "strategy='pp' on a Sequential: the heterogeneous "
-                "pipeline (parallel/pp_het.py) is not ported yet "
-                "(ROADMAP A7)")
-        if kw.get("tensor_parallel", False):
-            raise UnsupportedFeatureError(
-                "strategy='pp' with tensor_parallel=True (pp_tp_shardings "
-                "on a 3-D mesh) is not ported yet (ROADMAP A7)")
+        if kw.get("tensor_parallel", False) and \
+                "model" not in self.mesh.shape:
+            raise ValueError(
+                f"tensor_parallel=True shards each stage over a 'model' "
+                f"axis; the mesh {tuple(self.mesh.axis_names)} has none")
         pipe_axis = kw.get("pipe_axis", "pipe")
         if pipe_axis not in self.mesh.shape:
             raise ValueError(f"pipe_axis={pipe_axis!r} is not an axis of "
@@ -331,9 +390,16 @@ class StrategyOptimizer(BaseOptimizer):
                      for a in self.mesh.axis_names}
         kw = self.strategy_kw
         if self.strategy == "pp":
+            from bigdl_tpu_torch.nn.containers import Sequential
+
             pipe_axis = kw.get("pipe_axis", "pipe")
-            return LayoutSpec.pp(mesh_axes, self.mesh.axis_size(pipe_axis),
-                                 pipe_axis, False)
+            spec = LayoutSpec.pp(mesh_axes, self.mesh.axis_size(pipe_axis),
+                                 pipe_axis, kw.get("tensor_parallel", False))
+            if isinstance(self.model, Sequential):
+                # the heterogeneous pipeline's per-stage subtrees (JAX
+                # :171-176): a cross-layout resume refuses them by name
+                spec.plane["het"] = True
+            return spec
         tree = self.model.parameters_tree()
         if self.strategy == "tp":
             from bigdl_tpu_torch.parallel.tp import TRANSFORMER_TP_RULES
@@ -374,8 +440,9 @@ class StrategyOptimizer(BaseOptimizer):
         return _ClippingMethod(self.optim_method, self.clip_value,
                                self.clip_norm, sq_norm)
 
-    def _prepare(self):
-        """-> the run's ``_Plan``."""
+    def _prepare(self, first_batch=None):
+        """-> the run's ``_Plan`` (the heterogeneous pipeline builds its
+        step for ``first_batch``'s size)."""
         from bigdl_tpu_torch.parallel.strategy_step import logical_sq_norm
 
         mesh, kw, cdt = self.mesh, self.strategy_kw, self.compute_dtype
@@ -387,7 +454,7 @@ class StrategyOptimizer(BaseOptimizer):
                     f"{type(self.optim_method).__name__} keeps its state "
                     f"over the whole tree -- use a per-parameter method")
         if self.strategy == "pp":
-            return self._prepare_pp()
+            return self._prepare_pp(first_batch)
         if self.strategy in ("tp", "ep"):
             axis = _AXIS[self.strategy]
             if self.strategy == "tp":
@@ -445,7 +512,8 @@ class StrategyOptimizer(BaseOptimizer):
                      lambda tree: shard_tokens(tree, mesh, seq_axis,
                                                self.data_axis))
 
-    def _prepare_pp(self):
+    def _prepare_pp(self, first_batch):
+        from bigdl_tpu_torch.nn.containers import Sequential
         from bigdl_tpu_torch.parallel.pp import (init_pp_opt_state,
                                                  make_pp_1f1b_train_step,
                                                  make_pp_train_step,
@@ -455,20 +523,57 @@ class StrategyOptimizer(BaseOptimizer):
         pipe_axis = kw.get("pipe_axis", "pipe")
         pipe = self.mesh.collectives(pipe_axis)
         n_micro = int(kw.get("n_microbatches", pipe.world))
-        make = make_pp_1f1b_train_step if kw.get("schedule") == "1f1b" \
-            else make_pp_train_step
-        step = make(self.model, self.criterion,
-                    self._clipping(lambda g: pp_sq_norm(g, pipe)),
-                    self.mesh, n_micro, pipe_axis=pipe_axis,
-                    data_axis=self.data_axis,
-                    compute_dtype=self.compute_dtype)
         d = self.data_axis
         index = self.mesh.axis_index(d) if d is not None else 0
         size = self.mesh.axis_size(d) if d is not None else 1
+        if isinstance(self.model, Sequential):
+            return self._prepare_het(first_batch, pipe, n_micro, index, size)
+        make = make_pp_1f1b_train_step if kw.get("schedule") == "1f1b" \
+            else make_pp_train_step
+        built = []
+        step = make(self.model, self.criterion,
+                    self._clipping(lambda g: pp_sq_norm(g, pipe,
+                                                        built[0].stage)),
+                    self.mesh, n_micro, pipe_axis=pipe_axis,
+                    data_axis=self.data_axis,
+                    compute_dtype=self.compute_dtype,
+                    model_axis="model" if kw.get("tensor_parallel", False)
+                    else None)
+        built.append(step)
         return _PipePlan(step.stage, step,
                          init_pp_opt_state(self.optim_method, step.stage),
                          lambda tree: pp_rows(tree, n_micro, index, size),
                          pipe, self._layout_spec())
+
+    def _prepare_het(self, first_batch, pipe, n_micro, index, size):
+        """The heterogeneous pipeline's plan (JAX :355-387): the step is
+        built for the first batch's microbatch shape."""
+        from bigdl_tpu_torch.parallel.pp_het import (het_rows,
+                                                     make_het_pp_train_step)
+        from bigdl_tpu_torch.parallel.strategy_step import logical_sq_norm
+
+        x0 = torch.as_tensor(first_batch.get_input())
+        if x0.shape[0] % (n_micro * size):
+            raise ValueError(
+                f"batch {x0.shape[0]} not divisible by {n_micro} "
+                f"microbatches x {size} data shards")
+        mb = x0.shape[0] // n_micro // size
+        spec = torch.empty((mb, *x0.shape[1:]), dtype=x0.dtype,
+                           device="meta")
+        step = make_het_pp_train_step(
+            self.model, self.criterion,
+            self._clipping(lambda g: logical_sq_norm(
+                g, {k: pipe for k in g} if pipe.world > 1 else {})),
+            self.mesh, n_micro, spec,
+            boundaries=self.strategy_kw.get("boundaries"),
+            pipe_axis=self.strategy_kw.get("pipe_axis", "pipe"),
+            data_axis=self.data_axis, compute_dtype=self.compute_dtype)
+        opt_state = self.optim_method.init_state(
+            dict(step.stage.named_parameters()))
+        return _HetPlan(step.stage, step, opt_state,
+                        lambda tree: het_rows(tree, n_micro, mb, index,
+                                              size),
+                        pipe, self.model)
 
     @torch.no_grad()
     def _sync_model(self, plan):
@@ -495,6 +600,13 @@ class StrategyOptimizer(BaseOptimizer):
             (file_io.read_manifest(self._resume_path) or {}).get("layout"))
         dst = self._layout_spec()
         if src is not None and src != dst:
+            if src.plane.get("het") or dst.plane.get("het"):
+                raise UnsupportedFeatureError(
+                    f"snapshot {self._resume_path} was written under "
+                    f"layout {src.describe()} and this run uses "
+                    f"{dst.describe()}: the heterogeneous Sequential "
+                    "pipeline's per-stage subtrees cannot be re-cut; "
+                    "resume on the original mesh")
             saved = redistribute(saved, src, dst,
                                  what=f"{self.strategy}-resume")
             log.info("resumed %s across layouts: %s -> %s",
@@ -605,7 +717,7 @@ class StrategyOptimizer(BaseOptimizer):
                 f"global batch {first_batch.size()} not divisible by "
                 f"{self.mesh.axis_size(self.data_axis)} ranks on axis "
                 f"{self.data_axis!r}")
-        plan = self.plan = self._prepare()
+        plan = self.plan = self._prepare(first_batch)
         if self._resume is not None:
             self._load_snapshot(plan)
         train_iter, first_batch = self._resume_data_stream(

@@ -45,6 +45,20 @@ pipe, with the loss, in one all-reduce, and every gradient and the loss
 averaged over the data axis in another: every rank then holds the
 gradient of the global mean loss for its parameters and reports the
 same loss (JAX's ``psum`` over ``"pipe"``, :193-194).
+
+With tensor parallelism (``tp=``, the ``"model"`` axis of a 3-D
+``("data", "pipe", "model")`` mesh; JAX's ``pp_tp_shardings`` :85 and
+``manual_axes=("data", "pipe")``) a stage's blocks are its
+``"model"`` rank's Megatron shards (``parallel/tp.py``'s
+``_shard_leaf``: heads cut inside each of q, k and v, ``fc1`` by rows,
+``out`` and ``fc2`` by columns) and run the tp collectives themselves;
+the embedding and the tail stay whole on every rank, so the last
+stage's loss is the plain one (not the vocabulary-parallel form: JAX
+leaves ``head`` replicated here).  A hop pairs a stage's ``"model"``
+rank with the same rank of the next stage: the pipe's groups are the
+mesh's lines along ``"pipe"``.  The blocks' gradients come from the tp
+collectives' transposes, the replicated ones from the pipe's sum, each
+summed once.
 """
 
 import copy
@@ -58,10 +72,12 @@ from bigdl_tpu_torch.nn.module import Container
 from bigdl_tpu_torch.optim.train_step import _cast_params, _cast_tree
 from bigdl_tpu_torch.parallel.reshard import (blocks_to_pp_tree,
                                               pp_tree_to_blocks)
-from bigdl_tpu_torch.parallel.strategy_step import (logical_sq_norm,
-                                                    reduce_flat,
+from bigdl_tpu_torch.parallel.strategy_step import (reduce_flat,
                                                     refuse_frozen,
                                                     step_dropout_key)
+from bigdl_tpu_torch.parallel.tp import (TRANSFORMER_TP_RULES, _gather_leaf,
+                                         _shard_leaf, _sharded_dim,
+                                         check_divisible, spec_for)
 from bigdl_tpu_torch.utils.errors import (ConfigurationError,
                                           UnsupportedFeatureError)
 
@@ -88,17 +104,21 @@ def _check_model(model):
     if not isinstance(model, TransformerLM):
         raise UnsupportedFeatureError(
             f"the stage-stacked pipeline trains TransformerLM, not "
-            f"{type(model).__name__}; the heterogeneous Sequential "
-            f"pipeline (parallel/pp_het.py) is not ported yet (ROADMAP A7)")
+            f"{type(model).__name__}; a Sequential pipelines through "
+            f"parallel/pp_het.py (Optimizer(strategy='pp') picks it)")
     if model.scan is not None:
         raise UnsupportedFeatureError(
             "strategy='pp' on the scan_layers layout: the pipeline stacks "
             "the blocks by stage; build the model unrolled "
             "(scan_layers=False)")
-    if model.tp is not None or model.seq_axis_name is not None:
+    if model.tp is not None:
         raise UnsupportedFeatureError(
-            "the pipeline runs a plain TransformerLM; pp with tensor or "
-            "sequence parallelism is not ported yet (ROADMAP A7)")
+            "the pipeline takes the plain TransformerLM; tensor_parallel="
+            "True shards each stage's blocks itself")
+    if model.seq_axis_name is not None:
+        raise UnsupportedFeatureError(
+            "pp with sequence parallelism: the JAX package has no such "
+            "composition (pp composes with data and tensor parallelism)")
 
 
 def stack_stage_params(model, n_stages):
@@ -120,11 +140,15 @@ class PipelineStage(Container):
     the pipe holds (JAX's ``pp_shardings``: the stacked leaves' slice
     ``stage``, embed and tail replicated): copies of its blocks as
     ``layer{j}`` (block ``stage * lps + j``), of ``wte``, ``wpe``,
-    ``ln_f`` and ``head``.  ``forward(x, part)`` runs one part:
-    ``"embed"`` (token ids -> activations), ``"blocks"`` or ``"tail"``
-    (activations -> logits)."""
+    ``ln_f`` and ``head``.  With ``tp`` (the ``"model"`` axis's
+    ``Collectives``) the blocks hold that rank's shards under ``rules``
+    (JAX's ``pp_tp_shardings``) and run the tp collectives; ``tp_specs``
+    maps each local parameter name to its spec.  ``forward(x, part)``
+    runs one part: ``"embed"`` (token ids -> activations), ``"blocks"``
+    or ``"tail"`` (activations -> logits)."""
 
-    def __init__(self, model, stage, n_stages):
+    def __init__(self, model, stage, n_stages, tp=None,
+                 rules=TRANSFORMER_TP_RULES):
         super().__init__()
         _check_model(model)
         self.lps = layers_per_stage(len(model.blocks), n_stages)
@@ -137,6 +161,30 @@ class PipelineStage(Container):
         for j, b in enumerate(self.layers):
             self.add(f"layer{j}", b)
         self.ln_f = copy.deepcopy(model.ln_f)
+        self.tp = tp
+        self.tp_specs = {}
+        if tp is not None:
+            self._shard_blocks(model, tp, rules)
+
+    def _shard_blocks(self, model, tp, rules):
+        n, r = tp.world, tp.rank
+        heads = model.blocks[0].attn.num_heads
+        if heads % n:
+            raise ValueError(f"num_heads {heads} is not divisible by the "
+                             f"'model' axis size {n}")
+        check_divisible({f"block{self.first + j}": b.parameters_tree()
+                         for j, b in enumerate(self.layers)}, rules, n)
+        for j, b in enumerate(self.layers):
+            for name, p in list(b.named_parameters()):
+                path = (f"block{self.first + j}", *name.split("."))
+                spec = spec_for(path, p.dim(), rules)
+                self.tp_specs[f"layer{j}.{name}"] = spec
+                owner, _, key = name.rpartition(".")
+                b.get_submodule(owner)._parameters[key] = torch.nn.Parameter(
+                    _shard_leaf(path, p.detach(), spec, "model", r,
+                                n).clone())
+            b.tp = b.attn.tp = tp
+            b.attn.num_heads //= n
 
     def logical_name(self, name):
         """``layer{j}.<rest>`` -> ``block{first + j}.<rest>``; the
@@ -145,6 +193,12 @@ class PipelineStage(Container):
         if head.startswith("layer"):
             return f"block{self.first + int(head[5:])}.{rest}"
         return name
+
+    def sharded(self, name):
+        """Whether the local parameter ``name`` is a ``"model"`` shard."""
+        spec = self.tp_specs.get(name)
+        return spec is not None and self.tp.world > 1 and \
+            _sharded_dim(spec, "model") is not None
 
     def forward(self, x, part="blocks"):
         if part == "embed":
@@ -158,9 +212,13 @@ class PipelineStage(Container):
 
 def gather_logical(stage, local, collectives):
     """``{local name: tensor}`` of every stage (``collectives`` over the
-    pipe) -> ``{logical name: tensor}`` on every rank: the replicated
-    tensors as they are, each stage's blocks from one all-gather of
-    their concatenation."""
+    pipe) -> ``{logical name: tensor}`` on every rank: the ``"model"``
+    shards of a tensor-parallel stage gathered first (over
+    ``stage.tp``), then the replicated tensors as they are and each
+    stage's blocks from one all-gather of their concatenation."""
+    local = {k: _gather_leaf(tuple(stage.logical_name(k).split(".")), v,
+                             stage.tp_specs[k], stage.tp, "model")
+             if stage.sharded(k) else v for k, v in local.items()}
     out = {stage.logical_name(k): v for k, v in local.items()
            if k.split(".")[0] in _REPLICATED}
     names = [k for k in local if k.split(".")[0] not in _REPLICATED]
@@ -181,18 +239,40 @@ def gather_logical(stage, local, collectives):
 
 
 def local_of(stage, logical):
-    """The stage's ``{local name: tensor}`` out of a logical dict."""
-    return {k: logical[stage.logical_name(k)]
-            for k, _ in stage.named_parameters()}
+    """The stage's ``{local name: tensor}`` out of a logical dict (a
+    tensor-parallel stage's shards cut from the logical leaves)."""
+    out = {}
+    for k, _ in stage.named_parameters():
+        v = logical[stage.logical_name(k)]
+        if stage.sharded(k):
+            v = _shard_leaf(tuple(stage.logical_name(k).split(".")), v,
+                            stage.tp_specs[k], "model", stage.tp.rank,
+                            stage.tp.world)
+        out[k] = v
+    return out
 
 
-def pp_sq_norm(grads, collectives):
+def pp_sq_norm(grads, collectives, stage=None):
     """The squared norm of the logical gradient tree from a stage's
-    gradients: its blocks' squares summed over the pipe
+    gradients: the ``"model"`` shards' squares summed over the model
+    axis (``stage.tp``), the blocks' summed over the pipe
     (``collectives``), the replicated ones counted once."""
-    return logical_sq_norm(grads, {
-        k: collectives for k in grads
-        if collectives.world > 1 and k.split(".")[0] not in _REPLICATED})
+    rep, blocks, shards = [], [], []
+    for k, g in grads.items():
+        sq = g.float().square().sum()
+        if k.split(".")[0] in _REPLICATED:
+            rep.append(sq)
+        elif stage is not None and stage.sharded(k):
+            shards.append(sq)
+        else:
+            blocks.append(sq)
+    total = torch.stack(blocks).sum() if blocks else \
+        torch.zeros((), device=next(iter(grads.values())).device)
+    if shards:
+        total = total + stage.tp.psum(torch.stack(shards).sum())
+    if collectives.world > 1:
+        total = collectives.psum(total)
+    return total + torch.stack(rep).sum() if rep else total
 
 
 def _hops(n_ticks, senders, valid):
@@ -208,14 +288,16 @@ class _Schedule:
     ``functional_call``), the tail's loss and a hop."""
 
     def __init__(self, model, criterion, mesh, n_microbatches, pipe_axis,
-                 data_axis, compute_dtype):
+                 data_axis, compute_dtype, model_axis=None):
         self.pipe = mesh.collectives(pipe_axis)
         self.data = mesh.collectives(data_axis) \
             if data_axis is not None else None
         self.S, self.s = self.pipe.world, self.pipe.rank
         self.M = int(n_microbatches)
         self.last = self.s == self.S - 1
-        self.stage = PipelineStage(model, self.s, self.S)
+        self.stage = PipelineStage(
+            model, self.s, self.S, tp=mesh.collectives(model_axis)
+            if model_axis is not None else None)
         self.params = dict(self.stage.named_parameters())
         self.criterion = criterion
         self.cdt = compute_dtype
@@ -352,10 +434,10 @@ class _Schedule:
 
 
 def _make_step(model, criterion, optim_method, mesh, n_microbatches,
-               pipe_axis, data_axis, compute_dtype, schedule):
+               pipe_axis, data_axis, compute_dtype, schedule, model_axis):
     refuse_frozen(model)
     sch = _Schedule(model, criterion, mesh, n_microbatches, pipe_axis,
-                    data_axis, compute_dtype)
+                    data_axis, compute_dtype, model_axis)
     stage, params, M = sch.stage, sch.params, sch.M
     key = step_dropout_key(stage, mesh.axis_index(data_axis)
                            if data_axis is not None else 0)
@@ -389,35 +471,42 @@ def _make_step(model, criterion, optim_method, mesh, n_microbatches,
 
 def make_pp_train_step(model, criterion, optim_method, mesh,
                        n_microbatches, pipe_axis="pipe", data_axis=None,
-                       compute_dtype=None):
+                       compute_dtype=None, model_axis=None):
     """The GPipe step: ``step(opt_state, input, target) -> (opt_state,
     loss)`` on this rank's ``PipelineStage`` of ``model`` (``step.stage``,
     its parameters updated in place; ``init_pp_opt_state`` gives its
     state).  ``input`` / ``target`` are this rank's rows of every
     microbatch, microbatch-major (``pp_rows``).  ``step.live`` and
     ``step.dropout_key`` are what ``optim.graphs.CompiledTrainStep``
-    reads.  Frozen modules are refused, as JAX refuses them (:244-249)."""
+    reads.  ``model_axis`` (``"model"``): tensor parallelism inside each
+    stage (JAX's ``pp_tp_shardings`` with ``manual_axes=("data",
+    "pipe")``).  Frozen modules are refused, as JAX refuses them
+    (:244-249)."""
     return _make_step(model, criterion, optim_method, mesh, n_microbatches,
-                      pipe_axis, data_axis, compute_dtype, "gpipe")
+                      pipe_axis, data_axis, compute_dtype, "gpipe",
+                      model_axis)
 
 
 def make_pp_1f1b_train_step(model, criterion, optim_method, mesh,
                             n_microbatches, pipe_axis="pipe",
-                            data_axis=None, compute_dtype=None):
+                            data_axis=None, compute_dtype=None,
+                            model_axis=None):
     """``make_pp_train_step``'s step under the 1F1B schedule: the same
     gradients, a stash of at most ``2S - 1`` stage inputs."""
     return _make_step(model, criterion, optim_method, mesh, n_microbatches,
-                      pipe_axis, data_axis, compute_dtype, "1f1b")
+                      pipe_axis, data_axis, compute_dtype, "1f1b",
+                      model_axis)
 
 
 def make_pp_loss_fn(model, criterion, mesh, n_microbatches,
-                    pipe_axis="pipe", data_axis=None, compute_dtype=None):
+                    pipe_axis="pipe", data_axis=None, compute_dtype=None,
+                    model_axis=None):
     """``loss_fn(input, target) -> loss``: GPipe's forward of this rank's
     ``PipelineStage`` of ``model`` (``loss_fn.stage``) on its rows of
     every microbatch (``pp_rows``), no gradient; the loss of the global
     batch on every rank."""
     sch = _Schedule(model, criterion, mesh, n_microbatches, pipe_axis,
-                    data_axis, compute_dtype)
+                    data_axis, compute_dtype, model_axis)
 
     @torch.no_grad()
     def loss_fn(input, target):

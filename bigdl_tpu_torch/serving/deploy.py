@@ -23,7 +23,8 @@
 Every stage lands as a ``kind: "deploy"`` event on ``telemetry``, any
 object with ``record(kind, **fields)``; the durable telemetry writer and
 the metrics bridge wait for ROADMAP A8.  A snapshot of another layout
-(``src_layout``) waits for A7.
+(tp, pp, pp+tp ...) is staged with its ``src_layout`` and redistributed
+by the engine.
 
 The registry half needs no device: a supervisor parses
 ``registry.json`` without a card.
@@ -640,15 +641,15 @@ class RolloutController:
 
     # ----- the staged rollout --------------------------------------------------- #
     def _load(self, path):
-        """``(params, mstate, src_layout)`` of a snapshot in the serving
-        layout: the engine unravels a data-parallel flat plane itself, and
-        a snapshot of another layout raises there (ROADMAP A7), so
-        ``src_layout`` is always None here."""
+        """``(params, mstate, src_layout)`` of a snapshot: its tree under
+        the layout its manifest names and that layout (None: the tree is
+        in the serving layout already, a data-parallel flat plane
+        unravelled), for ``stage_weights(src_layout=)`` (JAX
+        :635-641)."""
         from bigdl_tpu_torch.serving.engine import ServingEngine
 
         p = ServingEngine._resolve_snapshot(path)
-        params, mstate = self.engine._load_snapshot_weights(p)
-        return params, mstate, None
+        return self.engine._read_snapshot(p)
 
     def run_candidate(self, path, digest=None):
         """Walk one candidate snapshot through the full staged

@@ -39,11 +39,20 @@ unless ``compute_dtype`` asks for bf16 ``predict``: building it on a
 CUDA device switches TF32 matrix products off
 (``utils.device.require_fp32_matmul``).
 
+A checkpoint of another layout (``src_layout=``, and every snapshot
+``refresh_from_snapshot`` reads: its manifest's ``layout`` block) is
+redistributed onto the model's own tree first
+(``parallel/reshard.to_model_layout``: tp, ep, sp trees as they are, pp
+and pp+tp stage-stacked trees unstacked, scanned and unrolled block
+keyings crossed, dp flat planes unravelled), then held to the contract
+as any incoming tree; the heterogeneous pipeline's per-stage subtrees
+are refused by name (JAX's ``to_model_layout`` passes them through and
+its contract check rejects them).
+
 Not ported: the sharded and round-robin layouts (``mesh=``,
 ``round_robin=``: they need a machine with more than one card, ROADMAP
-A6), a checkpoint from another layout
-(``src_layout=``: A7), sharded (orbax) snapshots (A4), request tracing
-and spans (``trace=``: A8).
+A6), sharded (orbax) snapshots (A4), request tracing and spans
+(``trace=``: A8), the ``reshard`` telemetry event (A8).
 """
 
 import collections
@@ -148,12 +157,28 @@ def _dtype_name(leaf):
     return str(dt).replace("torch.", "")
 
 
+def _keyed_leaves(tree, path=""):
+    """``{"['a']['b']": leaf}`` of a nested dict in JAX's flatten order
+    (sorted keys) and ``keystr`` labels; ``()`` entries hold nothing."""
+    out = {}
+    if not isinstance(tree, dict):
+        return out
+    for key in sorted(tree):
+        leaf, label = tree[key], f"{path}[{key!r}]"
+        if isinstance(leaf, dict):
+            out.update(_keyed_leaves(leaf, label))
+        elif not (isinstance(leaf, (tuple, list)) and not leaf):
+            out[label] = leaf
+    return out
+
+
 def _tree_spec(tree):
-    """``{label: (shape, dtype)}`` of a weight tree: reads the leaves'
-    shape and dtype only, so validating weights on the card moves no
-    bytes."""
+    """``{label: (shape, dtype)}`` of a weight tree, labelled and ordered
+    as JAX's ``_tree_spec`` (``keystr`` paths, sorted keys), so a
+    mismatch names the leaf JAX's names: reads the leaves' shape and
+    dtype only, so validating weights on the card moves no bytes."""
     return {label: (tuple(np.shape(leaf)), _dtype_name(leaf))
-            for label, leaf in _flat_leaves(tree).items()}
+            for label, leaf in _keyed_leaves(tree).items()}
 
 
 def _spec_mismatch(expect, got, what):
@@ -1138,12 +1163,11 @@ class ServingEngine:
         candidate lives in a copy of the model with its own compiled
         eval step, built at every shape the live step has built, so its
         evals on ladder-shaped batches capture nothing.  ``src_layout``
-        (a checkpoint of another layout) is not ported: ROADMAP A7
-        (``parallel/reshard``)."""
+        (a ``LayoutSpec`` or its manifest dict): ``params`` were saved
+        under that layout and are redistributed onto this model's tree
+        before the check (``_from_layout``)."""
         if src_layout is not None:
-            raise UnsupportedFeatureError(
-                "src_layout= (redistributing a checkpoint of another "
-                "layout, parallel/reshard) is not ported: ROADMAP A7")
+            params = self._from_layout(params, src_layout, "deploy-stage")
         reason = self._validate_incoming(params, mstate)
         if reason is not None:
             raise ValueError(
@@ -1269,19 +1293,55 @@ class ServingEngine:
 
     # ----- refresh ----------------------------------------------------------- #
     def refresh_from_snapshot(self, path):
-        """Hot-swap the weights of a training snapshot: ``path`` is a
-        ``checkpoint.<tag>.pkl`` file (either package writes the same
-        pickle layout) or a checkpoint directory, whose newest intact
-        snapshot is taken (corrupt ones are quarantined, as resume
-        does).  A data-parallel snapshot's flat plane
-        (``model_params_flat`` and the manifest's ``layout`` block,
+        """Hot-swap the weights of a training snapshot written under any
+        layout: ``path`` is a ``checkpoint.<tag>.pkl`` file (either
+        package writes the same pickle layout) or a checkpoint
+        directory, whose newest intact snapshot is taken (corrupt ones
+        are quarantined, as resume does).  The snapshot is loaded under
+        its own layout (its manifest's ``layout`` block) and handed on
+        with it: ``refresh_params(src_layout=)`` redistributes it onto
+        this model's tree, then the contract check and the gate run.  A
+        data-parallel snapshot's flat plane (``model_params_flat``,
         ``optim.DistriOptimizer``) unravels through this model's
-        parameter tree, as JAX's ``reshard.to_model_layout`` does.  Then
-        ``refresh_params``, gate and all.  A sharded (orbax) snapshot is
-        not ported: ROADMAP A4."""
+        parameter tree here.  A sharded (orbax) snapshot is not ported:
+        ROADMAP A4."""
         p = self._resolve_snapshot(path)
-        params, mstate = self._load_snapshot_weights(p)
-        return self.refresh_params(params, mstate)
+        params, mstate, src = self._read_snapshot(p)
+        return self.refresh_params(params, mstate, src_layout=src)
+
+    def _read_snapshot(self, p):
+        """``(params, mstate, src_layout)`` of the pickle snapshot ``p``:
+        its tree under the layout its manifest names, and that layout;
+        or the tree in this model's layout and None (a dp flat plane,
+        unravelled here; a snapshot whose manifest names no layout)."""
+        from bigdl_tpu_torch.parallel.reshard import read_snapshot_layout
+
+        src = read_snapshot_layout(p)
+        if src is not None and src.kind == "dp":
+            src = None
+        params, mstate = self._load_snapshot_weights(p, src)
+        return params, mstate, src
+
+    def _from_layout(self, params, src_layout, what):
+        """``params`` saved under ``src_layout`` -> this model's own tree
+        (JAX's ``to_model_layout`` call in ``refresh_params`` and
+        ``stage_weights``; its ``telemetry=`` event is A8).  The
+        heterogeneous pipeline's list of per-stage subtrees is refused
+        here, by name: JAX's ``to_model_layout`` returns it as it is and
+        its contract check then rejects the list."""
+        from bigdl_tpu_torch.parallel.reshard import (LayoutSpec,
+                                                      to_model_layout)
+
+        src = LayoutSpec.coerce(src_layout)
+        if src.plane.get("het"):
+            raise ValueError(
+                f"src_layout {src.describe()} is the heterogeneous "
+                f"Sequential pipeline's (het): its per-stage subtrees do "
+                f"not redistribute onto the serving tree -- load the "
+                f"snapshot into the model and refresh_params() from it")
+        return to_port_tree(to_model_layout(params, src, self.model,
+                                            what=what),
+                            is_scanned(self.model))
 
     @staticmethod
     def _resolve_snapshot(path):
@@ -1305,18 +1365,23 @@ class ServingEngine:
             f"no intact snapshot under {path}"
             + (f" (quarantined: {quarantined})" if quarantined else ""))
 
-    def _load_snapshot_weights(self, p):
-        """``(params, mstate)`` of a pickle snapshot, in this model's
-        layout (a TransformerLM's scanned and unrolled keyings cross)."""
+    def _load_snapshot_weights(self, p, src_layout=None):
+        """``(params, mstate)`` of a pickle snapshot.  With
+        ``src_layout`` (the snapshot's own layout) the tree as it was
+        saved under it, for ``refresh_params(src_layout=)`` to
+        redistribute (JAX :1476-1498); without, in this model's layout
+        (a TransformerLM's scanned and unrolled keyings cross).  A
+        data-parallel flat plane unravels here either way."""
         from bigdl_tpu_torch.utils import file_io
 
         payload = file_io.load(p)
         mp = payload["model_params"]
+        mstate = _clean_state(payload.get("model_state"))
         if isinstance(mp, dict) and "model_params_flat" in mp:
-            return self._unravel_flat(p, mp["model_params_flat"]), \
-                _clean_state(payload.get("model_state"))
-        return to_port_tree(mp, is_scanned(self.model)), \
-            _clean_state(payload.get("model_state"))
+            return self._unravel_flat(p, mp["model_params_flat"]), mstate
+        if src_layout is not None:
+            return mp, mstate
+        return to_port_tree(mp, is_scanned(self.model)), mstate
 
     def _unravel_flat(self, p, flat):
         """A snapshot's flat plane as this model's parameter tree (the
@@ -1329,10 +1394,10 @@ class ServingEngine:
 
         layout = (file_io.read_manifest(p) or {}).get("layout") or {}
         if layout.get("kind", "dp") != "dp":
-            raise UnsupportedFeatureError(
-                f"{p} was written under a {layout['kind']!r} layout: "
-                f"redistributing it (parallel/reshard) is not ported, "
-                f"ROADMAP A7")
+            raise ValueError(
+                f"{p} holds a flat parameter plane, but its manifest "
+                f"names a {layout['kind']!r} layout: only a data-parallel "
+                f"snapshot is a flat plane")
         space = FlatParamSpace(dict(self.model.named_parameters()), 1)
         flat = np.asarray(flat, np.float32)
         true = int(layout.get("true_size", space.true_size))
@@ -1355,13 +1420,19 @@ class ServingEngine:
         candidate is quantized and held to ``accuracy_gate``; a refusal
         raises through the same rejected-with-reason audit and nothing
         changes.  Then the weights are committed in place, as
-        ``commit_staged`` does.  ``src_layout`` is not ported: ROADMAP
-        A7."""
-        if src_layout is not None:
-            raise UnsupportedFeatureError(
-                "src_layout= (redistributing a checkpoint of another "
-                "layout, parallel/reshard) is not ported: ROADMAP A7")
+        ``commit_staged`` does.  ``src_layout`` (a ``LayoutSpec`` or its
+        manifest dict) names the layout the incoming ``params`` were
+        saved under: they are redistributed onto this model's tree
+        first (``_from_layout``), then checked and gated as any
+        incoming tree."""
         incoming = params is not None
+        if src_layout is not None:
+            if not incoming:
+                raise ValueError(
+                    "src_layout describes an INCOMING params tree; "
+                    "pass params= alongside it")
+            params = self._from_layout(params, src_layout,
+                                       "serving-refresh")
         if not incoming:
             params = self.model.parameters_tree()
         reason = self._validate_incoming(params, mstate)

@@ -278,8 +278,10 @@ class InProcessReplica(Replica):
         if params is None:
             if path is None:
                 raise ValueError("stage needs params= or a snapshot path=")
+            # the snapshot under its own layout, staged with it (JAX
+            # fleet.py:296-308)
             p = self.engine._resolve_snapshot(path)
-            params, mstate = self.engine._load_snapshot_weights(p)
+            params, mstate, src_layout = self.engine._read_snapshot(p)
         return self.engine.stage_weights(params, mstate,
                                          src_layout=src_layout)
 
@@ -1133,8 +1135,8 @@ class ServingFleet:
     def predict_at(self, feature, bucket):
         return self.exposure.predict_at(feature, bucket)
 
-    def _load_snapshot_weights(self, p):
-        return self.exposure._load_snapshot_weights(p)
+    def _read_snapshot(self, p):
+        return self.exposure._read_snapshot(p)
 
     def stage_weights(self, params=None, mstate=None, src_layout=None,
                       path=None):

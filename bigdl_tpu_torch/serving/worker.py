@@ -60,7 +60,6 @@ import torch
 from bigdl_tpu_torch.serving.transport import (ReplicaCallError,
                                                WireFrameError, run_token,
                                                serve_connection)
-from bigdl_tpu_torch.utils.errors import UnsupportedFeatureError
 
 log = logging.getLogger("bigdl_tpu_torch.serving")
 
@@ -223,8 +222,10 @@ def boot_from_registry(engine, registry_path):
         from bigdl_tpu_torch.serving.transport import (
             dequantize_wire_tree, quantize_tree_for_wire)
 
-        params, mstate = engine._load_snapshot_weights(
+        params, mstate, src = engine._read_snapshot(
             engine._resolve_snapshot(live.path))
+        if src is not None:
+            params = engine._from_layout(params, src, "registry-boot")
         engine.refresh_params(
             dequantize_wire_tree(quantize_tree_for_wire(params)),
             None if mstate is None
@@ -394,11 +395,13 @@ class ReplicaServer:
             return self._put_handle(self.engine.capture_staged())
 
     def _op_stage(self, req):
+        # a snapshot path: loaded under its own layout and staged with it
+        # (the engine redistributes it onto the serving tree)
         with self._deploy_lock:
             p = self.engine._resolve_snapshot(req["path"])
-            params, mstate = self.engine._load_snapshot_weights(p)
-            return self._put_handle(self.engine.stage_weights(params,
-                                                              mstate))
+            params, mstate, src = self.engine._read_snapshot(p)
+            return self._put_handle(self.engine.stage_weights(
+                params, mstate, src_layout=src))
 
     def _op_stage_tree(self, req):
         # a weight tree shipped over the wire (tensor frames, optionally
@@ -408,10 +411,10 @@ class ReplicaServer:
         from bigdl_tpu_torch.serving.transport import dequantize_wire_tree
 
         if req.get("src_layout") is not None:
-            raise UnsupportedFeatureError(
-                "stage_tree ships weights already in the serving layout; "
-                "src_layout= (redistributing a checkpoint of another "
-                "layout, parallel/reshard) is not ported: ROADMAP A7")
+            raise ValueError(
+                "stage_tree ships weights already in the serving "
+                "layout; resharding snapshots cross as a PATH via the "
+                "stage op")
         with self._deploy_lock:
             params = dequantize_wire_tree(req["params"])
             mstate = req.get("mstate")

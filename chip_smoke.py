@@ -2,10 +2,13 @@
 """Smoke run of the PyTorch port (``bigdl_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases 17,18    # those phases alone
+    python3 chip_smoke.py --phases 15,17,18 # those phases alone
 
-Phases, each printing JSON lines (``--phases`` runs phases 17 and/or 18
-after the build, then the device line, with no kernels line):
+Phases, each printing JSON lines (``--phases`` runs any of phases 15,
+17 and 18 -- data parallelism; the model-parallel strategies; the
+pipelines, pp+tp, the heterogeneous pipeline and serving their
+checkpoints -- after the build, then the device line, with no kernels
+line):
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions, TF32 switched off;
@@ -327,8 +330,8 @@ after the build, then the device line, with no kernels line):
     cross-entropy) against the kernels' first loss; the bf16 wire and
     the int8 wire with error feedback, with and without the compressed
     weight gather, 3 steps each at world 1, captured on NCCL and bitwise
-    the same legs eager on a gloo group; (b) a world of two
-    processes sharing the card on gloo (this script with
+    the same legs eager on a gloo group, run while (b)-(d) run; (b) a
+    world of two processes sharing the card on gloo (this script with
     ``--distri-rank``), eager, four rows a rank: 4 steps on each wire
     (fp32 against (a)'s losses and its checkpointed parameters; bf16,
     int8 with error feedback, and with the compressed weight gather,
@@ -407,7 +410,7 @@ after the build, then the device line, with no kernels line):
     at world 1 (redistributed onto tp (1, 1)), it continues the
     straight run.
 
-18. pipeline parallelism (``parallel/pp.py`` behind
+18. pipeline parallelism (``parallel/pp.py`` and ``pp_het.py`` behind
     ``Optimizer(strategy="pp")``): (a) "small" at phase 7's setting
     (B8 T1024, fp32, ``Adam(1e-4)``, seed 0) at a world of one on NCCL
     on ``("data", "pipe")`` = (1, 1), 4 microbatches, GPipe and 1F1B, 4
@@ -420,7 +423,33 @@ after the build, then the device line, with no kernels line):
     4 (two blocks a stage), 3 steps of each schedule on (1, 2), against
     (a)'s code at world 1 on the same model; (c) (b)'s GPipe checkpoint
     (after 2 steps, JAX's pp layout block) resumed at world 1 as pp
-    (1, 1) and as tp (1, 1), against the straight world-2 run.
+    (1, 1) and as tp (1, 1), against the straight world-2 run; (d) pp
+    with tensor parallelism (``tensor_parallel=True`` on ``("data",
+    "pipe", "model")``): "small" as in (a) on (1, 1, 1), both
+    schedules, against the same ``LocalOptimizer`` run, one graph a
+    step, K1 / K1-bwd / K4 / K5 at (a)'s counts and no shard-form
+    K4/K5 (the tail stays whole); four gloo ranks (``--pp-rank``, world
+    4) on (1, 2, 2) at depth 4, both schedules, against (b)'s world-1
+    runs (``PP_TP_W4_RTOL``), at the same time as the world-2 ranks;
+    their GPipe checkpoint resumed as pp (1, 2) and pp+tp (1, 2, 1) by
+    the world-2 ranks (their last legs, once it is written) and as pp+tp
+    (1, 1, 1); (e) the
+    heterogeneous Sequential pipeline (``parallel/pp_het.py``) on
+    ``AlexNetOWT(1000, has_dropout=False)``, batch 128 of 224 x 224 x 3
+    in 4 microbatches, SGD: world 1 on (1, 1) against
+    ``LocalOptimizer`` (``HET_LOSS_RTOL``; also timed at the
+    microbatch's batch, 32), one graph a step, bf16
+    against fp32, a same-layout resume; the world-2 ranks with the
+    automatic cut and an explicit uneven one (``HET_BOUNDARIES``)
+    against world 1, and a resume of the world-1 checkpoint on (1, 2),
+    refused; (f) a "small"-width paged engine (4 layers) refreshed
+    through ``refresh_from_snapshot`` from (d)'s pp+tp checkpoint and
+    (b)'s pp one, against an engine built on the weights each holds:
+    greedy streams, ``predict``, the weights bitwise, no capture after
+    ``precompile()``, K1 and K3 counted through the replays.  The
+    gloo legs time their checkpoints (gathers, write, barrier); (c)'s
+    world-1 resumes and (f) run here while the gloo worlds work, once
+    those have written their checkpoints.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line.  Any
 failure raises and exits non-zero; without a CUDA card the script exits
@@ -5861,26 +5890,31 @@ def _state_vector(tree):
     return np.concatenate([np.ravel(v) for _, v in _tree_leaves(tree)])
 
 
-def _spawn_world2(root, job):
-    """Start the two gloo ranks (this script, ``--distri-rank``), wait
-    for them under ``DISTRI_CHILD_TIMEOUT_S``, kill both on a hang or a
-    failure; returns their results."""
+def _spawn_world2(root, job, meanwhile=None):
+    """Start the two gloo ranks (this script, ``--distri-rank``), run
+    ``meanwhile()`` here while they work, wait for them under
+    ``DISTRI_CHILD_TIMEOUT_S``, kill both on a hang or a failure;
+    returns their results."""
     out = root / "w2"
     out.mkdir()
     job_path = root / "job.json"
     job_path.write_text(json.dumps(job))
     init = root / "rendezvous"
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--distri-rank",
-         str(r), "2", str(init), str(job_path), str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    logs = [None, None]
+    logs = [out / f"rank{r}.log" for r in range(2)]
+    procs = []
     try:
+        for r in range(2):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--distri-rank", str(r), "2", str(init),
+                     str(job_path), str(out)],
+                    stdout=log, stderr=subprocess.STDOUT))
         deadline = time.monotonic() + DISTRI_CHILD_TIMEOUT_S
-        for r, p in enumerate(procs):
-            logs[r] = p.communicate(
-                timeout=max(1.0, deadline - time.monotonic()))[0]
+        if meanwhile is not None:
+            meanwhile()
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5889,7 +5923,7 @@ def _spawn_world2(root, job):
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
         raise AssertionError(f"world-2 rank {bad[0]} failed:\n"
-                             f"{(logs[bad[0]] or '')[-3000:]}")
+                             f"{logs[bad[0]].read_text()[-3000:]}")
     return [json.loads((out / f"rank{r}.json").read_text())
             for r in range(2)], out
 
@@ -5921,17 +5955,19 @@ def distri_phase(fa, ce, card):
         ckpt_a = root / "a" / f"checkpoint.{DISTRI_CKPT_AT}.pkl"
         flat_a4 = np.asarray(file_io.load(str(ckpt_a))["model_params"]
                              ["model_params_flat"])
-        distri_world1_wires(card, x, y)
         # the weights every seed-0 run starts from
         theta0 = _flat_params(transformer_lm(
             "small", VOCAB, max_len=SEQ, device="cuda", seed=0)).cpu().numpy()
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (b)-(d) in a world of two processes sharing the card, on gloo
+        # (b)-(d) in a world of two processes sharing the card, on gloo,
+        # while (a)'s compressed wires run here (correctness legs: their
+        # wall times share the card)
         t0 = time.perf_counter()
         ranks, out = _spawn_world2(root, {
-            "ckpt_a": str(root / "a"), "ckpt_w2": str(root / "w2_ckpt")})
+            "ckpt_a": str(root / "a"), "ckpt_w2": str(root / "w2_ckpt")},
+            meanwhile=lambda: distri_world1_wires(card, x, y))
         world2_s = time.perf_counter() - t0
         r0 = ranks[0]
         for r in ranks[1:]:
@@ -7290,7 +7326,8 @@ def strategy_phase(fa, ce, card):
 
 
 # --------------------------------------------------------------------------- #
-# Phase 18: pipeline parallelism (parallel/pp.py, strategy="pp")
+# Phase 18: pipeline parallelism (parallel/pp.py, parallel/pp_het.py,
+# strategy="pp"), and serving a pipelined run's checkpoint
 # --------------------------------------------------------------------------- #
 
 #: (a) steps a schedule at world 1; (b) steps at world 2, the GPipe
@@ -7303,7 +7340,8 @@ PP_SCHEDULES = ("gpipe", "1f1b")
 #: measured): every block once a microbatch forward (1F1B twice: its
 #: forward and the recompute for the backward leg) and once backward;
 #: the tail's K4 and K5 once a step over the concatenated microbatches
-#: (GPipe), once a microbatch (1F1B)
+#: (GPipe), once a microbatch (1F1B).  pp+tp (d) launches the same
+#: counts: its tail is the plain, whole-vocabulary K4/K5
 PP_WANT = {"gpipe": {_K1: 12 * PP_MICRO, _K1B: 12 * PP_MICRO, _K4: 1,
                      _K5: 1},
            "1f1b": {_K1: 2 * 12 * PP_MICRO, _K1B: 12 * PP_MICRO,
@@ -7313,6 +7351,23 @@ PP_WANT = {"gpipe": {_K1: 12 * PP_MICRO, _K1B: 12 * PP_MICRO, _K4: 1,
 #: (a)'s code at world 1 on the same 4-layer model; (c) a resume across
 #: layouts against the straight world-2 run
 PP_LOSS_RTOL, PP_UPD, PP_W2_UPD = 1e-5, 1e-2, 5e-3
+#: (d) the four gloo ranks' pp+tp (1, 2, 2) losses against pp at world 1
+#: on the same 4-layer model
+PP_TP_W4_RTOL = 1e-6
+PP_AXES, PP_AXES3 = ("data", "pipe"), ("data", "pipe", "model")
+#: (e) the heterogeneous pipeline: AlexNetOWT (no dropout), batch 128 of
+#: 224 x 224 x 3 images in 4 microbatches, SGD; losses against
+#: LocalOptimizer (the convolutions see batch 32 where the reference
+#: sees 128: cuDNN may pick other algorithms, so the bound is looser
+#: than (a)'s), bf16 against fp32, the gloo ranks against world 1
+HET_BATCH, HET_SIDE, HET_STEPS, HET_CKPT_AT = 128, 224, 4, 3
+HET_LOSS_RTOL, HET_BF16_RTOL, HET_W2_RTOL = 1e-4, 5e-2, 1e-5
+#: (e) the explicit uneven cut of the gloo ranks: stage 1 from conv4
+HET_BOUNDARIES = [8]
+#: (f) the refreshed engine: decode slots (one prompt each), cache
+#: length, the longest prompt, new tokens a request
+PP_SERVE_SLOTS, PP_SERVE_LEN = 4, 256
+PP_SERVE_PROMPT, PP_SERVE_NEW = 200, 16
 PP_CHILD_TIMEOUT_S = 300
 
 
@@ -7323,12 +7378,15 @@ def _pp_model(layers=12, seed=0):
                          device="cuda", seed=seed)
 
 
-def _pp_opt(model, x, y, mesh, schedule, strategy="pp"):
+def _pp_opt(model, x, y, mesh, schedule, strategy="pp",
+            tensor_parallel=False):
     from bigdl_tpu_torch import optim
     from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
 
     kw = {"n_microbatches": PP_MICRO, "schedule": schedule} \
         if strategy == "pp" else {}
+    if tensor_parallel:
+        kw["tensor_parallel"] = True
     return optim.Optimizer(
         model, array_dataset(x, y) >> SampleToMiniBatch(BATCH), _lm_crit(),
         optim.Adam(learning_rate=1e-4), strategy=strategy, mesh=mesh, **kw)
@@ -7348,15 +7406,85 @@ def _pp_timed(opt, steps):
     return {"losses": summary.scalars["Loss"], "step_s": step_s}
 
 
-def pp_world1(fa, ce, card, x, y):
-    """Phase 18 (a): "small" pipelined at a world of one on NCCL, GPipe
-    and 1F1B, against LocalOptimizer on the same weights and batches;
-    launches counted through the replays.  Returns the launch counts by
-    path and each schedule's peak memory."""
-    from bigdl_tpu_torch import optim
-    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+def _free():
+    """Collect what the caller dropped and hand the cached blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pp_leg(fa, ce, card, x, y, ref, start, schedule, tensor_parallel):
+    """One world-1 leg of (a) or (d): 12-layer "small" through
+    ``strategy="pp"`` on NCCL, against ``ref`` (LocalOptimizer); returns
+    its row, launches and peak memory (and raises on a miss)."""
     from bigdl_tpu_torch.utils import cuda_graphs
     from bigdl_tpu_torch.utils.engine import Engine
+
+    shape, axes = ((1, 1, 1), PP_AXES3) if tensor_parallel \
+        else ((1, 1), PP_AXES)
+    mesh = Engine.build_mesh(shape, axes)
+    model = _pp_model()
+    opt = _pp_opt(model, x, y, mesh, schedule,
+                  tensor_parallel=tensor_parallel)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    ce.reset_launch_counts()
+    captures = cuda_graphs.capture_count()
+    # ---- the pipeline's main path: counts read right after ----------
+    run = _pp_timed(opt, PP_STEPS)
+    launches = _strategy_counts(fa, ce)
+    # ------------------------------------------------------------------
+    stats = opt.compiled_stats
+    peak = torch.cuda.max_memory_allocated()
+    flat = _flat_params(model).detach().cpu()
+    step_rel = _max_step_rel(run["losses"], ref["losses"])
+    upd = _update_rel(flat.numpy(), ref["flat"].numpy(), start.numpy())
+    want = {k: n * PP_STEPS for k, n in PP_WANT[schedule].items()}
+    if tensor_parallel:
+        want.update({_K4S: 0, _K5S: 0})
+    got = {k: launches.get(k, 0) for k in want}
+    row = {"phase": "pp_tp_world1" if tensor_parallel else "pp_world1",
+           "schedule": schedule, "mesh": dict(mesh.shape),
+           "microbatches": PP_MICRO,
+           "backend": torch.distributed.get_backend(),
+           "route": opt.captured_route, "graphs": stats["captured"],
+           "replays": stats["replays"],
+           "captures": cuda_graphs.capture_count() - captures,
+           "graph_pool_bytes": stats["pool_bytes"],
+           "step_s": run["step_s"],
+           "tokens_per_s": BATCH * SEQ / run["step_s"],
+           "reference_step_s": ref["step_s"],
+           "reference_tokens_per_s": BATCH * SEQ / ref["step_s"],
+           "peak_allocated_bytes": peak,
+           "reference_peak_allocated_bytes": ref["peak_bytes"],
+           "losses": run["losses"], "reference_losses": ref["losses"],
+           "max_step_loss_rel": step_rel, "param_update_rel": upd,
+           "tolerance": {"loss": PP_LOSS_RTOL, "update": PP_UPD},
+           "launches": got, "want": want, "card": card}
+    emit(row)
+    what = f"pp{'+tp' if tensor_parallel else ''} {schedule}"
+    if len(run["losses"]) != PP_STEPS or step_rel > PP_LOSS_RTOL or \
+            upd > PP_UPD:
+        raise AssertionError(f"{what} world 1 against LocalOptimizer: "
+                             f"{row}")
+    if stats["captured"] != 1 or stats["replays"] != PP_STEPS or \
+            opt.captured_route != "nccl-graph":
+        raise AssertionError(f"{what}: the step was not one captured "
+                             f"graph: {row}")
+    if got != want:
+        raise AssertionError(f"{what} launches {got}, want {want}")
+    del model, opt, mesh
+    _free()
+    return got, peak
+
+
+def pp_world1(fa, ce, card, x, y):
+    """Phase 18 (a) and (d)'s world-1 legs: "small" pipelined at a world
+    of one on NCCL, GPipe and 1F1B, then with tensor parallelism on
+    (1, 1, 1), each against LocalOptimizer on the same weights and
+    batches; launches counted through the replays.  Returns the launch
+    counts by path and each leg's peak memory."""
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
 
     model = _pp_model()
     start = _flat_params(model).detach().cpu()
@@ -7367,79 +7495,33 @@ def pp_world1(fa, ce, card, x, y):
     ref.update(flat=_flat_params(model).detach().cpu(),
                peak_bytes=torch.cuda.max_memory_allocated())
     del model, opt
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     paths, peaks = {}, {}
-    for schedule in PP_SCHEDULES:
-        mesh = Engine.build_mesh((1, 1), ("data", "pipe"))
-        model = _pp_model()
-        opt = _pp_opt(model, x, y, mesh, schedule)
-        torch.cuda.reset_peak_memory_stats()
-        fa.reset_launch_counts()
-        ce.reset_launch_counts()
-        captures = cuda_graphs.capture_count()
-        # ---- the pipeline's main path: counts read right after ----------
-        run = _pp_timed(opt, PP_STEPS)
-        launches = _strategy_counts(fa, ce)
-        # ------------------------------------------------------------------
-        stats = opt.compiled_stats
-        peaks[schedule] = torch.cuda.max_memory_allocated()
-        flat = _flat_params(model).detach().cpu()
-        step_rel = _max_step_rel(run["losses"], ref["losses"])
-        upd = _update_rel(flat.numpy(), ref["flat"].numpy(), start.numpy())
-        want = {k: n * PP_STEPS for k, n in PP_WANT[schedule].items()}
-        got = {k: launches.get(k, 0) for k in want}
-        row = {"phase": "pp_world1", "schedule": schedule,
-               "mesh": dict(mesh.shape), "microbatches": PP_MICRO,
-               "backend": torch.distributed.get_backend(),
-               "route": opt.captured_route, "graphs": stats["captured"],
-               "replays": stats["replays"],
-               "captures": cuda_graphs.capture_count() - captures,
-               "graph_pool_bytes": stats["pool_bytes"],
-               "step_s": run["step_s"],
-               "tokens_per_s": BATCH * SEQ / run["step_s"],
-               "reference_step_s": ref["step_s"],
-               "reference_tokens_per_s": BATCH * SEQ / ref["step_s"],
-               "peak_allocated_bytes": peaks[schedule],
-               "reference_peak_allocated_bytes": ref["peak_bytes"],
-               "losses": run["losses"], "reference_losses": ref["losses"],
-               "max_step_loss_rel": step_rel, "param_update_rel": upd,
-               "tolerance": {"loss": PP_LOSS_RTOL, "update": PP_UPD},
-               "launches": got, "want": want, "card": card}
-        emit(row)
-        if len(run["losses"]) != PP_STEPS or step_rel > PP_LOSS_RTOL or \
-                upd > PP_UPD:
-            raise AssertionError(f"pp {schedule} world 1 against "
-                                 f"LocalOptimizer: {row}")
-        if stats["captured"] != 1 or stats["replays"] != PP_STEPS or \
-                opt.captured_route != "nccl-graph":
-            raise AssertionError(f"pp {schedule}: the step was not one "
-                                 f"captured graph: {row}")
-        if got != want:
-            raise AssertionError(f"pp {schedule} launches {got}, want "
-                                 f"{want}")
-        paths[f"pp_{schedule}"] = got
-        del model, opt, mesh
-        gc.collect()
-        torch.cuda.empty_cache()
-    if peaks["1f1b"] >= peaks["gpipe"]:
-        raise AssertionError(f"1F1B's peak {peaks['1f1b']} is not below "
-                             f"GPipe's {peaks['gpipe']} at M={PP_MICRO}")
+    for tp in (False, True):
+        for schedule in PP_SCHEDULES:
+            name = f"pp_{'tp_' if tp else ''}{schedule}"
+            paths[name], peaks[name] = _pp_leg(fa, ce, card, x, y, ref,
+                                               start, schedule, tp)
+    if peaks["pp_1f1b"] >= peaks["pp_gpipe"]:
+        raise AssertionError(f"1F1B's peak {peaks['pp_1f1b']} is not below "
+                             f"GPipe's {peaks['pp_gpipe']} at M={PP_MICRO}")
     return paths, peaks
 
 
 def pp_shallow(x, y, schedule, steps=PP_W2_STEPS, mesh_shape=(1, 1),
-               ckpt=None, resume=None, strategy="pp"):
+               ckpt=None, resume=None, strategy="pp", tensor_parallel=False):
     """(b)'s 4-layer model at full width through ``strategy`` on a mesh
-    of ``mesh_shape`` over the current world: its losses, wall seconds
-    and final parameters (flat, on the host)."""
+    of ``mesh_shape`` over the current world (``("data", "pipe",
+    "model")`` for three axes): its losses, wall seconds and final
+    parameters (flat, on the host)."""
     from bigdl_tpu_torch import optim
     from bigdl_tpu_torch.utils.engine import Engine
 
-    axes = ("data", "pipe") if strategy == "pp" else ("data", "model")
+    axes = (PP_AXES3 if len(mesh_shape) == 3 else PP_AXES) \
+        if strategy == "pp" else ("data", "model")
     mesh = Engine.build_mesh(mesh_shape, axes)
     model = _pp_model(PP_W2_LAYERS)
-    opt = _pp_opt(model, x, y, mesh, schedule, strategy)
+    opt = _pp_opt(model, x, y, mesh, schedule, strategy, tensor_parallel)
     summary = _Losses()
     opt.set_train_summary(summary)
     opt.set_end_when(optim.Trigger.max_iteration(steps))
@@ -7455,16 +7537,116 @@ def pp_shallow(x, y, schedule, steps=PP_W2_STEPS, mesh_shape=(1, 1),
            "neval": opt.driver_state["neval"],
            "flat": _flat_params(model).detach().cpu()}
     del model, opt, mesh
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return out
 
 
+def _het_data(n=2 * HET_BATCH):
+    """``n`` images (NHWC, from seed 0 on the host) and their classes."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((n, HET_SIDE, HET_SIDE, 3), generator=g)
+    y = torch.randint(0, 1000, (n,), generator=g, dtype=torch.int32)
+    return x.numpy(), y.numpy()
+
+
+def het_run(x, y, steps, mesh_shape=None, compute_dtype=None,
+            boundaries=None, ckpt=None, resume=None, clock=False,
+            batch=HET_BATCH):
+    """AlexNetOWT (no dropout, seed 0) through the heterogeneous pipeline
+    on a ``("data", "pipe")`` mesh of ``mesh_shape`` over the current
+    world (None: LocalOptimizer), SGD with momentum, ``batch`` a step
+    in 4 microbatches: its losses, wall seconds, route, graph stats,
+    peak memory and final parameters (flat, on the host); with
+    ``clock`` the mean step time over steps 2 to the last."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.models.alexnet import AlexNetOWT
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    model = AlexNetOWT(1000, has_dropout=False, device="cuda", seed=0)
+    ds = array_dataset(x, y) >> SampleToMiniBatch(batch)
+    method = optim.SGD(learning_rate=0.01, momentum=0.9)
+    mesh = None
+    if mesh_shape is None:
+        opt = optim.Optimizer(model, ds, nn.ClassNLLCriterion(), method)
+    else:
+        mesh = Engine.build_mesh(mesh_shape, PP_AXES)
+        kw = {"n_microbatches": 4}
+        if boundaries is not None:
+            kw["boundaries"] = boundaries
+        opt = optim.Optimizer(model, ds, nn.ClassNLLCriterion(), method,
+                              strategy="pp", mesh=mesh, **kw)
+    if compute_dtype is not None:
+        opt.set_compute_dtype(compute_dtype)
+    if ckpt is not None:
+        opt.set_checkpoint(ckpt, lambda s: s["neval"] == HET_CKPT_AT)
+    if resume is not None:
+        opt.resume_from_checkpoint(resume)
+    summary = _Losses()
+    opt.set_train_summary(summary)
+    marks = StepClock(opt, steps, sync_at=(1, steps)) if clock else None
+    opt.set_end_when(marks or optim.Trigger.max_iteration(steps))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    out = {"losses": summary.scalars["Loss"],
+           "wall_s": time.perf_counter() - t0,
+           "route": getattr(opt, "captured_route", None),
+           "stats": getattr(opt, "compiled_stats", None),
+           "neval": opt.driver_state["neval"],
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "flat": _flat_params(model).detach().cpu()}
+    if marks is not None:
+        out["step_s"] = (marks.marks[steps][0] - marks.marks[1][0]) \
+            / (steps - 1)
+    plan = getattr(opt, "plan", None)
+    if plan is not None:
+        out["slices"] = plan.slices
+    del model, opt, mesh, plan
+    _free()
+    return out
+
+
+@contextlib.contextmanager
+def _checkpoint_clock():
+    """Host seconds spent in ``StrategyOptimizer._checkpoint`` (the
+    gathers, rank 0's write, the barrier) and in its
+    ``file_io.save_checkpoint`` (the write alone), summed over the
+    block: ``{"checkpoint_s": ..., "write_s": ...}``."""
+    from bigdl_tpu_torch.optim import strategy_optimizer as so
+    from bigdl_tpu_torch.utils import file_io
+
+    spent = {"checkpoint_s": 0.0, "write_s": 0.0}
+    saved = so.StrategyOptimizer._checkpoint, file_io.save_checkpoint
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    so.StrategyOptimizer._checkpoint = timed(saved[0], "checkpoint_s")
+    file_io.save_checkpoint = timed(saved[1], "write_s")
+    try:
+        yield spent
+    finally:
+        so.StrategyOptimizer._checkpoint, file_io.save_checkpoint = saved
+
+
 def pp_child(rank, world, init, job_path, out):
-    """Phase 18 (b), one rank of the gloo world sharing the card: GPipe
-    (writing (c)'s checkpoint) and 1F1B on a (1, 2) mesh, ``PP_W2_STEPS``
-    steps each.  Results to ``out/rank<r>.json``; rank 0 also saves each
-    schedule's parameters."""
+    """Phase 18 (b), (d) and (e), one rank of a gloo world sharing the
+    card.  World 2: GPipe (writing (c)'s checkpoint) and 1F1B on a
+    (1, 2) mesh, ``PP_W2_STEPS`` steps each, (e)'s heterogeneous
+    pipeline on (1, 2) with the automatic and the explicit cut, and its
+    world-1 checkpoint resumed on (1, 2), which must raise, then (d)'s
+    pp+tp checkpoint (from world 4, running at the same time) resumed
+    as pp (1, 2) and as pp+tp (1, 2, 1).  World 4: pp+tp on (1, 2, 2),
+    GPipe (writing its checkpoint) and 1F1B.  Results to
+    ``out/rank<r>.json``; rank 0 also saves each leg's parameters."""
     import torch.distributed as dist
 
     from bigdl_tpu_torch.models import synthetic_corpus
@@ -7478,16 +7660,50 @@ def pp_child(rank, world, init, job_path, out):
                             world_size=world, rank=rank)
     out = Path(out)
     res = {}
+
+    def keep(name, r):
+        flat = r.pop("flat")
+        if rank == 0:
+            np.save(out / f"flat_{name}.npy", flat.numpy())
+        r.pop("stats", None)
+        res[name] = r
+
     try:
         x, y = synthetic_corpus(64, SEQ, VOCAB)
-        for schedule in PP_SCHEDULES:
-            r = pp_shallow(x, y, schedule, mesh_shape=(1, world),
-                           ckpt=job["ckpt"] if schedule == "gpipe" else None)
-            if rank == 0:
-                np.save(out / f"flat_{schedule}.npy", r.pop("flat").numpy())
-            else:
-                r.pop("flat")
-            res[schedule] = r
+        if world == 4:
+            for schedule in PP_SCHEDULES:
+                with _checkpoint_clock() as spent:
+                    keep(f"pptp_{schedule}", pp_shallow(
+                        x, y, schedule, mesh_shape=(1, 2, 2),
+                        tensor_parallel=True, ckpt=job["ckpt_pptp"]
+                        if schedule == "gpipe" else None))
+                res[f"pptp_{schedule}"].update(spent)
+        else:
+            for schedule in PP_SCHEDULES:
+                with _checkpoint_clock() as spent:
+                    keep(schedule, pp_shallow(
+                        x, y, schedule, mesh_shape=(1, world),
+                        ckpt=job["ckpt"] if schedule == "gpipe" else None))
+                res[schedule].update(spent)
+            hx, hy = _het_data()
+            keep("het_auto", het_run(hx, hy, PP_W2_STEPS, (1, world)))
+            keep("het_cut", het_run(hx, hy, PP_W2_STEPS, (1, world),
+                                    boundaries=HET_BOUNDARIES))
+            try:
+                het_run(hx, hy, PP_W2_STEPS, (1, world),
+                        resume=job["ckpt_het"])
+                res["het_cross"] = None
+            except NotImplementedError as e:
+                res["het_cross"] = f"{type(e).__name__}: {e}"
+            # the four-rank world runs at the same time: its pp+tp
+            # checkpoint is complete once its manifest is there
+            _await_snapshot(job["ckpt_pptp"])
+            keep("pp_from_pptp", pp_shallow(x, y, "gpipe",
+                                            resume=job["ckpt_pptp"],
+                                            mesh_shape=(1, world)))
+            keep("pptp_from_pptp", pp_shallow(
+                x, y, "gpipe", resume=job["ckpt_pptp"],
+                mesh_shape=(1, world, 1), tensor_parallel=True))
     finally:
         dist.destroy_process_group()
     with open(out / f"rank{rank}.json", "w") as f:
@@ -7495,37 +7711,263 @@ def pp_child(rank, world, init, job_path, out):
     return 0
 
 
-def _spawn_pp_world(root, job):
-    """Start the two gloo ranks (this script, ``--pp-rank``), wait for
-    them under ``PP_CHILD_TIMEOUT_S``, kill both on a hang or a failure;
-    returns their results and the output directory."""
-    out = root / "w2"
-    out.mkdir()
-    job_path = root / "job.json"
-    job_path.write_text(json.dumps(job))
-    init = root / "rendezvous"
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--pp-rank", str(r),
-         "2", str(init), str(job_path), str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    logs = [None, None]
+def _await_snapshot(path, procs=(), timeout=PP_CHILD_TIMEOUT_S):
+    """Wait until the checkpoint directory ``path`` holds the snapshot of
+    neval ``PP_CKPT_AT`` with its manifest (written after the snapshot
+    itself, so the snapshot is then whole); raise as soon as one of
+    ``procs`` (its writers) has failed."""
+    from bigdl_tpu_torch.utils import file_io
+
+    target = str(Path(path) / f"checkpoint.{PP_CKPT_AT}.pkl")
+    deadline = time.monotonic() + timeout
+    while file_io.read_manifest(target) is None:
+        if any(p.poll() not in (None, 0) for p in procs):
+            raise AssertionError(f"a writer of {target} failed")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no snapshot {target} within {timeout} s")
+        time.sleep(0.2)
+
+
+def _spawn_pp_worlds(root, jobs, meanwhile=None):
+    """Start a gloo world of ``--pp-rank`` processes of this script for
+    each ``{world: job}``, all at once and sharing the card; run
+    ``meanwhile(procs)`` here (``procs``: ``{world: [Popen]}``) while
+    they work; wait for them under ``PP_CHILD_TIMEOUT_S`` and kill every
+    one on a hang or a failure.  Returns ``{world: (results by rank,
+    output directory)}``, each world's seconds from the start and what
+    ``meanwhile`` returned."""
+    t0 = time.perf_counter()
+    procs, outs, seconds = {}, {}, {}
     try:
+        for world, job in jobs.items():
+            outs[world] = out = root / f"w{world}"
+            out.mkdir()
+            job_path = root / f"job{world}.json"
+            job_path.write_text(json.dumps(job))
+            init = root / f"rendezvous{world}"
+            procs[world] = []
+            for r in range(world):
+                with open(out / f"rank{r}.log", "w") as log:
+                    procs[world].append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--pp-rank", str(r), str(world), str(init),
+                         str(job_path), str(out)],
+                        stdout=log, stderr=subprocess.STDOUT))
         deadline = time.monotonic() + PP_CHILD_TIMEOUT_S
-        for r, p in enumerate(procs):
-            logs[r] = p.communicate(
-                timeout=max(1.0, deadline - time.monotonic()))[0]
+        done = meanwhile(procs) if meanwhile is not None else None
+        for world, ps in procs.items():
+            for p in ps:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            seconds[world] = time.perf_counter() - t0
+            bad = [r for r, p in enumerate(ps) if p.returncode != 0]
+            if bad:
+                log = (outs[world] / f"rank{bad[0]}.log").read_text()
+                raise AssertionError(
+                    f"phase 18 world-{world} rank {bad[0]} failed:\n"
+                    f"{log[-3000:]}")
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        raise AssertionError(f"phase 18 world-2 rank {bad[0]} failed:\n"
-                             f"{(logs[bad[0]] or '')[-3000:]}")
-    return [json.loads((out / f"rank{r}.json").read_text())
-            for r in range(2)], out
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return {world: ([json.loads((outs[world] / f"rank{r}.json").read_text())
+                     for r in range(world)], outs[world])
+            for world in jobs}, seconds, done
+
+
+def _world_row(phase, leg, ranks, out, ref, start, tol, upd_tol, card,
+               **extra):
+    """A gloo world's leg against its world-1 reference ``ref``: the row
+    (emitted) and whether it holds."""
+    flat = np.load(out / f"flat_{leg}.npy")
+    losses = [r[leg]["losses"] for r in ranks]
+    step_rel = _max_step_rel(losses[0], ref["losses"])
+    row = {"phase": phase, "leg": leg,
+           "label": "correctness only: gloo ranks sharing one card, eager, "
+                    "host-routed hops",
+           "ranks": len(ranks), "routes": [r[leg]["route"] for r in ranks],
+           "checkpoint_s": [r[leg].get("checkpoint_s") for r in ranks],
+           "checkpoint_write_s": [r[leg].get("write_s") for r in ranks],
+           "losses": losses[0], "world1_losses": ref["losses"],
+           "ranks_agree": all(l == losses[0] for l in losses),
+           "max_step_loss_rel": step_rel,
+           "param_update_rel": _update_rel(flat, ref["flat"].numpy(),
+                                           start),
+           "wall_s": [r[leg]["wall_s"] for r in ranks],
+           "world1_wall_s": ref["wall_s"],
+           "tolerance": {"loss": tol, "update": upd_tol}, "card": card,
+           **extra}
+    emit(row)
+    ok = len(losses[0]) == len(ref["losses"]) and row["ranks_agree"] and \
+        step_rel <= tol and row["param_update_rel"] <= upd_tol and \
+        set(row["routes"]) == {"eager"}
+    return row, ok
+
+
+def _het_start():
+    """AlexNetOWT's initial parameters (seed 0), flat, on the host."""
+    from bigdl_tpu_torch.models.alexnet import AlexNetOWT
+
+    return _flat_params(AlexNetOWT(1000, has_dropout=False, device="cpu",
+                                   seed=0)).numpy()
+
+
+def het_world1(card, x, y, ckpt):
+    """Phase 18 (e) at a world of one on NCCL: AlexNetOWT through the
+    heterogeneous pipeline on (1, 1) against LocalOptimizer (losses,
+    parameters, one graph a step, step time over steps without a
+    checkpoint), in bf16 against fp32, and a ``PP_W2_STEPS`` run (the
+    gloo ranks' reference) writing its checkpoint at ``HET_CKPT_AT``,
+    resumed at the same layout against it.  Returns the fp32 run's peak
+    memory and the ``PP_W2_STEPS`` run."""
+    ref = het_run(x, y, HET_STEPS, clock=True)
+    # LocalOptimizer at the microbatch's size: what the pipeline's four
+    # microbatch steps a step cost at world 1 (cuDNN picks its fp32
+    # algorithms by batch size)
+    micro = het_run(x, y, HET_STEPS, clock=True, batch=HET_BATCH // 4)
+    start = _het_start()
+    run = het_run(x, y, HET_STEPS, (1, 1), clock=True)
+    bf16 = het_run(x, y, HET_STEPS, (1, 1), compute_dtype=torch.bfloat16,
+                   clock=True)
+    short = het_run(x, y, PP_W2_STEPS, (1, 1), ckpt=ckpt)
+    resumed = het_run(x, y, PP_W2_STEPS, (1, 1), resume=ckpt)
+    stats = run["stats"]
+    row = {"phase": "het_world1", "model": "AlexNetOWT(1000, "
+           "has_dropout=False)", "batch": HET_BATCH, "microbatches": 4,
+           "slices": run["slices"],
+           "backend": torch.distributed.get_backend(),
+           "route": run["route"], "graphs": stats["captured"],
+           "replays": stats["replays"], "graph_pool_bytes":
+           stats["pool_bytes"], "step_s": run["step_s"],
+           "images_per_s": HET_BATCH / run["step_s"],
+           "reference_step_s": ref["step_s"],
+           "reference_images_per_s": HET_BATCH / ref["step_s"],
+           "reference_microbatch_step_s": micro["step_s"],
+           "peak_allocated_bytes": run["peak_allocated_bytes"],
+           "reference_peak_allocated_bytes": ref["peak_allocated_bytes"],
+           "losses": run["losses"], "reference_losses": ref["losses"],
+           "max_step_loss_rel": _max_step_rel(run["losses"],
+                                              ref["losses"]),
+           "param_update_rel": _update_rel(run["flat"].numpy(),
+                                           ref["flat"].numpy(), start),
+           "bf16_losses": bf16["losses"], "bf16_step_s": bf16["step_s"],
+           "bf16_max_step_loss_rel": _max_step_rel(bf16["losses"],
+                                                   run["losses"]),
+           "bf16_masters": str(bf16["flat"].dtype),
+           "resumed_losses": resumed["losses"],
+           "resumed_neval": resumed["neval"],
+           "resumed_max_step_loss_rel": _max_step_rel(
+               resumed["losses"], short["losses"][HET_CKPT_AT - 1:]),
+           "resumed_param_update_rel": _update_rel(
+               resumed["flat"].numpy(), short["flat"].numpy(), start),
+           "tolerance": {"loss": HET_LOSS_RTOL, "update": PP_UPD,
+                         "bf16_loss": HET_BF16_RTOL,
+                         "resume_loss": PP_LOSS_RTOL,
+                         "resume_update": PP_W2_UPD},
+           "card": card}
+    emit(row)
+    if len(run["losses"]) != HET_STEPS or \
+            row["max_step_loss_rel"] > HET_LOSS_RTOL or \
+            row["param_update_rel"] > PP_UPD:
+        raise AssertionError(f"het world 1 against LocalOptimizer: {row}")
+    if stats["captured"] != 1 or stats["replays"] != HET_STEPS or \
+            run["route"] != "nccl-graph":
+        raise AssertionError(f"het: the step was not one captured graph: "
+                             f"{row}")
+    if row["bf16_max_step_loss_rel"] > HET_BF16_RTOL or \
+            row["bf16_masters"] != "torch.float32":
+        raise AssertionError(f"het bf16 against fp32: {row}")
+    if resumed["neval"] != PP_W2_STEPS + 1 or \
+            len(resumed["losses"]) != PP_W2_STEPS - HET_CKPT_AT + 1 or \
+            row["resumed_max_step_loss_rel"] > PP_LOSS_RTOL or \
+            row["resumed_param_update_rel"] > PP_W2_UPD:
+        raise AssertionError(f"het same-layout resume: {row}")
+    return run["peak_allocated_bytes"], short
+
+
+def pp_serving(fa, card, ckpts):
+    """Phase 18 (f): a "small"-width fp32 paged engine (4 layers, other
+    random weights) refreshed through ``refresh_from_snapshot`` from
+    each checkpoint directory of ``ckpts`` (``{name: dir}``, pipelined
+    runs of the same model), against an engine built on the weights the
+    checkpoint holds (its stage-stacked tree unstacked by
+    ``interop.load_jax_pp_params``): greedy streams and ``predict``
+    equal, the refreshed engine's weights bitwise, no capture after
+    ``precompile()``; K1 and K3 counted through the replays.  Returns
+    the launch counts by checkpoint."""
+    from bigdl_tpu_torch.interop import load_jax_pp_params
+    from bigdl_tpu_torch.models import synthetic_corpus
+    from bigdl_tpu_torch.serving import ServingEngine
+    from bigdl_tpu_torch.utils import cuda_graphs, file_io
+
+    toks, _ = synthetic_corpus(PP_SERVE_SLOTS, PP_SERVE_PROMPT, VOCAB,
+                               seed=5)
+    prompts = [toks[i, :n] for i, n in enumerate(np.linspace(
+        PP_SERVE_PROMPT // 8, PP_SERVE_PROMPT, PP_SERVE_SLOTS).astype(int))]
+    seq, _ = synthetic_corpus(1, PP_SERVE_PROMPT // 2, VOCAB, seed=6)
+
+    def engine(model):
+        return ServingEngine(model, decode_slots=PP_SERVE_SLOTS,
+                             decode_max_len=PP_SERVE_LEN)
+
+    def serve(eng):
+        streams = [eng.generate(p, max_new_tokens=PP_SERVE_NEW).result(600)
+                   for p in prompts]
+        logits = eng.predict(seq[0], timeout=600)
+        torch.cuda.synchronize()
+        return streams, np.asarray(logits)
+
+    paths = {}
+    eng = engine(_pp_model(PP_W2_LAYERS, seed=7))
+    try:
+        built = eng.precompile(example_feature=seq[0])
+        for name, path in ckpts.items():
+            intact, _ = file_io.scan_checkpoints(str(path))
+            snap = file_io.load(intact[0])
+            ref_model = load_jax_pp_params(_pp_model(PP_W2_LAYERS, seed=7),
+                                           snap["model_params"])
+            with engine(ref_model) as ref:
+                want_streams, want_logits = serve(ref)
+            captures = cuda_graphs.capture_count()
+            steps = eng.executables()
+            t0 = time.perf_counter()
+            eng.refresh_from_snapshot(str(path))
+            refresh_s = time.perf_counter() - t0
+            fa.reset_launch_counts()
+            # ---- the refreshed engine's path: counts read right after --
+            streams, logits = serve(eng)
+            launches = {k: fa.LAUNCHES[k] for k in
+                        ("flash_attention", "flash_paged_decode_attention")}
+            # ------------------------------------------------------------
+            same_weights = all(torch.equal(a, b) for a, b in zip(
+                eng.model.parameters(), ref_model.parameters()))
+            row = {"phase": "pp_serving", "checkpoint": name,
+                   "layout": file_io.read_manifest(intact[0])["layout"],
+                   "steps_built_by_precompile": built,
+                   "refresh_s": refresh_s,
+                   "captures_after_refresh":
+                       cuda_graphs.capture_count() - captures,
+                   "steps_built_after_refresh": eng.executables() - steps,
+                   "weights_bitwise": same_weights,
+                   "greedy_streams_equal": streams == want_streams,
+                   "predict_max_abs_err": float(np.abs(
+                       logits - want_logits).max()),
+                   "launches": launches, "card": card}
+            emit(row)
+            del ref_model
+            _free()
+            if not same_weights or streams != want_streams or \
+                    row["predict_max_abs_err"] > ATOL or \
+                    row["captures_after_refresh"] or \
+                    row["steps_built_after_refresh"] or \
+                    min(launches.values()) < 1:
+                raise AssertionError(f"serving the {name} checkpoint: "
+                                     f"{row}")
+            paths[f"pp_serving_{name}"] = launches
+    finally:
+        eng.close()
+    return paths
 
 
 def pp_phase(fa, ce, card):
@@ -7540,76 +7982,123 @@ def pp_phase(fa, ce, card):
 
     t_phase = time.perf_counter()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_pp_"))
+    ck = {k: str(root / f"ckpt_{k}") for k in ("pp", "pptp", "het")}
     try:
         Engine.init()                  # NCCL, a world of one on the card
         x, y = synthetic_corpus(64, SEQ, VOCAB)
         paths, peaks = pp_world1(fa, ce, card, x, y)
         t_a = time.perf_counter() - t_phase
 
-        # (b): the gloo world of two against (a)'s code at world 1 on
-        # the same 4-layer model
+        # (e) at world 1 first: its checkpoint is the world-2 ranks'
+        # cross-layout resume
+        t0 = time.perf_counter()
+        hx, hy = _het_data()
+        peaks["het"], het_w1 = het_world1(card, hx, hy, ck["het"])
+        het_s = time.perf_counter() - t0
+
+        # the world-1 references of the gloo worlds, on the same 4-layer
+        # model: pp (1, 1), for (b) and for (d) (pp+tp at world 1 runs
+        # the same arithmetic: (a) and (d) above, losses within 1e-7)
         start = _flat_params(_pp_model(PP_W2_LAYERS)).detach().cpu().numpy()
         shallow = {s: pp_shallow(x, y, s) for s in PP_SCHEDULES}
-        t0 = time.perf_counter()
-        ckpt = root / "ckpt_pp"
-        ranks, out = _spawn_pp_world(root, {"ckpt": str(ckpt)})
-        w2_s = time.perf_counter() - t0
-        for schedule in PP_SCHEDULES:
-            ref = shallow[schedule]
-            flat = torch.from_numpy(np.load(out / f"flat_{schedule}.npy"))
-            losses = [r[schedule]["losses"] for r in ranks]
-            step_rel = _max_step_rel(losses[0], ref["losses"])
-            row = {"phase": "pp_world2", "schedule": schedule,
-                   "label": "correctness only: two gloo ranks sharing one "
-                            "card, eager, host-routed hops",
-                   "layers": PP_W2_LAYERS, "mesh": {"data": 1, "pipe": 2},
-                   "routes": [r[schedule]["route"] for r in ranks],
-                   "losses": losses[0], "world1_losses": ref["losses"],
-                   "ranks_agree": losses[0] == losses[1],
-                   "max_step_loss_rel": step_rel,
-                   "param_update_rel": _update_rel(
-                       flat.numpy(), ref["flat"].numpy(), start),
-                   "wall_s": [r[schedule]["wall_s"] for r in ranks],
-                   "world1_wall_s": ref["wall_s"],
-                   "tolerance": {"loss": PP_LOSS_RTOL, "update": PP_W2_UPD},
-                   "card": card}
-            emit(row)
-            if len(losses[0]) != PP_W2_STEPS or not row["ranks_agree"] or \
-                    step_rel > PP_LOSS_RTOL or \
-                    row["param_update_rel"] > PP_W2_UPD or \
-                    row["routes"] != ["eager", "eager"]:
-                raise AssertionError(f"pp {schedule} world 2 against world "
-                                     f"1: {row}")
+
+        # (d), four gloo ranks with pp+tp on (1, 2, 2), and (b) and (e),
+        # two gloo ranks, at the same time on the card; meanwhile, once
+        # their GPipe legs have written the checkpoints, (c)'s resumes at
+        # world 1 and (f) run here
+        def meanwhile(procs):
+            _await_snapshot(ck["pp"], procs[2])
+            _await_snapshot(ck["pptp"], procs[4])
+            resumed = {"pp": {}, "pptp": {}}
+            for name, strategy, tp in (("pp", "pp", False),
+                                       ("pp", "tp", False),
+                                       ("pptp", "pp", True)):
+                resumed[name][f"{strategy}{'+tp' if tp else ''}"] = \
+                    pp_shallow(x, y, "gpipe", resume=ck[name],
+                               strategy=strategy, tensor_parallel=tp,
+                               mesh_shape=(1, 1, 1) if tp else (1, 1))
+            t0 = time.perf_counter()
+            served = pp_serving(fa, card, {"pptp": ck["pptp"],
+                                           "pp": ck["pp"]})
+            return resumed, served, time.perf_counter() - t0
+
+        worlds, spawn_s, (resumed, served, serve_s) = _spawn_pp_worlds(
+            root, {4: {"ckpt_pptp": ck["pptp"]},
+                   2: {"ckpt": ck["pp"], "ckpt_pptp": ck["pptp"],
+                       "ckpt_het": ck["het"]}}, meanwhile)
+        paths.update(served)
+        ranks4, out4 = worlds[4]
+        ranks, out = worlds[2]
+        ok = True
+        for s in PP_SCHEDULES:
+            _, held = _world_row("pp_tp_world4", f"pptp_{s}", ranks4, out4,
+                                 shallow[s], start, PP_TP_W4_RTOL,
+                                 PP_W2_UPD, card,
+                                 mesh={"data": 1, "pipe": 2, "model": 2})
+            ok = ok and held
+        if not ok:
+            raise AssertionError("pp+tp (1, 2, 2) against world 1")
+
+        for s in PP_SCHEDULES:
+            _, held = _world_row("pp_world2", s, ranks, out, shallow[s],
+                                 start, PP_LOSS_RTOL, PP_W2_UPD, card,
+                                 layers=PP_W2_LAYERS,
+                                 mesh={"data": 1, "pipe": 2})
+            ok = ok and held
+        het_start = _het_start()
+        for leg in ("het_auto", "het_cut"):
+            _, held = _world_row("het_world2", leg, ranks, out,
+                                 het_w1, het_start, HET_W2_RTOL,
+                                 PP_W2_UPD, card,
+                                 slices=ranks[0][leg]["slices"])
+            ok = ok and held
+        cross = [r["het_cross"] for r in ranks]
+        emit({"phase": "het_cross_layout_resume", "errors": cross,
+              "card": card})
+        if not ok or not all(c and c.startswith("UnsupportedFeatureError")
+                             and "cannot be re-cut" in c for c in cross):
+            raise AssertionError("phase 18 world-2 legs: see the rows")
 
         # (c): the pp (1, 2) checkpoint resumed at world 1 as pp (1, 1)
-        # and as tp (1, 1), against the straight world-2 run
-        intact, _ = file_io.scan_checkpoints(str(ckpt))
-        layout = file_io.read_manifest(intact[0])["layout"]
-        straight = ranks[0]["gpipe"]["losses"]
-        flat_s = torch.from_numpy(np.load(out / "flat_gpipe.npy"))
-        c_row = {"phase": "pp_checkpoint", "layout": layout,
-                 "layout_is_pp2": layout == LayoutSpec.pp(
-                     {"data": 1, "pipe": 2}, 2).to_manifest(),
-                 "straight_tail": straight[PP_CKPT_AT - 1:], "card": card}
-        ok = c_row["layout_is_pp2"]
-        for strategy in ("pp", "tp"):
-            r = pp_shallow(x, y, "gpipe", resume=str(ckpt),
-                           strategy=strategy)
-            c_row[f"{strategy}_resumed"] = {
-                "losses": r["losses"], "neval": r["neval"],
-                "max_step_loss_rel": _max_step_rel(
-                    r["losses"], straight[PP_CKPT_AT - 1:]),
-                "param_update_rel": _update_rel(
-                    r["flat"].numpy(), flat_s.numpy(), start)}
-            res = c_row[f"{strategy}_resumed"]
-            ok = ok and r["neval"] == PP_W2_STEPS + 1 and \
-                len(r["losses"]) == PP_W2_STEPS - PP_CKPT_AT + 1 and \
-                res["max_step_loss_rel"] <= PP_LOSS_RTOL and \
-                res["param_update_rel"] <= PP_W2_UPD
+        # and as tp (1, 1), against the straight world-2 run; and (d)'s
+        # pp+tp (1, 2, 2) checkpoint resumed as pp (1, 2) and pp+tp
+        # (1, 2, 1) (world 2, above) and as pp+tp (1, 1, 1), against the
+        # straight (1, 2, 2) run
+        for leg, label in (("pp_from_pptp", "pp_world2"),
+                           ("pptp_from_pptp", "pp+tp_world2")):
+            r = dict(ranks[0][leg])
+            r["flat"] = torch.from_numpy(np.load(out / f"flat_{leg}.npy"))
+            resumed["pptp"][label] = r
+        c_row = {"phase": "pp_checkpoint", "card": card}
+        for name, straight, flat_s, want in (
+                ("pp", ranks[0]["gpipe"]["losses"],
+                 np.load(out / "flat_gpipe.npy"),
+                 LayoutSpec.pp({"data": 1, "pipe": 2}, 2)),
+                ("pptp", ranks4[0]["pptp_gpipe"]["losses"],
+                 np.load(out4 / "flat_pptp_gpipe.npy"),
+                 LayoutSpec.pp({"data": 1, "pipe": 2, "model": 2}, 2,
+                               "pipe", True))):
+            intact, _ = file_io.scan_checkpoints(ck[name])
+            layout = file_io.read_manifest(intact[0])["layout"]
+            c_row[f"{name}_layout"] = layout
+            ok = ok and layout == want.to_manifest()
+            tail = straight[PP_CKPT_AT - 1:]
+            for label, r in resumed[name].items():
+                res = c_row[f"{name}_as_{label}"] = {
+                    "losses": r["losses"], "neval": r["neval"],
+                    "max_step_loss_rel": _max_step_rel(r["losses"], tail),
+                    "param_update_rel": _update_rel(
+                        r["flat"].numpy(), flat_s, start)}
+                ok = ok and r["neval"] == PP_W2_STEPS + 1 and \
+                    len(r["losses"]) == PP_W2_STEPS - PP_CKPT_AT + 1 and \
+                    res["max_step_loss_rel"] <= PP_LOSS_RTOL and \
+                    res["param_update_rel"] <= PP_W2_UPD
         emit(c_row)
         if not ok:
             raise AssertionError(f"pp checkpoints across layouts: {c_row}")
-        emit({"phase": "pp_done", "world1_s": t_a, "world2_s": w2_s,
+        emit({"phase": "pp_done", "world1_s": t_a, "het_world1_s": het_s,
+              "world4_s": spawn_s[4], "worlds_s": max(spawn_s.values()),
+              "serving_s": serve_s,
               "peak_allocated_bytes": peaks,
               "seconds": time.perf_counter() - t_phase, "card": card})
         return paths
@@ -7632,14 +8121,16 @@ def main():
         return distri_child(int(sys.argv[2]), int(sys.argv[3]),
                             *sys.argv[4:7])
     if len(sys.argv) > 1 and sys.argv[1] == "--pp-rank":
-        # one rank of phase 18's gloo world (started by _spawn_pp_world)
+        # one rank of phase 18's gloo worlds (started by _spawn_pp_worlds)
         return pp_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     only = None
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
-        # a selection of the model-parallel phases alone, after the build
+        # a selection of the multi-rank phases alone, after the build
+        # (15: data parallelism; 17: tp, sp, ep; 18: pp, pp+tp, pp_het,
+        # serving their snapshots)
         only = set(sys.argv[2].split(","))
-        if not only <= {"17", "18"}:
-            raise SystemExit(f"--phases takes 17 and/or 18, not "
+        if not only <= {"15", "17", "18"}:
+            raise SystemExit(f"--phases takes 15, 17 and/or 18, not "
                              f"{sys.argv[2]}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -7671,6 +8162,8 @@ def main():
                                                                libs)})
     if only is not None:
         paths = {}
+        if "15" in only:
+            paths.update(distri_phase(fa, ce, card))
         if "17" in only:
             paths.update(strategy_phase(fa, ce, card)[0])
         if "18" in only:

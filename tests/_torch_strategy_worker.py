@@ -27,11 +27,16 @@ Case kinds:
 - ``shard``: ``tp.shard_params`` / ``gather_params`` of a logical tree;
 - ``recipe``: ``models.run transformer-train`` with the case's flags;
 - ``pp``: a ``train`` case under ``strategy="pp"`` (attention dropout
-  and a compute dtype when the case names them), its result also
-  holding the logical optimizer state in the JAX keys and the loss of
+  and a compute dtype when the case names them, ``tensor_parallel``
+  on a ``("data", "pipe", "model")`` mesh), its result also holding
+  the logical optimizer state in the JAX keys and the loss of
   ``parallel.pp.make_pp_loss_fn`` on the first batch before training;
   or, with ``"uneven": True``, the error each pp entry point raises for
-  a model whose blocks do not divide over the pipe.
+  a model whose blocks do not divide over the pipe;
+- ``het``: a ``Sequential`` (``build_model``'s ``"cnn"`` or ``"ids"``)
+  trained through the heterogeneous pipeline; its result also holds
+  the stages' child ranges and boundary dtypes; with ``"expect_error"``
+  the error the run raises instead.
 """
 
 import os
@@ -63,12 +68,17 @@ class _Losses:
 
 
 def build_model(spec):
-    """A model of the port from a spec dict (``kind`` "lm" or "moe")."""
+    """A model of the port from a spec dict (``kind`` "lm" or "moe", or
+    the Sequentials "cnn" -- JAX's ``tests/test_pp.py`` ``_cnn``, input
+    (N, 16, 16, 3) -- and "ids": token ids through ``Identity`` and a
+    ``LookupTable`` of ``vocab`` rows, input (N, T))."""
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.nn.moe import MoETransformerLM
 
     s = dict(spec)
     kind = s.pop("kind")
+    if kind in ("cnn", "ids"):
+        return seq_model(nn, spec, device="cpu")
     if kind == "lm":
         return nn.TransformerLM(s["vocab"], s["hidden"], s["heads"],
                                 s["layers"], max_len=s["max_len"],
@@ -82,9 +92,38 @@ def build_model(spec):
                             device="cpu")
 
 
+def seq_model(nn, spec, device=None):
+    """The ``"cnn"`` / ``"ids"`` Sequential of ``spec`` in the package
+    ``nn`` (the port's, with ``device``, or the JAX package's)."""
+    kw = {} if device is None else {"device": device}
+    if spec["kind"] == "cnn":
+        conv = nn.SpatialConvolution
+        m = (nn.Sequential()
+             .add(conv(3, 8, 3, 3, 1, 1, 1, 1))
+             .add(nn.ReLU())
+             .add(conv(8, 16, 3, 3, 1, 1, 1, 1))
+             .add(nn.ReLU())
+             .add(nn.SpatialMaxPooling(2, 2, 2, 2))
+             .add(conv(16, 16, 3, 3, 1, 1, 1, 1))
+             .add(nn.ReLU())
+             .add(nn.Flatten())
+             .add(nn.Linear(16 * 8 * 8, 10)))
+    else:
+        m = (nn.Sequential()
+             .add(nn.Identity())
+             .add(nn.LookupTable(spec["vocab"], 8))
+             .add(nn.Flatten())
+             .add(nn.Linear(spec["t"] * 8, 10)))
+    if kw:
+        m.to(kw["device"])
+    return m
+
+
 def build_criterion(kind):
     from bigdl_tpu_torch import nn
 
+    if kind == "class":
+        return nn.CrossEntropyCriterion()
     inner = {"fused": nn.FusedSoftmaxCrossEntropyCriterion,
              "ce": nn.CrossEntropyCriterion}[kind]()
     return nn.TimeDistributedCriterion(inner)
@@ -303,7 +342,8 @@ def pp(case):
         return errors
     load_jax_params(model, case["params"])
     loss_fn = ppm.make_pp_loss_fn(
-        model, crit, mesh, case["kw"]["n_microbatches"], data_axis="data")
+        model, crit, mesh, case["kw"]["n_microbatches"], data_axis="data",
+        model_axis="model" if case["kw"].get("tensor_parallel") else None)
     d = mesh.axis_index("data"), mesh.axis_size("data")
     rows = ppm.pp_rows(case["x"][:case["batch"]],
                        case["kw"]["n_microbatches"], *d)
@@ -322,8 +362,30 @@ def pp(case):
     return result
 
 
+def het(case):
+    """A ``het`` case (module docstring)."""
+    from bigdl_tpu_torch.interop import load_jax_params, to_jax_opt_state
+
+    model = build_model(case["model"])
+    load_jax_params(model, case["params"])
+    try:
+        result, opt = _fit(case, model)
+    except Exception as e:         # noqa: BLE001 -- the case asks for it
+        if not case.get("expect_error"):
+            raise
+        return {"error": type(e).__name__, "message": str(e)}
+    plan = opt.plan
+    result["opt_state"] = to_jax_opt_state(
+        build_method(case["method"]), plan.logical_opt(plan.opt_state),
+        model)
+    result["slices"] = plan.slices
+    result["boundary_dtypes"] = [str(dt) for _, dt in plan.step.specs]
+    return result
+
+
 KINDS = {"train": train, "attention": attention, "vocab_ce": vocab_ce,
-         "moe": moe, "shard": shard, "recipe": recipe, "pp": pp}
+         "moe": moe, "shard": shard, "recipe": recipe, "pp": pp,
+         "het": het}
 
 
 def main(rank, world, init_file, jobs, out_dir):
@@ -397,6 +459,11 @@ def jax_model(spec, x, seed=0):
     from bigdl_tpu.utils.random_generator import RNG
 
     RNG.set_seed(seed)
+    if spec["kind"] in ("cnn", "ids"):
+        model = seq_model(jnn, spec)
+        model.build(jax.ShapeDtypeStruct((2, *x.shape[1:]),
+                                          jnp.asarray(x[:1]).dtype))
+        return model
     s = dict(spec)
     if s.pop("kind") == "lm":
         model = jnn.TransformerLM(s["vocab"], s["hidden"], s["heads"],
@@ -437,9 +504,12 @@ def jax_fit(case, steps=None, ckpt=None, ckpt_every=2, resume=None,
     RNG.set_seed(case.get("seed", 0))
     ds = array_dataset(case["x"], case["y"]) >> SampleToMiniBatch(
         case["batch"])
-    inner = {"fused": jnn.FusedSoftmaxCrossEntropyCriterion,
-             "ce": jnn.CrossEntropyCriterion}[case["criterion"]]()
-    crit = jnn.TimeDistributedCriterion(inner)
+    if case["criterion"] == "class":
+        crit = jnn.CrossEntropyCriterion()
+    else:
+        inner = {"fused": jnn.FusedSoftmaxCrossEntropyCriterion,
+                 "ce": jnn.CrossEntropyCriterion}[case["criterion"]]()
+        crit = jnn.TimeDistributedCriterion(inner)
     name, kw = case["method"]
     method = {"sgd": joptim.SGD, "adam": joptim.Adam}[name](**kw)
     strategy = case["strategy"] if strategy == "same" else strategy

@@ -9,11 +9,14 @@ momentum 0.9.
 
 - In this process (a world of one, destroyed after each test): the
   stage stacking bitwise JAX's ``stack_stage_params`` and a rank's stage
-  its slice; the facade's construction checks and refusals (Sequential
-  and ``tensor_parallel=True`` naming ROADMAP A7); GPipe and 1F1B at
-  ``(1, 1)``; a JAX-format pp pickle (JAX's ``stack_stage_params`` and
-  ``save_checkpoint`` with ``LayoutSpec.pp``'s manifest) resumed by the
-  port.
+  its slice (and its ``"model"`` shards: ``tp.shard_params``' pieces);
+  the facade's construction checks and refusals (a Sequential takes the
+  heterogeneous pipeline, and refuses 1F1B and ``tensor_parallel`` with
+  JAX's type; ``tensor_parallel=True`` stamps JAX's pp+tp layout);
+  GPipe and 1F1B at ``(1, 1)``; a JAX-format pp pickle (JAX's
+  ``stack_stage_params`` and ``save_checkpoint`` with
+  ``LayoutSpec.pp``'s manifest) resumed by the port; the pp+tp
+  checkpoint resumed at a world of one as pp+tp ``(1, 1, 1)``.
 - In spawned gloo worlds (``tests/_torch_strategy_worker.py``, ``pp``
   cases; one spawn of 4 ranks, then one of 2): GPipe and 1F1B at
   ``(data, pipe)`` = ``(1, 2)``, ``(1, 4)``, ``(2, 2)`` with validation
@@ -32,9 +35,18 @@ momentum 0.9.
   parameters and moments); clipping by global norm over the logical
   tree; an uneven cut raising in every entry point; ``transformer-train
   --pp 2``.
-- JAX's own GPipe and 1F1B steps at pipe 2, one step, in a child
-  process of their own (``tests/_torch_jax_pp_child.py``), against the
-  port's world-2 step.
+- pp with tensor parallelism (``tensor_parallel=True`` on a ``("data",
+  "pipe", "model")`` mesh), in the 4-rank spawn: GPipe and 1F1B at
+  ``(1, 2, 2)`` against JAX's single-device run (the bounds above, inside
+  JAX's own ``test_1f1b_composes_with_tensor_parallel_3d`` bounds: loss
+  5e-4, parameters rtol 2e-3, atol 2e-5); a pp ``(1, 4)`` checkpoint
+  resumed as pp+tp, and a pp+tp checkpoint resumed as pp ``(1, 2)`` and
+  as tp ``(1, 2)`` in the 2-rank spawn.
+- JAX's own GPipe and 1F1B steps at pipe 2, and its pp+tp steps
+  (``pp_tp_shardings``, ``manual_axes=("data", "pipe")``) on a ``(1, 2,
+  2)`` mesh of four CPU devices, one step each, in one child process
+  (``tests/_torch_jax_pp_child.py``), against the port's world-2 and
+  world-4 steps.
 """
 
 import os
@@ -72,6 +84,7 @@ SGD = ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "dampening": 0.0})
 PARAM_RTOL, PARAM_ATOL = 2e-4, 2e-5
 RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
 AXES = ("data", "pipe")
+AXES3 = ("data", "pipe", "model")
 CRIT = nn.TimeDistributedCriterion(nn.FusedSoftmaxCrossEntropyCriterion())
 #: (mesh, microbatches) of the parity cases
 LAYOUTS = {"11": ((1, 1), 2), "12": ((1, 2), 2), "14": ((1, 4), 4),
@@ -112,19 +125,35 @@ def _held(res, ref, rtol=PARAM_RTOL, atol=PARAM_ATOL):
                                    atol=atol)
 
 
+def _pptp(schedule):
+    """A case's pp+tp settings: ``(1, 2, 2)`` over ``("data", "pipe",
+    "model")``, 2 microbatches."""
+    return {"mesh": (1, 2, 2), "axes": AXES3,
+            "kw": {"n_microbatches": 2, "schedule": schedule,
+                   "tensor_parallel": True}}
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory, base):
     """Every world case: one spawn of 4 ranks (its 4-stage checkpoint
     resumed by the second), then one of 2."""
     case = base[0]
     tmp = tmp_path_factory.mktemp("pp")
-    ck = {k: str(tmp / k) for k in ("pp4", "tp", "pp2")}
+    ck = {k: str(tmp / k) for k in ("pp4", "tp", "pp2", "pptp")}
     w4 = [dict(case, name=f"{lay}_{sch}", mesh=LAYOUTS[lay][0],
                kw={"n_microbatches": LAYOUTS[lay][1], "schedule": sch})
           for lay in ("14", "22") for sch in ("gpipe", "1f1b")]
     w4.append(dict(case, name="pp4_ck", mesh=(1, 4), steps=2,
                    ckpt=ck["pp4"], ckpt_every=2, val_every=None,
                    kw={"n_microbatches": 4, "schedule": "gpipe"}))
+    for sch in ("gpipe", "1f1b"):
+        w4.append(dict(case, name=f"pptp_{sch}", **_pptp(sch)))
+        w4.append(dict(case, name=f"one_pptp_{sch}", steps=1,
+                       val_every=None, **_pptp(sch)))
+    w4.append(dict(case, name="pptp_ck", steps=2, ckpt=ck["pptp"],
+                   ckpt_every=2, val_every=None, **_pptp("gpipe")))
+    w4.append(dict(case, name="pptp_from_pp4", resume=ck["pp4"],
+                   val_every=None, **_pptp("gpipe")))
     out = spawn_world(tmp_path_factory.mktemp("w4"), 4, w4)
     tp = train_case("tp_ck", SPEC, "tp", (1, 2), ("data", "model"), n=8,
                     t=16, batch=8, steps=2, method=SGD, seed=5,
@@ -147,6 +176,9 @@ def worlds(tmp_path_factory, base):
         dict(case, name="from_pp4", resume=ck["pp4"], val_every=None),
         tp,
         dict(case, name="from_tp", resume=ck["tp"], val_every=None),
+        dict(case, name="from_pptp", resume=ck["pptp"], val_every=None),
+        dict(tp, name="tp_from_pptp", resume=ck["pptp"], ckpt=None,
+             steps=3),
         dict(case, name="clip", clip_norm=0.5, val_every=None),
         dict(case, name="pp2_ck", steps=1, ckpt=ck["pp2"], ckpt_every=1,
              val_every=None, kw={"n_microbatches": 2, "schedule": "1f1b"}),
@@ -211,6 +243,59 @@ def test_stage_stacking_is_jax(base):
         ppm.PipelineStage(model, 0, 3)
 
 
+def test_pp_tp_stage_holds_the_model_shards(base):
+    """A pp+tp rank's stage: its blocks' leaves are the ``"model"`` shards
+    of JAX's ``pp_tp_shardings`` (the sharded dimension halved at tp 2,
+    q, k and v cut by heads), the embedding and the tail whole; the two
+    ranks' pieces give back the logical leaf."""
+    import types
+
+    from jax.sharding import Mesh
+
+    from bigdl_tpu.parallel.pp import pp_tp_shardings
+
+    case = base[0]
+    model = _port_lm(case["params"])
+    jmesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1, 1), AXES3)
+    stacked = jax_stack(_jax_lm(case), 2)
+    specs = dict(_flat(jax.tree.map(
+        lambda sh: tuple(sh.spec), pp_tp_shardings(stacked, jmesh),
+        is_leaf=lambda x: hasattr(x, "spec"))["stages"]))
+    for s in range(2):
+        stages = [ppm.PipelineStage(model, s, 2, tp=types.SimpleNamespace(
+            world=2, rank=r)) for r in range(2)]
+        assert stages[0].layers[0].attn.num_heads == 2
+        for name, piece in stages[0].named_parameters():
+            logical = dict(model.named_parameters())[
+                stages[0].logical_name(name)].detach()
+            if name.split(".")[0] in ("wte", "wpe", "ln_f", "head"):
+                assert torch.equal(piece, logical)
+                continue
+            spec = specs[f"layer{int(name[5])}." + name.split(".", 1)[1]]
+            pieces = [dict(st.named_parameters())[name].detach()
+                      for st in stages]
+            if "model" not in spec:
+                assert stages[0].tp_specs[name] == () and \
+                    all(torch.equal(p, logical) for p in pieces)
+                continue
+            dim = spec.index("model") - 1
+            assert pieces[0].shape[dim] * 2 == logical.shape[dim], name
+            if "qkv" in name:
+                whole = torch.cat([torch.stack(p.unflatten(
+                    0, (3, -1)).unbind(0)) for p in pieces], 1).flatten(0, 1)
+            else:
+                whole = torch.cat(pieces, dim)
+            assert torch.equal(whole, logical), name
+
+
+def _jax_lm(case):
+    from _torch_strategy_worker import jax_model
+
+    jm = jax_model(SPEC, case["x"], seed=5)
+    jm.set_parameters(jax.tree.map(np.asarray, case["params"]))
+    return jm
+
+
 def _flat(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -239,11 +324,24 @@ def test_facade_checks_and_refusals(world_of_one):
         pp(boundaries=[1])
     with pytest.raises(TypeError, match="does not understand"):
         pp(rules=[])
+    # a Sequential takes the heterogeneous pipeline (its layout marked
+    # "het"), which refuses 1F1B and tensor parallelism as JAX does
+    # (NotImplementedError, strategy_optimizer.py:136-144)
     seq = nn.Sequential().add(nn.Linear(8, 8)).add(nn.ReLU())
-    with pytest.raises(UnsupportedFeatureError, match="A7"):
-        pp(model=seq)
-    with pytest.raises(UnsupportedFeatureError, match="A7"):
+    het = pp(model=seq)
+    assert het._layout_spec().to_manifest() == dict(
+        JaxLayoutSpec.pp({"data": 1, "pipe": 1}, 1).to_manifest(), het=True)
+    for bad in ({"schedule": "1f1b"}, {"tensor_parallel": True}):
+        with pytest.raises(NotImplementedError, match="heterogeneous"):
+            pp(model=seq, **bad)
+    # tensor_parallel=True needs the "model" axis, and stamps JAX's
+    # pp+tp layout
+    with pytest.raises(ValueError, match="'model' axis"):
         pp(tensor_parallel=True)
+    mesh3 = Engine.build_mesh((1, 1, 1), AXES3, device="cpu")
+    assert pp(m=mesh3, tensor_parallel=True)._layout_spec().to_manifest() \
+        == JaxLayoutSpec.pp({"data": 1, "pipe": 1, "model": 1}, 1, "pipe",
+                            True).to_manifest()
     with pytest.raises(ValueError, match="not an axis of the mesh"):
         pp(m=Engine.build_mesh((1, 1), ("data", "model"), device="cpu"))
 
@@ -343,11 +441,13 @@ def test_1f1b_equals_gpipe_under_dropout_and_in_bf16(worlds):
 
 
 def test_resume_across_layouts(worlds, base):
-    """pp (1, 4) -> pp (1, 2), and tp (1, 2) -> pp (1, 2): steps 2-3 of
-    the straight pp (1, 2) run."""
+    """pp (1, 4) -> pp (1, 2), tp (1, 2) -> pp (1, 2), pp (1, 4) -> pp+tp
+    (1, 2, 2), and pp+tp (1, 2, 2) -> pp (1, 2) and -> tp (1, 2): steps
+    2-3 of the straight pp (1, 2) run."""
     out, _ = worlds
     straight = out["12_gpipe"][0]
-    for name in ("from_pp4", "from_tp"):
+    for name in ("from_pp4", "from_tp", "pptp_from_pp4", "from_pptp",
+                 "tp_from_pptp"):
         for res in out[name]:
             assert res["neval"] == 4
             np.testing.assert_allclose(res["losses"], straight["losses"][1:],
@@ -358,6 +458,44 @@ def test_resume_across_layouts(worlds, base):
                                            atol=RESUME_ATOL)
     assert out["pp4_ck"][0]["manifest"]["layout"] == JaxLayoutSpec.pp(
         {"data": 1, "pipe": 4}, 4).to_manifest()
+    assert out["pptp_ck"][0]["manifest"]["layout"] == JaxLayoutSpec.pp(
+        {"data": 1, "pipe": 2, "model": 2}, 2, "pipe", True).to_manifest()
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pp_tp_worlds_match_jax_single_device(worlds, base, schedule):
+    """pp+tp at (1, 2, 2): every rank's losses, validation loss and
+    gathered parameters against JAX's single-device run."""
+    out, _ = worlds
+    ref = base[1]
+    ranks = out[f"pptp_{schedule}"]
+    assert len(ranks) == 4
+    for res in ranks:
+        assert res["losses"] == ranks[0]["losses"]
+        _held(res, ref)
+        np.testing.assert_allclose(res["val_loss"], ref[2], rtol=REL)
+        np.testing.assert_allclose(res["first_loss"], ref[0][0], rtol=REL)
+        assert res["route"] == "eager"
+
+
+def test_pp_tp_checkpoint_resumes_at_a_world_of_one(worlds, base,
+                                                    world_of_one):
+    """The pp+tp (1, 2, 2) checkpoint resumed by pp+tp at (1, 1, 1) (one
+    stage, tp 1): steps 2-3 of the straight run."""
+    from _torch_strategy_worker import KINDS
+
+    out, ck = worlds
+    straight = out["12_gpipe"][0]
+    res = KINDS["pp"](dict(base[0], resume=ck["pptp"], val_every=None,
+                           mesh=(1, 1, 1), axes=AXES3,
+                           kw={"n_microbatches": 2, "schedule": "1f1b",
+                               "tensor_parallel": True}))
+    assert res["neval"] == 4
+    np.testing.assert_allclose(res["losses"], straight["losses"][1:],
+                               rtol=RESUME_RTOL)
+    for a, b in zip(jax.tree.leaves(straight["params"]),
+                    jax.tree.leaves(res["params"])):
+        np.testing.assert_allclose(b, a, rtol=RESUME_RTOL, atol=RESUME_ATOL)
 
 
 def test_port_pp_checkpoint_loads_in_jax(worlds):
@@ -410,17 +548,19 @@ def test_recipe_trains_pipelined(worlds):
 
 
 def test_jax_pp_steps_match_the_port(worlds, base, tmp_path):
-    """JAX's GPipe and 1F1B steps at pipe 2 (a child process) against the
-    port's world-2 step on the same weights and batch."""
+    """JAX's GPipe and 1F1B steps at pipe 2, and its pp+tp steps at (1, 2,
+    2), in one child process, against the port's world-2 and world-4
+    steps on the same weights and batch."""
     out, _ = worlds
     case = base[0]
     job = tmp_path / "job.pkl"
     with open(job, "wb") as f:
         pickle.dump({"model": SPEC, "params": case["params"], "x": case["x"],
-                     "y": case["y"], "sgd": SGD[1], "n_microbatches": 2}, f)
+                     "y": case["y"], "sgd": SGD[1], "n_microbatches": 2,
+                     "tasks": ["pp", "pp_tp"]}, f)
     result = tmp_path / "jax.pkl"
     env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
     with open(tmp_path / "child.log", "w") as log:
         child = subprocess.Popen(
             [sys.executable, os.path.join(HERE, "_torch_jax_pp_child.py"),
@@ -435,11 +575,13 @@ def test_jax_pp_steps_match_the_port(worlds, base, tmp_path):
     assert rc == 0, (tmp_path / "child.log").read_text()[-3000:]
     with open(result, "rb") as f:
         got = pickle.load(f)
-    for sch in ("gpipe", "1f1b"):
-        port = out[f"one_{sch}"][0]
-        np.testing.assert_allclose(port["losses"][0], got[sch]["loss"],
-                                   rtol=REL)
-        for a, b in zip(jax.tree.leaves(got[sch]["params"]),
-                        jax.tree.leaves(port["params"])):
-            np.testing.assert_allclose(b, a, rtol=PARAM_RTOL,
-                                       atol=PARAM_ATOL)
+    for task, prefix in (("pp", "one"), ("pp_tp", "one_pptp")):
+        for sch in ("gpipe", "1f1b"):
+            want = got[task][sch]
+            for port in out[f"{prefix}_{sch}"]:
+                np.testing.assert_allclose(port["losses"][0], want["loss"],
+                                           rtol=REL)
+                for a, b in zip(jax.tree.leaves(want["params"]),
+                                jax.tree.leaves(port["params"])):
+                    np.testing.assert_allclose(b, a, rtol=PARAM_RTOL,
+                                               atol=PARAM_ATOL)

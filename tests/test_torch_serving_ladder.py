@@ -374,11 +374,16 @@ def test_refusals_name_their_roadmap_items(tmp_path, lms):
             eng.submit(x, trace=object())
         with pytest.raises(UnsupportedFeatureError, match="A8"):
             eng.predict(x, trace=object())
+        # src_layout= is ported (no refusal): a tree saved under another
+        # layout is redistributed onto the model's first -- a tp tree
+        # is the model's own -- and a layout without an incoming tree is
+        # JAX's ValueError
         params = tm.parameters_tree()
-        with pytest.raises(UnsupportedFeatureError, match="A7"):
-            eng.stage_weights(params, src_layout={"kind": "dp"})
-        with pytest.raises(UnsupportedFeatureError, match="A7"):
-            eng.refresh_params(params, src_layout={"kind": "dp"})
+        tp = {"kind": "tp", "mesh_axes": {"model": 2}}
+        handle = eng.stage_weights(params, src_layout=tp)
+        assert set(handle["params"]) == set(params)
+        with pytest.raises(ValueError, match="pass params="):
+            eng.refresh_params(src_layout={"kind": "dp"})
         (tmp_path / "snap_3").mkdir()
         with pytest.raises(UnsupportedFeatureError, match="A4"):
             eng.refresh_from_snapshot(str(tmp_path / "snap_3"))

@@ -82,9 +82,15 @@ def test_factory_routes_and_refuses(world_of_one):
     pp = optim.Optimizer(_lm(), _ds(), CRIT, strategy="pp", mesh=pp_mesh,
                          device="cpu")
     assert isinstance(pp, StrategyOptimizer) and pp.strategy == "pp"
-    with pytest.raises(UnsupportedFeatureError, match="A7"):
+    # pp+tp is ported: it needs the "model" axis of a 3-D mesh
+    with pytest.raises(ValueError, match="'model' axis"):
         optim.Optimizer(_lm(), _ds(), CRIT, strategy="pp", mesh=pp_mesh,
                         tensor_parallel=True, device="cpu")
+    mesh3 = Engine.build_mesh((1, 1, 1), ("data", "pipe", "model"),
+                              device="cpu")
+    pptp = optim.Optimizer(_lm(), _ds(), CRIT, strategy="pp", mesh=mesh3,
+                           tensor_parallel=True, device="cpu")
+    assert pptp._layout_spec().plane["tensor_parallel"] is True
     with pytest.raises(UnsupportedFeatureError, match="A4"):
         opt.set_sharded_checkpoint("/nonexistent", optim.Trigger.every_epoch())
     # the "data" default degrades to None on a mesh without that axis

@@ -221,11 +221,17 @@ def test_errors_cross_the_wire_typed(lm, servers):
     want = _error_types(jsrv.port, jw)
     assert want == ["ValueError", "KeyError", "ValueError", "KeyError"]
     assert _error_types(psrv.port, tw) == want
-    # a staged tree from another layout is refused, naming A7
-    with pytest.raises(tt.ReplicaCallError, match="A7") as e:
-        tw.call(HOST, psrv.port, "stage_tree", params=params,
-                src_layout={"kind": "tp"})
-    assert e.value.error_type == "UnsupportedFeatureError"
+    # a staged tree from another layout is refused as JAX's worker
+    # refuses it: resharding snapshots cross as a path (the stage op)
+    errors = []
+    for mod, srv in ((tw, psrv), (jw, jsrv)):
+        with pytest.raises(mod.ReplicaCallError,
+                           match="resharding snapshots cross as a PATH") \
+                as e:
+            mod.call(HOST, srv.port, "stage_tree", params=params,
+                     src_layout={"kind": "tp"})
+        errors.append(e.value.error_type)
+    assert errors == ["ValueError", "ValueError"]
 
 
 def test_health_is_plain_python(lm, servers):

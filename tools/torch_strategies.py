@@ -4,11 +4,14 @@ process a card: ``Optimizer(strategy=...)`` (``bigdl_tpu_torch/optim/
 strategy_optimizer.py``) training TransformerLM "small" (768 wide, 12
 heads of 64, 12 layers, vocab 32000, random weights from seed 0) at B8
 T1024 in fp32 with ``Adam(1e-4)``, or its MoE sibling at the same widths
-(8 experts, k 2, capacity factor 1.25).
+(8 experts, k 2, capacity factor 1.25); the heterogeneous pipeline leg
+trains AlexNetOWT (no dropout, 1000 classes, seed 0) at batch 128 of
+224 x 224 x 3 images with SGD.
 
     python3 tools/torch_strategies.py [--steps 8] [--out DIR]
-        [--legs tp,sp_ring,sp_ulysses,ep,pp_gpipe,pp_1f1b]
-        [--meshes 1x4,2x2] [--no-recipe]
+        [--legs tp,sp_ring,sp_ulysses,ep,pp_gpipe,pp_1f1b,pp_tp_gpipe,
+                pp_tp_1f1b,pp_het]
+        [--meshes 1x4,2x2] [--no-recipe] [--het-batch 128]
         [--device cpu --width 32 --layers 2 --vocab 64 --seq-len 16]
 
 needs four cards (``--device cpu`` rehearses the same program on gloo at
@@ -18,12 +21,18 @@ deadline and kills them on a hang.  Each rank runs every leg on every
 mesh -- tp over ``("data", "model")``, sp with ring and with Ulysses
 attention over ``("data", "seq")``, ep over ``("data", "expert")``, pp
 with GPipe and with 1F1B over ``("data", "pipe")`` (4 microbatches; on
-1x4 three blocks a stage, the stage hops ``batch_isend_irecv``) -- for
-``--steps`` steps, each step one CUDA graph with NCCL's collectives
-captured in it, then ``models/run.py transformer-train --sp 4`` once.
-Per leg and rank it records the losses, the mean step time over steps
-3 to ``steps - 2`` (host clock, ending in a sync), tokens/s of the global
-batch, the peak memory allocated, the graphs built, and, under
+1x4 three blocks a stage, the stage hops ``batch_isend_irecv``), pp
+with tensor parallelism (``tensor_parallel=True``) with GPipe and with
+1F1B over ``("data", "pipe", "model")`` on 1x2x2 only (six blocks a
+stage, each stage's blocks over two ranks), and the heterogeneous
+Sequential pipeline (``pp_het``: AlexNetOWT cut by parameter count, 4
+microbatches) over ``("data", "pipe")`` -- for ``--steps`` steps, each
+step one CUDA graph with NCCL's collectives captured in it, then
+``models/run.py transformer-train --sp 4`` once.  Per leg and rank it
+records the losses, the mean step time over steps 3 to ``steps - 2``
+(host clock, ending in a sync), tokens/s (images/s for ``pp_het``) of
+the global batch, the peak memory allocated, the graphs built, and,
+under
 ``torch.profiler`` over the last two steps, the device's busy time and
 the NCCL kernels' share of it (the collectives' share of the step).
 Rank 0 prints one JSON line a leg (every rank's numbers in it) and
@@ -48,13 +57,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from torch_serving_profile import union_us  # noqa: E402
 
 BATCH, WORLD = 8, 4
-#: the legs: mesh axes, and the sequence mode (sp) or schedule (pp)
-LEGS = {"tp": (("data", "model"), None),
-        "sp_ulysses": (("data", "seq"), "ulysses"),
-        "ep": (("data", "expert"), None),
-        "sp_ring": (("data", "seq"), "ring"),
-        "pp_gpipe": (("data", "pipe"), "gpipe"),
-        "pp_1f1b": (("data", "pipe"), "1f1b")}
+#: the legs: mesh axes, the sequence mode (sp) or schedule (pp), and the
+#: meshes the leg runs on (None: ``--meshes``)
+LEGS = {"tp": (("data", "model"), None, None),
+        "sp_ulysses": (("data", "seq"), "ulysses", None),
+        "ep": (("data", "expert"), None, None),
+        "sp_ring": (("data", "seq"), "ring", None),
+        "pp_gpipe": (("data", "pipe"), "gpipe", None),
+        "pp_1f1b": (("data", "pipe"), "1f1b", None),
+        "pp_tp_gpipe": (("data", "pipe", "model"), "gpipe", "1x2x2"),
+        "pp_tp_1f1b": (("data", "pipe", "model"), "1f1b", "1x2x2"),
+        "pp_het": (("data", "pipe"), "gpipe", None)}
 PP_MICRO = 4
 MOE = {"num_experts": 8, "k": 2, "capacity_factor": 1.25}
 LOSS_RTOL = 1e-4
@@ -132,23 +145,47 @@ def _profiled(prof, n):
             "collective_share": nccl / busy if busy else None}
 
 
+def _images(args):
+    """Two batches of ``--het-batch`` images (NHWC, seed 0) and their
+    classes."""
+    g = torch.Generator().manual_seed(0)
+    n = 2 * args.het_batch
+    return (torch.randn((n, 224, 224, 3), generator=g).numpy(),
+            torch.randint(0, 1000, (n,), generator=g,
+                          dtype=torch.int32).numpy())
+
+
 def run_leg(leg, mesh_shape, args, x, y):
     from bigdl_tpu_torch import nn, optim
     from bigdl_tpu_torch.dataset import SampleToMiniBatch, array_dataset
+    from bigdl_tpu_torch.models.alexnet import AlexNetOWT
     from bigdl_tpu_torch.utils.engine import Engine
 
     axes = LEGS[leg][0]
     steps = args.steps
     mesh = Engine.build_mesh(mesh_shape, axes)
-    model = _model(leg, args)
     strategy = leg.split("_")[0]
     kw = {"n_microbatches": PP_MICRO, "schedule": LEGS[leg][1]} \
         if strategy == "pp" else {}
+    batch = BATCH
+    if leg == "pp_het":
+        kw.pop("schedule")
+        batch = args.het_batch
+        model = AlexNetOWT(1000, has_dropout=False, device=args.device,
+                           seed=0)
+        x, y = _images(args)
+        crit, method = nn.ClassNLLCriterion(), optim.SGD(
+            learning_rate=0.01, momentum=0.9)
+    else:
+        if leg.startswith("pp_tp"):
+            kw["tensor_parallel"] = True
+        model = _model(leg, args)
+        crit = nn.TimeDistributedCriterion(
+            nn.FusedSoftmaxCrossEntropyCriterion())
+        method = optim.Adam(learning_rate=1e-4)
     opt = optim.Optimizer(
-        model, array_dataset(x, y) >> SampleToMiniBatch(BATCH),
-        nn.TimeDistributedCriterion(nn.FusedSoftmaxCrossEntropyCriterion()),
-        optim.Adam(learning_rate=1e-4), strategy=strategy, mesh=mesh,
-        device=args.device, **kw)
+        model, array_dataset(x, y) >> SampleToMiniBatch(batch), crit,
+        method, strategy=strategy, mesh=mesh, device=args.device, **kw)
     summary = _Losses()
     opt.set_train_summary(summary)
     first, profiled = 2, 2
@@ -159,9 +196,10 @@ def run_leg(leg, mesh_shape, args, x, y):
     opt.optimize()
     last = steps - profiled
     step_s = (clock.marks[last] - clock.marks[first]) / (last - first)
+    rate = ("images_per_s", batch / step_s) if leg == "pp_het" \
+        else ("tokens_per_s", batch * args.seq_len / step_s)
     row = {"leg": leg, "mesh": dict(mesh.shape),
-           "losses": summary.losses, "step_s": step_s,
-           "tokens_per_s": BATCH * args.seq_len / step_s,
+           "losses": summary.losses, "step_s": step_s, rate[0]: rate[1],
            "peak_allocated_bytes": torch.cuda.max_memory_allocated()
            if args.device == "cuda" else None,
            "route": opt.captured_route,
@@ -221,7 +259,7 @@ def rank_main(args):
     try:
         x, y = synthetic_corpus(64, args.seq_len, args.vocab)
         for leg in args.legs.split(","):
-            for m in args.meshes.split(","):
+            for m in (LEGS[leg][2] or args.meshes).split(","):
                 shape = tuple(int(s) for s in m.split("x"))
                 t0 = time.perf_counter()
                 try:
@@ -285,6 +323,7 @@ def main():
     p.add_argument("--layers", type=int, default=12)
     p.add_argument("--vocab", type=int, default=32000)
     p.add_argument("--seq-len", type=int, default=1024, dest="seq_len")
+    p.add_argument("--het-batch", type=int, default=128, dest="het_batch")
     p.add_argument("--rank", type=int, default=None)
     args = p.parse_args()
     if args.rank is not None:
@@ -303,7 +342,8 @@ def main():
            str(args.steps), "--out", str(out), "--legs", args.legs,
            "--meshes", args.meshes, "--device", args.device, "--width",
            str(args.width), "--layers", str(args.layers), "--vocab",
-           str(args.vocab), "--seq-len", str(args.seq_len)] + (
+           str(args.vocab), "--seq-len", str(args.seq_len), "--het-batch",
+           str(args.het_batch)] + (
         ["--no-recipe"] if args.no_recipe else [])
     if args.device == "cuda":
         from bigdl_tpu_torch.ops import _build
